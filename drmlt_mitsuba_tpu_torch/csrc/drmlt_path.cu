@@ -1,0 +1,327 @@
+// drmlt_path_kernel: n_mut whole DRMLT mutations per chain, one thread per
+// chain, path technique.
+//
+// Replaces the reference's Pallas kernel
+// drmlt_mitsuba_tpu/ops/pallas/megadrmlt.py:_mega_drmlt_kernel (:105,
+// built by make_mega_drmlt :504) with technique="path"; its mmlt and
+// pssmlt modes are not ported yet.  Plain twin:
+// ops/megadrmlt.py:drmlt_path_step_reference, which also documents the
+// uniform order, the state / film / stats layouts and the acceptance rules
+// (megadrmlt.py:264-435).
+//
+// What bounds it on an H100: the 2-3 path traces per mutation (see
+// path_trace.cu: divergent, latency-bound per-thread work); the proposal
+// arithmetic is O(D) per mutation and the splat is 1 or 3 atomicAdds of
+// 3 floats.  With D = 76 the per-chain arrays x, y_raw and z_raw would
+// spill from registers to local memory, so
+//   * x lives in the chain state (D+6, C) itself, updated in place,
+//   * y_raw and z_raw live in a dim-major global scratch (2D, C),
+// and the trace reads its PSS dims from there through a stride (PssView),
+// wrapping on the fly; neighbouring threads touch neighbouring floats, and
+// at the slice's size (C = 65536) state plus scratch (~62 MB) mostly stay in
+// the 50 MB L2.  The TPU kernel keeps the same arrays in VMEM tiles.
+//
+// Not carried over from the TPU kernel: the bf16 hi/lo one-hot matmul
+// splat and its rec_ref ring buffer (atomicAdd into the film instead), and
+// the shape gates n_chains % 2048, H % 8, W % 128.  Stats are kept per
+// chain (6, C) and summed by the caller, which keeps them deterministic.
+//
+// Uniforms come either from an input array (n_mut * n_rand, C) read in the
+// twin's order, or from a counter-based Philox4x32-10: draw j of mutation
+// m of chain c is word j % 4 of Philox(counter = (c, m, j / 4, 0),
+// key = (seed, launch)), kept to its top 23 bits (core/rng.py is the
+// twin).
+#include "path_trace.cuh"
+
+namespace drmlt {
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
+    uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
+    uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
+}
+
+// The uniforms of one chain, drawn in order.
+struct Draws {
+  const float* uni;   // (n_mut * n_rand, C) or null
+  long C;
+  int c, n_rand, m, j;
+  uint32_t seed, launch;
+  uint32_t w[4];
+
+  __device__ void start(int m_) {
+    m = m_;
+    j = 0;
+  }
+  __device__ float next() {
+    float r;
+    if (uni) {
+      r = uni[((long)m * n_rand + j) * C + c];
+    } else {
+      if ((j & 3) == 0) {
+        w[0] = (uint32_t)c;
+        w[1] = (uint32_t)m;
+        w[2] = (uint32_t)(j >> 2);
+        w[3] = 0u;
+        philox4x32_10(w, seed, launch);
+      }
+      r = (float)(w[j & 3] >> 9) * 1.1920928955078125e-07f;   // 2^-23
+    }
+    ++j;
+    return r;
+  }
+};
+
+struct ChainArgs {
+  float* state;      // (D + 6, C)
+  float* scratch;    // (2D, C): y_raw rows, then z_raw rows
+  float* film;       // (H, W, 3)
+  float* stats;      // (6, C)
+  int D, C, H, W, n_mut, drtype, sampled, timid;
+  float p_large, s1, s2, log_ratio, sig2, disp;
+};
+
+enum { kOrbital = 0, kGreen = 1, kMira = 2 };
+
+__device__ __forceinline__ float metropolis_clamp(float r) {
+  return (isfinite(r) && r >= 0.0f) ? fminf(r, 1.0f) : 0.0f;
+}
+
+__device__ __forceinline__ float kelemen_sample(float u, float s2, float log_ratio) {
+  float sign = u < 0.5f ? 1.0f : -1.0f;
+  float x = u < 0.5f ? 2.0f * u : 2.0f * (u - 0.5f);
+  return sign * (s2 * expf((1.0f - x) * log_ratio));
+}
+
+// -inf outside [s1, s2] (integrators/kernels.py:Kelemen.log_pdf says why)
+__device__ __forceinline__ float kelemen_log_pdf(float du, float s1, float s2, float log_ratio) {
+  float d = fabsf(du);
+  bool ok = d >= s1 && d <= s2;
+  float p = 1.0f / (2.0f * fmaxf(d, 1e-20f) * (-log_ratio));
+  return logf(ok ? p : 0.0f);
+}
+
+struct Traced {
+  float lum, r, g, b;
+};
+
+// Trace one proposal; non-finite or negative lum becomes 0 and the stored
+// value is rgb / lum (unit luminance).
+__device__ __forceinline__ Traced trace_state(const Tables& tb, const PssView& v) {
+  V3 L = trace_path(tb, v);
+  float l = lum(L);
+  l = (isfinite(l) && l >= 0.0f) ? l : 0.0f;
+  float li = l > 0.0f ? 1.0f / fmaxf(l, 1e-30f) : 0.0f;
+  return {l, L.x * li, L.y * li, L.z * li};
+}
+
+// Add rgb * w at pixel (floor(px W), floor(py H)); a position of exactly
+// 1.0 after the wrap falls outside the image and is dropped.
+__device__ __forceinline__ void splat(const ChainArgs& a, float px, float py, const Traced& s,
+                                      float w) {
+  float xi = floorf(px * (float)a.W);
+  float yi = floorf(py * (float)a.H);
+  if (xi >= 0.0f && xi < (float)a.W && yi >= 0.0f && yi < (float)a.H) {
+    float* f = a.film + ((long)yi * a.W + (long)xi) * 3;
+    atomicAdd(f, s.r * w);
+    atomicAdd(f + 1, s.g * w);
+    atomicAdd(f + 2, s.b * w);
+  }
+}
+
+__global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restrict__ uni,
+                                  int n_rand, uint32_t seed, uint32_t launch) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= a.C) return;
+  const long C = a.C;
+  const int D = a.D;
+  float* x = a.state + c;            // row d at x[d * C]
+  float* yr = a.scratch + c;         // y_raw row d at yr[d * C]
+  float* zr = a.scratch + D * C + c; // z_raw row d at zr[d * C]
+
+  Traced cur{x[D * C], x[(D + 3) * C], x[(D + 4) * C], x[(D + 5) * C]};
+  float px_x = x[(D + 1) * C], py_x = x[(D + 2) * C];
+  float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  Draws dr{uni, C, c, n_rand, 0, 0, seed, launch, {0u, 0u, 0u, 0u}};
+
+  for (int m = 0; m < a.n_mut; ++m) {
+    dr.start(m);
+    // ---- stage 1: large-step coin, D large-step uniforms, Kelemen steps
+    const bool large = dr.next() < a.p_large;
+    for (int d = 0; d < D; ++d) yr[d * C] = dr.next();
+    if (a.drtype == kOrbital) {
+      const int P = D / 2;
+      for (int p = 0; p < P; ++p) zr[p * C] = dr.next();   // radius uniforms
+      for (int p = 0; p < P; ++p) {
+        float u_ang = dr.next();
+        if (!large) {
+          float r = kelemen_sample(zr[p * C], a.s2, a.log_ratio);
+          float ang = u_ang * kTwoPi;
+          float du0 = r * cosf(ang), du1 = r * sinf(ang);
+          yr[2 * p * C] = x[2 * p * C] + du0;
+          yr[(2 * p + 1) * C] = x[(2 * p + 1) * C] + du1;
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        float u_k = dr.next();
+        if (!large) yr[d * C] = x[d * C] + kelemen_sample(u_k, a.s2, a.log_ratio);
+      }
+    }
+    // ---- stage 2: orbital rotates the UNWRAPPED y - x about y by a
+    // wrapped-Cauchy angle; green / mira take a small Gaussian step from x
+    if (a.drtype == kOrbital) {
+      for (int p = 0; p < D / 2; ++p) {
+        float u = dr.next();
+        float sign = u < 0.5f ? 1.0f : -1.0f;
+        float xx = u < 0.5f ? 2.0f * u : 2.0f * (u - 0.5f);
+        float v = cosf(kTwoPi * xx);
+        float cth = fminf(fmaxf((v + a.disp) / (1.0f + a.disp * v), -1.0f), 1.0f);
+        float sth = sign * sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+        float y0 = yr[2 * p * C], y1 = yr[(2 * p + 1) * C];
+        float du0 = y0 - x[2 * p * C];
+        float du1 = y1 - x[(2 * p + 1) * C];
+        zr[2 * p * C] = y0 - cth * du0 + sth * du1;
+        zr[(2 * p + 1) * C] = y1 - sth * du0 - cth * du1;
+      }
+    } else {
+      for (int d = 0; d < D; ++d) zr[d * C] = dr.next();   // Box-Muller u1
+      for (int d = 0; d < D; ++d) {
+        float u2 = dr.next();
+        float r = sqrtf(-2.0f * logf(fmaxf(1.0f - zr[d * C], 1e-38f)));
+        zr[d * C] = x[d * C] + r * cosf(kTwoPi * u2) * a.sig2;
+      }
+    }
+    const float coin1 = dr.next();
+    const float coin2 = dr.next();
+
+    // ---- traces
+    const PssView vy{yr, nullptr, nullptr, C, 1};
+    const PssView vz{zr, nullptr, nullptr, C, 1};
+    const Traced ty = trace_state(tb, vy);
+    const Traced tz = trace_state(tb, vz);
+    const float px_y = pss_wrap(yr[0]), py_y = pss_wrap(yr[C]);
+    const float px_z = pss_wrap(zr[0]), py_z = pss_wrap(zr[C]);
+
+    // ---- acceptance
+    const float a1 = metropolis_clamp(ty.lum / fmaxf(cur.lum, 1e-30f));
+    const bool accept1 = coin1 < a1;
+    bool do_second = !accept1 && (a.timid || !large);
+    const float lum_ratio = tz.lum / fmaxf(cur.lum, 1e-30f);
+    float a2;
+    if (a.drtype == kOrbital) {
+      if (tz.lum < ty.lum) {
+        a2 = 0.0f;
+      } else if (tz.lum >= cur.lum) {
+        a2 = 1.0f;
+      } else {
+        float den = cur.lum - ty.lum;
+        a2 = metropolis_clamp((tz.lum - ty.lum) / (fabsf(den) > 0.0f ? den : 1.0f));
+      }
+    } else if (a.drtype == kMira) {
+      float a_rev = metropolis_clamp(ty.lum / fmaxf(tz.lum, 1e-30f));
+      float lq = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        float y = yr[d * C];
+        lq = lq + (kelemen_log_pdf(zr[d * C] - y, a.s1, a.s2, a.log_ratio) -
+                   kelemen_log_pdf(x[d * C] - y, a.s1, a.s2, a.log_ratio));
+      }
+      float q_ratio = large ? 1.0f : expf(lq);
+      a2 = metropolis_clamp(lum_ratio * q_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
+      if (a_rev >= 1.0f) a2 = 0.0f;
+      if (!isfinite(q_ratio)) a2 = 0.0f;
+    } else {
+      // green: trace the reverse path y* = z - (y - x)
+      const PssView vr{zr, yr, x, C, 2};
+      float lum_rev = trace_state(tb, vr).lum;
+      float a_rev = metropolis_clamp(lum_rev / fmaxf(tz.lum, 1e-30f));
+      a2 = metropolis_clamp(lum_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
+      if (a_rev >= 1.0f) a2 = 0.0f;
+    }
+    if (!(tz.lum > 0.0f)) a2 = 0.0f;
+    if (!do_second) a2 = 0.0f;
+    const bool accept2 = (coin2 < a2) && do_second;
+
+    // ---- splat: three-state weights, or one state picked by its weight
+    const float w_y = a1;
+    const float w_z = (1.0f - a1) * a2;
+    const float w_x = 1.0f - w_y - w_z;
+    if (a.sampled) {
+      float u_sel = dr.next();
+      bool pick_y = u_sel < w_y;
+      bool pick_z = !pick_y && (u_sel < w_y + w_z);
+      if (pick_y) {
+        splat(a, px_y, py_y, ty, 1.0f);
+      } else if (pick_z) {
+        splat(a, px_z, py_z, tz, 1.0f);
+      } else {
+        splat(a, px_x, py_x, cur, 1.0f);
+      }
+    } else {
+      splat(a, px_x, py_x, cur, w_x);
+      splat(a, px_y, py_y, ty, w_y);
+      splat(a, px_z, py_z, tz, w_z);
+    }
+
+    // ---- state select: accept1 wins, then accept2
+    const bool a2m = accept2 && !accept1;
+    if (accept1) {
+      for (int d = 0; d < D; ++d) x[d * C] = pss_wrap(yr[d * C]);
+      cur = ty;
+      px_x = px_y;
+      py_x = py_y;
+    } else if (a2m) {
+      for (int d = 0; d < D; ++d) x[d * C] = pss_wrap(zr[d * C]);
+      cur = tz;
+      px_x = px_z;
+      py_x = py_z;
+    }
+    st[0] += a1;
+    st[1] += a2;
+    st[2] += accept1 ? 1.0f : 0.0f;
+    st[3] += accept2 ? 1.0f : 0.0f;
+    st[4] += large ? 1.0f : 0.0f;
+    st[5] += (accept1 || a2m) ? 1.0f : 0.0f;
+  }
+
+  x[D * C] = cur.lum;
+  x[(D + 1) * C] = px_x;
+  x[(D + 2) * C] = py_x;
+  x[(D + 3) * C] = cur.r;
+  x[(D + 4) * C] = cur.g;
+  x[(D + 5) * C] = cur.b;
+  for (int s = 0; s < 6; ++s) a.stats[s * C + c] += st[s];
+}
+
+}  // namespace drmlt
+
+extern "C" int drmlt_path_launch(const float* tri, int n_tris, const float* mat, int n_mats,
+                                 const float* em, int n_ems, const float* cam, int max_depth,
+                                 int min_depth, int rr_depth, int use_nee, float* state,
+                                 float* scratch, int D, int C, float* film, int H, int W,
+                                 float* stats, const float* uniforms, int n_rand, int n_mut,
+                                 uint32_t seed, uint32_t launch, int drtype, int sampled,
+                                 int timid, float p_large, float s1, float s2, float log_ratio,
+                                 float sig2, float disp, void* stream) {
+  drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
+                   max_depth, min_depth, rr_depth, use_nee};
+  drmlt::ChainArgs a{state, scratch, film, stats, D, C, H, W, n_mut, drtype, sampled, timid,
+                     p_large, s1, s2, log_ratio, sig2, disp};
+  const int block = 128;
+  int grid = (C + block - 1) / block;
+  if (grid > 0) {
+    drmlt::drmlt_path_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(tb, a, uniforms, n_rand,
+                                                                       seed, launch);
+  }
+  return (int)cudaGetLastError();
+}

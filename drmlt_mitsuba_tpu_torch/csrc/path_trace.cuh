@@ -1,0 +1,349 @@
+// One unidirectional path per thread: the device-side trace shared by
+// path_trace.cu (bootstrap / MC trace) and drmlt_path.cu (chain kernel).
+//
+// Port of the reference's Pallas trace body
+// drmlt_mitsuba_tpu/ops/pallas/megatrace.py:path_trace_tile (:832) for the
+// slice-1 subset: triangles (brute sweep), area emitters, pinhole camera,
+// BSDF kinds diffuse / mirror / smooth dielectric.  The plain-PyTorch twin
+// is ops/megatrace.py:path_trace_reference; every expression below keeps
+// the twin's evaluation order, and the library is built with
+// --fmad=false, so kernel and twin round alike.
+//
+// What is not carried over from the TPU kernel: the one-hot MXU row
+// fetches (tables are indexed directly), the Cephes atan / acos (unused on
+// this subset; libdevice would serve), the SMEM / VMEM sweep tiers and the
+// (8, L) lane tiles.  A lane whose path has ended leaves the bounce loop
+// (`break`): the TPU evaluates every lane to max_depth under masks.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace drmlt {
+
+constexpr float kInf = 3.0e38f;
+constexpr float kRayEps = 1e-4f;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kPi2 = 1.57079632679489661923f;      // pi / 2
+constexpr float kPi4 = 0.78539816339744830962f;      // pi / 4
+constexpr float kTwoPi = 6.28318530717958647692f;
+
+constexpr int kTriCols = 20;   // v0 e1 e2 n0 n1 n2 mat_id erow
+constexpr int kMatCols = 18;   // kind albedo eta k rough spec_refl spec_trans
+constexpr int kEmCols = 20;    // rad area pmf cdf v0 e1 e2 ng kind
+
+constexpr int kDiffuse = 0;
+constexpr int kDielectric = 2;
+constexpr int kMirror = 8;
+
+// PSS layout (integrators/layout.py)
+constexpr int kSensorDims = 4;
+constexpr int kBounceDims = 9;
+constexpr int kOffLightPick = 0;
+constexpr int kOffLightU = 1;
+constexpr int kOffBsdfCmp = 3;
+constexpr int kOffBsdfU = 4;
+constexpr int kOffRR = 6;
+
+struct Tables {
+  const float* tri;   // (T, 20)
+  const float* mat;   // (M, 18)
+  const float* em;    // (E, 20)
+  const float* cam;   // (24,)
+  int n_tris, n_mats, n_ems;
+  int max_depth, min_depth, rr_depth, use_nee;
+};
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 ld3(const float* p) {
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 operator*(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
+
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 normalize(V3 v) {
+  float n = sqrtf(fmaxf(dot(v, v), 1e-30f));
+  return {v.x / n, v.y / n, v.z / n};
+}
+__device__ __forceinline__ float lum(V3 c) {
+  return 0.212671f * c.x + 0.715160f * c.y + 0.072169f * c.z;
+}
+__device__ __forceinline__ float mis_power(float a, float b) {
+  float a2 = a * a, b2 = b * b, s = a2 + b2;
+  return s > 0.0f ? a2 / s : 0.0f;
+}
+__device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+__device__ __forceinline__ float safe_div(float a, float b) {
+  return fabsf(b) > 0.0f ? a / b : 0.0f;
+}
+
+// Reflective [0, 1] wrap: floor-mod 2 (jnp.mod's sign of the divisor, not
+// fmodf's sign of the dividend), then reflect (1, 2] onto [0, 1).
+__device__ __forceinline__ float pss_wrap(float y) {
+  float t = y - 2.0f * floorf(y * 0.5f);
+  return t > 1.0f ? 2.0f - t : t;
+}
+
+// Duff et al. 2017 branchless frame (core/frame.py)
+struct Frame {
+  V3 s, t, n;
+};
+__device__ __forceinline__ Frame make_frame(V3 n) {
+  float sign = n.z >= 0.0f ? 1.0f : -1.0f;
+  float a = -1.0f / (sign + n.z);
+  float b = n.x * n.y * a;
+  return {v3(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x),
+          v3(b, sign + n.y * n.y * a, -n.y), n};
+}
+__device__ __forceinline__ V3 to_local(const Frame& f, V3 v) {
+  return {dot(v, f.s), dot(v, f.t), dot(v, f.n)};
+}
+__device__ __forceinline__ V3 to_world(const Frame& f, V3 v) {
+  return {v.x * f.s.x + v.y * f.t.x + v.z * f.n.x,
+          v.x * f.s.y + v.y * f.t.y + v.z * f.n.y,
+          v.x * f.s.z + v.y * f.t.z + v.z * f.n.z};
+}
+
+// Shirley-Chiu concentric disk -> cosine hemisphere (core/warp.py)
+__device__ __forceinline__ V3 cosine_hemisphere(float u1, float u2) {
+  float x = 2.0f * u1 - 1.0f;
+  float y = 2.0f * u2 - 1.0f;
+  bool zero = (x == 0.0f) && (y == 0.0f);
+  bool use_x = fabsf(x) > fabsf(y);
+  float r = use_x ? x : y;
+  float ratio = use_x ? (x != 0.0f ? y / x : 0.0f) : (y != 0.0f ? x / y : 0.0f);
+  float phi = use_x ? kPi4 * ratio : kPi2 - kPi4 * ratio;
+  if (zero) r = 0.0f;
+  float px = r * cosf(phi), py = r * sinf(phi);
+  return {px, py, sqrtf(fmaxf(1.0f - px * px - py * py, 0.0f))};
+}
+
+// Closest hit over every triangle (Moller-Trumbore).  The strict `<`
+// keeps the lower triangle index on a tie, as the reference sweep does.
+static __device__ float closest_hit(const Tables& tb, V3 o, V3 d, int* best_id) {
+  float best_t = kInf;
+  int best = -1;
+  for (int i = 0; i < tb.n_tris; ++i) {
+    const float* r = tb.tri + i * kTriCols;
+    V3 v0 = ld3(r), e1 = ld3(r + 3), e2 = ld3(r + 6);
+    V3 p = cross(d, e2);
+    float det = dot(e1, p);
+    bool ok = fabsf(det) > 1e-12f;
+    float inv = 1.0f / (ok ? det : 1.0f);
+    V3 t = o - v0;
+    float b1 = dot(t, p) * inv;
+    V3 q = cross(t, e1);
+    float b2 = dot(d, q) * inv;
+    float tt = dot(e2, q) * inv;
+    if (ok && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > kRayEps && tt < best_t) {
+      best_t = tt;
+      best = i;
+    }
+  }
+  *best_id = best;
+  return best_t;
+}
+
+// Any hit with kRayEps < t < tmax.
+static __device__ bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
+  for (int i = 0; i < tb.n_tris; ++i) {
+    const float* r = tb.tri + i * kTriCols;
+    V3 v0 = ld3(r), e1 = ld3(r + 3), e2 = ld3(r + 6);
+    V3 p = cross(d, e2);
+    float det = dot(e1, p);
+    bool ok = fabsf(det) > 1e-12f;
+    float inv = 1.0f / (ok ? det : 1.0f);
+    V3 t = o - v0;
+    float b1 = dot(t, p) * inv;
+    V3 q = cross(t, e1);
+    float b2 = dot(d, q) * inv;
+    float tt = dot(e2, q) * inv;
+    if (ok && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > kRayEps && tt < tmax) return true;
+  }
+  return false;
+}
+
+// Primary-sample dims of one lane, read through a pointer and a stride
+// (dim j of lane c lives at base[j * stride]).  mode 0 reads a[j];
+// mode 1 reads pss_wrap(a[j]) (a chain proposal from its unwrapped form);
+// mode 2 reads pss_wrap(a[j] - (b[j] - x[j])) (green's reverse path
+// y* = z - (y - x)).
+struct PssView {
+  const float* a;
+  const float* b;
+  const float* x;
+  long stride;
+  int mode;
+  __device__ __forceinline__ float operator()(int j) const {
+    long k = (long)j * stride;
+    if (mode == 0) return a[k];
+    if (mode == 1) return pss_wrap(a[k]);
+    return pss_wrap(a[k] - (b[k] - x[k]));
+  }
+};
+
+// The path radiance of one lane.
+static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) {
+  const float* cam = tb.cam;
+  float cx = (2.0f * u(0) - 1.0f) * cam[12];
+  float cy = (1.0f - 2.0f * u(1)) * cam[13];
+  V3 dc = v3(cx, cy, 1.0f);
+  V3 d = normalize(v3(dot(ld3(cam), dc), dot(ld3(cam + 3), dc), dot(ld3(cam + 6), dc)));
+  V3 o = ld3(cam + 9);
+
+  V3 tp = v3(1.0f, 1.0f, 1.0f);
+  V3 L = v3(0.0f, 0.0f, 0.0f);
+  float prev_pdf = 0.0f;
+  bool prev_delta = true;
+  float eta_scale = 1.0f;
+
+  for (int depth = 1; depth <= tb.max_depth; ++depth) {
+    const int base = kSensorDims + (depth - 1) * kBounceDims;
+    int id;
+    float t_hit = closest_hit(tb, o, d, &id);
+    if (id < 0) break;   // escaped: no environment on this subset
+
+    const float* av = tb.tri + id * kTriCols;
+    V3 e1 = ld3(av + 3), e2 = ld3(av + 6);
+    V3 hp = o + t_hit * d;
+    V3 p = cross(d, e2);
+    float det = dot(e1, p);
+    float inv = 1.0f / (fabsf(det) > 1e-12f ? det : 1.0f);
+    V3 t = o - ld3(av);
+    float b1 = clamp01(dot(t, p) * inv);
+    float b2 = clamp01(dot(d, cross(t, e1)) * inv);
+    float w0 = 1.0f - b1 - b2;
+    V3 ng = normalize(cross(e1, e2));
+    V3 ns = normalize(w0 * ld3(av + 9) + b1 * ld3(av + 12) + b2 * ld3(av + 15));
+    int erow = (int)__ldg(av + 19);
+
+    const float* mr = tb.mat + (int)__ldg(av + 18) * kMatCols;
+    const int kind = (int)__ldg(mr);
+    const V3 albedo = ld3(mr + 1);
+
+    // ---- emission at the hit, MIS'd against NEE at the previous vertex
+    float cos_l = -dot(d, ng);
+    if (erow >= 0 && cos_l > 0.0f && depth >= tb.min_depth) {
+      const float* er = tb.em + erow * kEmCols;
+      float w_bsdf = 1.0f;
+      if (tb.use_nee && !prev_delta) {
+        float nee_pdf = __ldg(er + 4) * t_hit * t_hit / fmaxf(cos_l * __ldg(er + 3), 1e-30f);
+        w_bsdf = mis_power(prev_pdf, nee_pdf);
+      }
+      L = L + tp * ld3(er) * w_bsdf;
+    }
+
+    const Frame fr = make_frame(ns);
+    const V3 wi = to_local(fr, v3(-d.x, -d.y, -d.z));
+    const float cos_i = wi.z;
+    const bool delta_m = kind == kMirror || kind == kDielectric;
+
+    // ---- NEE: one area-light sample, immediate shadow sweep
+    if (tb.use_nee && kind == kDiffuse && depth + 1 <= tb.max_depth &&
+        depth + 1 >= tb.min_depth) {
+      float u_pick = u(base + kOffLightPick);
+      float u_l1 = u(base + kOffLightU), u_l2 = u(base + kOffLightU + 1);
+      int row = 0;
+      for (int e = 0; e < tb.n_ems; ++e) row += (u_pick >= __ldg(tb.em + e * kEmCols + 5)) ? 1 : 0;
+      row = min(row, tb.n_ems - 1);
+      const float* lr = tb.em + row * kEmCols;
+      float tw = sqrtf(fmaxf(1.0f - u_l1, 0.0f));
+      float lb0 = 1.0f - tw;
+      float lb1 = tw * u_l2;
+      V3 pl = ld3(lr + 6) + lb0 * ld3(lr + 9) + lb1 * ld3(lr + 12);
+      V3 tol = pl - hp;
+      float dist2 = dot(tol, tol);
+      float dist = sqrtf(fmaxf(dist2, 1e-20f));
+      V3 ldir = v3(tol.x / dist, tol.y / dist, tol.z / dist);
+      float lcos = -dot(ldir, ld3(lr + 15));
+      float area = __ldg(lr + 3);
+      float ds_pdf = lcos * area > 0.0f ? __ldg(lr + 4) * dist2 / fmaxf(lcos * area, 1e-30f) : 0.0f;
+      if (!(lcos > 1e-7f)) ds_pdf = 0.0f;
+      // diffuse eval: f * |cos_o| and its cosine pdf
+      V3 wo = to_local(fr, ldir);
+      float abs_co = fabsf(wo.z);
+      bool same_side = (cos_i * wo.z) > 0.0f;
+      float scale = abs_co / kPi;
+      V3 f = same_side ? albedo * scale : v3(0.0f, 0.0f, 0.0f);
+      float f_pdf = same_side ? fmaxf(abs_co, 0.0f) / kPi : 0.0f;
+      if (ds_pdf > 0.0f && lum(f) > 0.0f) {
+        float eps_sh = kRayEps * fmaxf(t_hit, 1.0f);
+        V3 sh_o = hp + ldir * eps_sh;
+        float sh_tmax = dist * 0.999f - kRayEps;
+        if (!occluded(tb, sh_o, ldir, sh_tmax)) {
+          float w_nee = mis_power(ds_pdf, f_pdf);
+          float inv_pdf = w_nee / fmaxf(ds_pdf, 1e-20f);
+          L = L + tp * f * ld3(lr) * inv_pdf;
+        }
+      }
+    }
+
+    // ---- BSDF sampling
+    float uc = u(base + kOffBsdfCmp);
+    float ub1 = u(base + kOffBsdfU), ub2 = u(base + kOffBsdfU + 1);
+    float sign_i = cos_i < 0.0f ? -1.0f : 1.0f;
+    V3 sw = v3(0.0f, 0.0f, 0.0f), bw = v3(0.0f, 0.0f, 0.0f);
+    float bs_pdf = 0.0f, bs_eta = 1.0f;
+    if (kind == kDiffuse) {
+      sw = cosine_hemisphere(ub1, ub2) * sign_i;
+      bs_pdf = fmaxf(sw.z * sign_i, 0.0f) / kPi;
+      bw = albedo;
+    } else if (kind == kMirror) {
+      sw = v3(-wi.x, -wi.y, wi.z);
+      bw = ld3(mr + 11);
+    } else if (kind == kDielectric) {
+      // smooth dielectric: reflect with probability F, else refract
+      float eta_d = __ldg(mr + 4);
+      float eta_it = cos_i > 0.0f ? eta_d : 1.0f / eta_d;
+      float ci = fabsf(cos_i);
+      float sin2_t = (1.0f - ci * ci) / (eta_it * eta_it);
+      float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+      float r_s = safe_div(ci - eta_it * cos_t, ci + eta_it * cos_t);
+      float r_p = safe_div(eta_it * ci - cos_t, eta_it * ci + cos_t);
+      float f_d = sin2_t >= 1.0f ? 1.0f : 0.5f * (r_s * r_s + r_p * r_p);
+      if (uc < f_d) {
+        sw = v3(-wi.x, -wi.y, wi.z);
+        bw = ld3(mr + 11);
+      } else {
+        float eta_ti = cos_i > 0.0f ? 1.0f / eta_d : eta_d;
+        sw = v3(-wi.x * eta_ti, -wi.y * eta_ti, cos_i > 0.0f ? -cos_t : cos_t);
+        bw = ld3(mr + 14) * eta_ti * eta_ti;
+        bs_eta = cos_i > 0.0f ? eta_d : 1.0f / eta_d;
+      }
+    }
+    V3 wo_w = to_world(fr, sw);
+    tp = tp * bw;
+    eta_scale = eta_scale * bs_eta;
+    bool alive = lum(tp) > 0.0f && depth + 1 <= tb.max_depth;
+
+    // ---- Russian roulette
+    if (depth >= tb.rr_depth) {
+      float q = fminf(fmaxf(fmaxf(tp.x, tp.y), tp.z) * eta_scale * eta_scale, 0.95f);
+      bool survive = u(base + kOffRR) < q;
+      float inv_q = 1.0f / fmaxf(q, 1e-8f);
+      if (survive) tp = tp * inv_q;
+      alive = alive && survive;
+    }
+    if (!alive) break;
+
+    float eps_n = kRayEps * fmaxf(t_hit, 1.0f);
+    o = hp + wo_w * eps_n;
+    d = wo_w;
+    prev_pdf = bs_pdf;
+    prev_delta = delta_m;
+  }
+  return L;
+}
+
+}  // namespace drmlt

@@ -1,0 +1,135 @@
+"""Build and load the CUDA kernels of `csrc/`.
+
+The sources are compiled with nvcc at first use into one shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a
+build takes seconds).  The library's file name carries a hash of the
+sources and flags; it lives under `build/` at the repository root, which
+git ignores.  ptxas's register / spill / shared-memory report of the build
+is kept beside it.
+
+There is no fallback: a missing nvcc, a failed build or a launch the
+CUDA runtime refuses raises.  `LAUNCHES` counts, per kernel, the launches the
+wrappers made; a wrapper adds one exactly where it launches its kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # no a*b+c contraction: the plain PyTorch twins round every product
+    # and sum separately, and hit tests near triangle edges and acceptance
+    # coins near a threshold flip on the last bit
+    "--fmad=false",
+]
+
+LAUNCHES = {"path_trace": 0, "drmlt_path": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+
+# C signatures of the entry points (csrc/*.cu, extern "C")
+_SIGNATURES = {
+    "path_trace_launch": [
+        _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
+        _I, _I, _I, _I,                        # max/min/rr depth, use_nee
+        _P, _I, _P, _P,                        # uT, R, out, stream
+    ],
+    "drmlt_path_launch": [
+        _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
+        _I, _I, _I, _I,                        # max/min/rr depth, use_nee
+        _P, _P, _I, _I,                        # state, scratch, D, C
+        _P, _I, _I, _P,                        # film, H, W, stats
+        _P, _I, _I, _U, _U,                    # uniforms, n_rand, n_mut,
+        #                                        seed, launch
+        _I, _I, _I,                            # drtype, sampled, timid
+        _F, _F, _F, _F, _F, _F,                # p_large, s1, s2, log_ratio,
+        #                                        sigma2, dispersion
+        _P,                                    # stream
+    ],
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    cand = shutil.which("nvcc")
+    if cand is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = os.path.join(home, "bin", "nvcc")
+        if not os.path.exists(cand):
+            raise RuntimeError("nvcc not found (PATH, CUDA_HOME or "
+                               "/usr/local/cuda): cannot build the kernels")
+    return cand
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libdrmlt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/ into the hashed library unless it already exists."""
+    out = library_path()
+    log = out.with_suffix(".ptxas.txt")
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True,
+                          ptxas=log.read_text() if log.exists() else "")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.time()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    log.write_text(res.stdout + res.stderr)
+    build_info.update(path=str(out), seconds=time.time() - t0, cached=False,
+                      ptxas=res.stdout + res.stderr)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, kernel: str):
+    """Raise on a non-zero cudaError_t returned by an entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {rc} at launch")
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

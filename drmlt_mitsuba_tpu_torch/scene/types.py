@@ -1,0 +1,238 @@
+"""Flat SoA scene representation (counterpart of
+drmlt_mitsuba_tpu/scene/types.py), as dataclasses of torch tensors.
+
+Slice 1 carries the subset the path technique runs on: a triangle soup, an
+(empty) sphere table, a material table without modifier wrappers, area
+emitters plus a constant environment, and a perspective camera.  Field names
+and enum values are the reference's, so `scene/convert.py` can carry a
+reference scene across leaf for leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# BSDF kind enum (MaterialTable.kind); same numbering as the reference
+BSDF_DIFFUSE = 0
+BSDF_CONDUCTOR = 1
+BSDF_DIELECTRIC = 2
+BSDF_ROUGH_CONDUCTOR = 3
+BSDF_PLASTIC = 4
+BSDF_ROUGH_PLASTIC = 5
+BSDF_THIN_DIELECTRIC = 6
+BSDF_ROUGH_DIELECTRIC = 7
+BSDF_MIRROR = 8
+BSDF_NULL = 9
+BSDF_PHONG = 10
+BSDF_WARD = 11
+BSDF_ROUGH_DIFFUSE = 12
+BSDF_DIFFTRANS = 13
+BSDF_HK = 14
+BSDF_IRAWAN = 15
+
+EMITTER_AREA = 0
+
+CAMERA_PERSPECTIVE = 0
+
+
+def _t(a, dtype=None):
+    """numpy -> torch (a C-ordered copy), keeping the numpy dtype unless
+    one is given."""
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C", copy=True))
+
+
+@dataclasses.dataclass
+class TriangleSoA:
+    """Triangle soup: p = v0 + b1*e1 + b2*e2."""
+    v0: torch.Tensor          # (T, 3)
+    e1: torch.Tensor          # (T, 3)
+    e2: torch.Tensor          # (T, 3)
+    n0: torch.Tensor          # (T, 3) per-vertex shading normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor         # (T, 2)
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    mat_id: torch.Tensor      # (T,) int32
+    emitter_id: torch.Tensor  # (T,) int32 emitter-table row, -1 = none
+    valid: torch.Tensor       # (T,) bool
+
+
+@dataclasses.dataclass
+class SphereSoA:
+    center: torch.Tensor      # (S, 3)
+    radius: torch.Tensor      # (S,)
+    mat_id: torch.Tensor      # (S,) int32
+    emitter_id: torch.Tensor  # (S,) int32
+    valid: torch.Tensor       # (S,) bool
+
+
+@dataclasses.dataclass
+class MaterialTable:
+    kind: torch.Tensor        # (M,) int32
+    albedo: torch.Tensor      # (M, 3)
+    eta: torch.Tensor         # (M, 3) real IOR (dielectric: channel 0)
+    k: torch.Tensor           # (M, 3) imaginary IOR
+    roughness: torch.Tensor   # (M,)
+    spec_refl: torch.Tensor   # (M, 3)
+    spec_trans: torch.Tensor  # (M, 3)
+    tex_id: torch.Tensor      # (M,) int32, -1 = constant albedo
+    two_sided: torch.Tensor   # (M,) bool
+
+
+@dataclasses.dataclass
+class EmitterTable:
+    """Power-weighted emitter rows (area triangles) plus a constant
+    environment radiance."""
+    kind: torch.Tensor        # (E,) int32
+    tri_idx: torch.Tensor     # (E,) int32
+    radiance: torch.Tensor    # (E, 3)
+    area: torch.Tensor        # (E,)
+    pos: torch.Tensor         # (E, 3)
+    aux: torch.Tensor         # (E, 4)
+    pmf: torch.Tensor         # (E,)
+    cdf: torch.Tensor         # (E,) inclusive
+    env_radiance: torch.Tensor  # (3,)
+
+
+@dataclasses.dataclass
+class Camera:
+    to_world: torch.Tensor         # (4, 4)
+    tan_half_fov_x: torch.Tensor   # scalar
+    tan_half_fov_y: torch.Tensor   # scalar
+    aperture_radius: torch.Tensor  # scalar
+    focus_distance: torch.Tensor   # scalar
+    kind: int = CAMERA_PERSPECTIVE
+
+
+@dataclasses.dataclass
+class Scene:
+    tris: TriangleSoA
+    spheres: SphereSoA
+    materials: MaterialTable
+    emitters: EmitterTable
+    camera: Camera
+
+
+def make_material_table(mats: list[dict]) -> MaterialTable:
+    """MaterialTable from a list of parameter dicts (host-side)."""
+    unsupported = {"opacity", "mix_other", "mix_weight", "coat_eta",
+                   "coat_sigma_a", "interior_medium", "normal_tex"}
+    for d in mats:
+        bad = unsupported & set(d)
+        if bad:
+            raise NotImplementedError(
+                f"material modifiers not yet ported: {sorted(bad)}")
+    m = len(mats)
+
+    def field(name, default, shape):
+        out = np.zeros((m,) + shape, dtype=np.float32)
+        for i, d in enumerate(mats):
+            out[i] = np.broadcast_to(np.asarray(d.get(name, default),
+                                                np.float32), shape)
+        return _t(out)
+
+    return MaterialTable(
+        kind=_t([d["kind"] for d in mats], np.int32),
+        albedo=field("albedo", 0.5, (3,)),
+        eta=field("eta", 1.5, (3,)),
+        k=field("k", 0.0, (3,)),
+        roughness=field("roughness", 0.1, ()),
+        spec_refl=field("spec_refl", 1.0, (3,)),
+        spec_trans=field("spec_trans", 1.0, (3,)),
+        tex_id=_t([d.get("tex_id", -1) for d in mats], np.int32),
+        two_sided=_t([bool(d.get("two_sided", True)) for d in mats], bool),
+    )
+
+
+def build_triangles(vertices, faces, mat_id, emitter_id, normals=None,
+                    uvs=None) -> TriangleSoA:
+    """Host-side constructor from an indexed mesh."""
+    v = np.asarray(vertices, np.float32)
+    f = np.asarray(faces, np.int32)
+    p0, p1, p2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    e1 = p1 - p0
+    e2 = p2 - p0
+    gn = np.cross(e1, e2)
+    gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+    if normals is None:
+        n0 = n1 = n2 = gn
+    else:
+        n = np.asarray(normals, np.float32)
+        n0, n1, n2 = n[f[:, 0]], n[f[:, 1]], n[f[:, 2]]
+    if uvs is None:
+        uv0 = uv1 = uv2 = np.zeros((len(f), 2), np.float32)
+    else:
+        uv = np.asarray(uvs, np.float32)
+        uv0, uv1, uv2 = uv[f[:, 0]], uv[f[:, 1]], uv[f[:, 2]]
+    return TriangleSoA(
+        v0=_t(p0), e1=_t(e1), e2=_t(e2), n0=_t(n0), n1=_t(n1), n2=_t(n2),
+        uv0=_t(uv0), uv1=_t(uv1), uv2=_t(uv2),
+        mat_id=_t(mat_id, np.int32), emitter_id=_t(emitter_id, np.int32),
+        valid=torch.ones(len(f), dtype=torch.bool),
+    )
+
+
+def empty_spheres() -> SphereSoA:
+    """A single invalid sphere (the reference keeps the table non-empty)."""
+    return SphereSoA(
+        center=torch.zeros((1, 3), dtype=torch.float32),
+        radius=torch.full((1,), -1.0, dtype=torch.float32),
+        mat_id=torch.zeros((1,), dtype=torch.int32),
+        emitter_id=torch.full((1,), -1, dtype=torch.int32),
+        valid=torch.zeros((1,), dtype=torch.bool),
+    )
+
+
+_LUM_W = np.array([0.212671, 0.715160, 0.072169], np.float32)
+
+
+def build_emitters(tris: TriangleSoA, radiance_by_emitter,
+                   env_radiance=(0.0, 0.0, 0.0)) -> EmitterTable:
+    """One power-weighted area row per emissive triangle (pick ∝ power,
+    then uniform barycentric), as in the reference's build_emitters."""
+    kinds, tri_rows, rads, areas, power = [], [], [], [], []
+    eid = tris.emitter_id.numpy()
+    e1s, e2s = tris.e1.numpy(), tris.e2.numpy()
+    rad_tab = np.asarray(radiance_by_emitter, np.float32)
+    for i in np.nonzero(eid >= 0)[0]:
+        area = 0.5 * float(np.linalg.norm(np.cross(e1s[i], e2s[i])))
+        rad = rad_tab[eid[i]]
+        kinds.append(EMITTER_AREA)
+        tri_rows.append(int(i))
+        rads.append(rad)
+        areas.append(area)
+        power.append(max(float(rad @ _LUM_W) * area * np.pi, 1e-12))
+    if not kinds:   # keep shapes static: one dummy zero-power area row
+        kinds, tri_rows, areas, power = [EMITTER_AREA], [0], [0.0], [1.0]
+        rads = [np.zeros(3, np.float32)]
+    E = len(kinds)
+    power = np.asarray(power, np.float32)
+    pmf = power / power.sum()
+    cdf = np.cumsum(pmf).astype(np.float32)
+    cdf[-1] = 1.0
+    return EmitterTable(
+        kind=_t(kinds, np.int32), tri_idx=_t(tri_rows, np.int32),
+        radiance=_t(np.stack(rads)), area=_t(areas, np.float32),
+        pos=torch.zeros((E, 3), dtype=torch.float32),
+        aux=torch.zeros((E, 4), dtype=torch.float32),
+        pmf=_t(pmf), cdf=_t(cdf),
+        env_radiance=_t(env_radiance, np.float32),
+    )
+
+
+def make_camera(to_world, fov_x_deg: float, aspect: float,
+                aperture_radius: float = 0.0,
+                focus_distance: float = 1.0) -> Camera:
+    """Perspective camera from a (4, 4) camera-to-world transform."""
+    tan_x = float(np.tan(np.deg2rad(fov_x_deg) / 2.0))
+    f32 = torch.float32
+    return Camera(
+        to_world=torch.as_tensor(to_world, dtype=f32),
+        tan_half_fov_x=torch.tensor(tan_x, dtype=f32),
+        tan_half_fov_y=torch.tensor(tan_x / aspect, dtype=f32),
+        aperture_radius=torch.tensor(aperture_radius, dtype=f32),
+        focus_distance=torch.tensor(focus_distance, dtype=f32),
+    )

@@ -35,3 +35,8 @@ def _clear_jax_caches_per_module():
     import jax
 
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips itself without one")
