@@ -10,8 +10,11 @@ utils/`) so each module has an obvious counterpart.  This package imports
 torch and numpy only: never jax, never `drmlt_mitsuba_tpu`.
 
 Slice 1 covers the DRMLT path-technique render
-(`integrators.drmlt.render_drmlt_path`) on triangle scenes with area
-emitters and diffuse / mirror / dielectric materials.
+(`integrators.drmlt.render_drmlt_path`), slice 2 the depth-grouped DRMLT
+render over the MMLT technique
+(`integrators.mmlt_grouped.render_drmlt_mmlt_grouped`), both on triangle
+scenes with area emitters and diffuse / rough diffuse / mirror / dielectric
+materials.
 """
 
 __version__ = "0.1.0"

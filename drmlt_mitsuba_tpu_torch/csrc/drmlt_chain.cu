@@ -1,25 +1,37 @@
-// drmlt_path_kernel: n_mut whole DRMLT mutations per chain, one thread per
-// chain, path technique.
+// drmlt_chain_kernel<Trace>: n_mut whole DRMLT mutations per chain, one
+// thread per chain.  The trace body is the template parameter: PathTrace
+// (the unidirectional path technique, path_trace.cuh) or MmltTrace (a
+// fixed-depth MMLT group, mmlt_trace.cuh).  Proposals, the three acceptance
+// types, the sampled and three-state splats, the stats and the Philox /
+// uniforms modes are shared by both.
 //
 // Replaces the reference's Pallas kernel
 // drmlt_mitsuba_tpu/ops/pallas/megadrmlt.py:_mega_drmlt_kernel (:105,
-// built by make_mega_drmlt :504) with technique="path"; its mmlt and
-// pssmlt modes are not ported yet.  Plain twin:
-// ops/megadrmlt.py:drmlt_path_step_reference, which also documents the
+// built by make_mega_drmlt :504) with technique="path" and
+// technique="mmlt"; its pssmlt mode is not ported yet.  Plain twin:
+// ops/megadrmlt.py:drmlt_chain_step_reference, which also documents the
 // uniform order, the state / film / stats layouts and the acceptance rules
 // (megadrmlt.py:264-435).
 //
-// What bounds it on an H100: the 2-3 path traces per mutation (see
-// path_trace.cu: divergent, latency-bound per-thread work); the proposal
-// arithmetic is O(D) per mutation and the splat is 1 or 3 atomicAdds of
-// 3 floats.  With D = 76 the per-chain arrays x, y_raw and z_raw would
-// spill from registers to local memory, so
+// In mmlt mode (megadrmlt.py:158-190, 280-330, 367): the trace reads the
+// pinned depth dim u_depth = 1 - 0.5/k before the chain's dims and its
+// value is scaled by 1/k; chain dim 0 (the strategy) is frozen on small
+// steps in both stages and skipped by mira's q-ratio; with
+// fix_emitter_path, stage 2 is the identity on the light-walk dims
+// [em_lo, em_hi) unless the chain's current strategy is light tracing.
+//
+// What bounds it on an H100: the 2-3 traces per mutation (see
+// path_trace.cu and mmlt_trace.cu: divergent, latency-bound per-thread
+// work); the proposal arithmetic is O(D) per mutation and the splat is 1 or
+// 3 atomicAdds of 3 floats.  With D up to 76 the per-chain arrays x, y_raw
+// and z_raw would spill from registers to local memory, so
 //   * x lives in the chain state (D+6, C) itself, updated in place,
 //   * y_raw and z_raw live in a dim-major global scratch (2D, C),
 // and the trace reads its PSS dims from there through a stride (PssView),
 // wrapping on the fly; neighbouring threads touch neighbouring floats, and
-// at the slice's size (C = 65536) state plus scratch (~62 MB) mostly stay in
-// the 50 MB L2.  The TPU kernel keeps the same arrays in VMEM tiles.
+// at C = 65536 state plus scratch (~62 MB at D = 76, ~30 MB at D = 36)
+// mostly stay in the 50 MB L2.  The TPU kernel keeps the same arrays in
+// VMEM tiles.
 //
 // Not carried over from the TPU kernel: the bf16 hi/lo one-hot matmul
 // splat and its rec_ref ring buffer (atomicAdd into the film instead), and
@@ -31,7 +43,7 @@
 // m of chain c is word j % 4 of Philox(counter = (c, m, j / 4, 0),
 // key = (seed, launch)), kept to its top 23 bits (core/rng.py is the
 // twin).
-#include "path_trace.cuh"
+#include "mmlt_trace.cuh"
 
 namespace drmlt {
 
@@ -88,6 +100,8 @@ struct ChainArgs {
   float* film;       // (H, W, 3)
   float* stats;      // (6, C)
   int D, C, H, W, n_mut, drtype, sampled, timid;
+  int fix_em;        // mmlt fix_emitter_path: stage 2 keeps [em_lo, em_hi)
+  int em_lo, em_hi, k_depth;
   float p_large, s1, s2, log_ratio, sig2, disp;
 };
 
@@ -111,26 +125,53 @@ __device__ __forceinline__ float kelemen_log_pdf(float du, float s1, float s2, f
   return logf(ok ? p : 0.0f);
 }
 
+// A traced proposal: non-finite or negative lum becomes 0 and the stored
+// value is rgb / lum (unit luminance); px, py its film position.
 struct Traced {
-  float lum, r, g, b;
+  float lum, r, g, b, px, py;
 };
 
-// Trace one proposal; non-finite or negative lum becomes 0 and the stored
-// value is rgb / lum (unit luminance).
-__device__ __forceinline__ Traced trace_state(const Tables& tb, const PssView& v) {
-  V3 L = trace_path(tb, v);
+__device__ __forceinline__ Traced finish(V3 L, float px, float py) {
   float l = lum(L);
   l = (isfinite(l) && l >= 0.0f) ? l : 0.0f;
   float li = l > 0.0f ? 1.0f / fmaxf(l, 1e-30f) : 0.0f;
-  return {l, L.x * li, L.y * li, L.z * li};
+  return {l, L.x * li, L.y * li, L.z * li, px, py};
 }
+
+// The path technique: the film position is PSS dims 0-1.
+struct PathTrace {
+  static constexpr bool kMmlt = false;
+  Tables tb;
+  __device__ Traced operator()(const PssView& v) const {
+    return finish(trace_path(tb, v), v(0), v(1));
+  }
+};
+
+// A depth-k MMLT group: the pinned depth dim precedes the chain's dims,
+// and 1/k undoes the kernel's uniform depth pmf.
+struct MmltTrace {
+  static constexpr bool kMmlt = true;   // chain dim 0 is the strategy
+  Tables tb;
+  MmltCfg mc;
+  float u_depth, inv_k;
+
+  struct Shifted {
+    const PssView& v;
+    float u0;
+    __device__ float operator()(int j) const { return j == 0 ? u0 : v(j - 1); }
+  };
+
+  __device__ Traced operator()(const PssView& v) const {
+    const MmltOut r = trace_mmlt(tb, mc, Shifted{v, u_depth});
+    return finish(r.value * inv_k, r.px, r.py);
+  }
+};
 
 // Add rgb * w at pixel (floor(px W), floor(py H)); a position of exactly
 // 1.0 after the wrap falls outside the image and is dropped.
-__device__ __forceinline__ void splat(const ChainArgs& a, float px, float py, const Traced& s,
-                                      float w) {
-  float xi = floorf(px * (float)a.W);
-  float yi = floorf(py * (float)a.H);
+__device__ __forceinline__ void splat(const ChainArgs& a, const Traced& s, float w) {
+  float xi = floorf(s.px * (float)a.W);
+  float yi = floorf(s.py * (float)a.H);
   if (xi >= 0.0f && xi < (float)a.W && yi >= 0.0f && yi < (float)a.H) {
     float* f = a.film + ((long)yi * a.W + (long)xi) * 3;
     atomicAdd(f, s.r * w);
@@ -139,8 +180,13 @@ __device__ __forceinline__ void splat(const ChainArgs& a, float px, float py, co
   }
 }
 
-__global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restrict__ uni,
-                                  int n_rand, uint32_t seed, uint32_t launch) {
+// 128 threads per block and 4 resident blocks per SM cap the registers at
+// 65536 / (128 * 4): above 128 registers an SM holds only 3 blocks, and the
+// latency-bound traces lose a quarter of their warps to hide it.
+template <class Trace>
+__global__ void __launch_bounds__(128, 4)
+    drmlt_chain_kernel(Trace trace, ChainArgs a, const float* __restrict__ uni, int n_rand,
+                       uint32_t seed, uint32_t launch) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.C) return;
   const long C = a.C;
@@ -148,9 +194,12 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
   float* x = a.state + c;            // row d at x[d * C]
   float* yr = a.scratch + c;         // y_raw row d at yr[d * C]
   float* zr = a.scratch + D * C + c; // z_raw row d at zr[d * C]
+  // mmlt: chain dim 0 (the strategy) moves on large steps only; a
+  // compile-time flag, so the path instantiation carries none of it
+  constexpr bool frozen0 = Trace::kMmlt;
 
-  Traced cur{x[D * C], x[(D + 3) * C], x[(D + 4) * C], x[(D + 5) * C]};
-  float px_x = x[(D + 1) * C], py_x = x[(D + 2) * C];
+  Traced cur{x[D * C],       x[(D + 3) * C], x[(D + 4) * C],
+             x[(D + 5) * C], x[(D + 1) * C], x[(D + 2) * C]};
   float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   Draws dr{uni, C, c, n_rand, 0, 0, seed, launch, {0u, 0u, 0u, 0u}};
 
@@ -168,6 +217,7 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
           float r = kelemen_sample(zr[p * C], a.s2, a.log_ratio);
           float ang = u_ang * kTwoPi;
           float du0 = r * cosf(ang), du1 = r * sinf(ang);
+          if (frozen0 && p == 0) du0 = 0.0f;
           yr[2 * p * C] = x[2 * p * C] + du0;
           yr[(2 * p + 1) * C] = x[(2 * p + 1) * C] + du1;
         }
@@ -175,7 +225,10 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
     } else {
       for (int d = 0; d < D; ++d) {
         float u_k = dr.next();
-        if (!large) yr[d * C] = x[d * C] + kelemen_sample(u_k, a.s2, a.log_ratio);
+        if (!large) {
+          float du = (frozen0 && d == 0) ? 0.0f : kelemen_sample(u_k, a.s2, a.log_ratio);
+          yr[d * C] = x[d * C] + du;
+        }
       }
     }
     // ---- stage 2: orbital rotates the UNWRAPPED y - x about y by a
@@ -202,16 +255,20 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
         zr[d * C] = x[d * C] + r * cosf(kTwoPi * u2) * a.sig2;
       }
     }
+    if (frozen0) zr[0] = x[0];
+    if (Trace::kMmlt && a.fix_em) {
+      // identity on the light-walk dims unless light tracing (s == k)
+      float s_cur = fminf(floorf(x[0] * (float)(a.k_depth + 1)), (float)a.k_depth);
+      if (s_cur != (float)a.k_depth) {
+        for (int d = a.em_lo; d < a.em_hi; ++d) zr[d * C] = x[d * C];
+      }
+    }
     const float coin1 = dr.next();
     const float coin2 = dr.next();
 
     // ---- traces
-    const PssView vy{yr, nullptr, nullptr, C, 1};
-    const PssView vz{zr, nullptr, nullptr, C, 1};
-    const Traced ty = trace_state(tb, vy);
-    const Traced tz = trace_state(tb, vz);
-    const float px_y = pss_wrap(yr[0]), py_y = pss_wrap(yr[C]);
-    const float px_z = pss_wrap(zr[0]), py_z = pss_wrap(zr[C]);
+    const Traced ty = trace(PssView{yr, nullptr, nullptr, C, 1});
+    const Traced tz = trace(PssView{zr, nullptr, nullptr, C, 1});
 
     // ---- acceptance
     const float a1 = metropolis_clamp(ty.lum / fmaxf(cur.lum, 1e-30f));
@@ -231,7 +288,7 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
     } else if (a.drtype == kMira) {
       float a_rev = metropolis_clamp(ty.lum / fmaxf(tz.lum, 1e-30f));
       float lq = 0.0f;
-      for (int d = 0; d < D; ++d) {
+      for (int d = frozen0 ? 1 : 0; d < D; ++d) {
         float y = yr[d * C];
         lq = lq + (kelemen_log_pdf(zr[d * C] - y, a.s1, a.s2, a.log_ratio) -
                    kelemen_log_pdf(x[d * C] - y, a.s1, a.s2, a.log_ratio));
@@ -242,8 +299,7 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
       if (!isfinite(q_ratio)) a2 = 0.0f;
     } else {
       // green: trace the reverse path y* = z - (y - x)
-      const PssView vr{zr, yr, x, C, 2};
-      float lum_rev = trace_state(tb, vr).lum;
+      float lum_rev = trace(PssView{zr, yr, x, C, 2}).lum;
       float a_rev = metropolis_clamp(lum_rev / fmaxf(tz.lum, 1e-30f));
       a2 = metropolis_clamp(lum_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
       if (a_rev >= 1.0f) a2 = 0.0f;
@@ -260,17 +316,19 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
       float u_sel = dr.next();
       bool pick_y = u_sel < w_y;
       bool pick_z = !pick_y && (u_sel < w_y + w_z);
+      // one call per state: passing the picked struct (pick_y ? ty : ...)
+      // kept the three in the stack frame (ptxas: 256 bytes against 192)
       if (pick_y) {
-        splat(a, px_y, py_y, ty, 1.0f);
+        splat(a, ty, 1.0f);
       } else if (pick_z) {
-        splat(a, px_z, py_z, tz, 1.0f);
+        splat(a, tz, 1.0f);
       } else {
-        splat(a, px_x, py_x, cur, 1.0f);
+        splat(a, cur, 1.0f);
       }
     } else {
-      splat(a, px_x, py_x, cur, w_x);
-      splat(a, px_y, py_y, ty, w_y);
-      splat(a, px_z, py_z, tz, w_z);
+      splat(a, cur, w_x);
+      splat(a, ty, w_y);
+      splat(a, tz, w_z);
     }
 
     // ---- state select: accept1 wins, then accept2
@@ -278,13 +336,9 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
     if (accept1) {
       for (int d = 0; d < D; ++d) x[d * C] = pss_wrap(yr[d * C]);
       cur = ty;
-      px_x = px_y;
-      py_x = py_y;
     } else if (a2m) {
       for (int d = 0; d < D; ++d) x[d * C] = pss_wrap(zr[d * C]);
       cur = tz;
-      px_x = px_z;
-      py_x = py_z;
     }
     st[0] += a1;
     st[1] += a2;
@@ -295,33 +349,54 @@ __global__ void drmlt_path_kernel(Tables tb, ChainArgs a, const float* __restric
   }
 
   x[D * C] = cur.lum;
-  x[(D + 1) * C] = px_x;
-  x[(D + 2) * C] = py_x;
+  x[(D + 1) * C] = cur.px;
+  x[(D + 2) * C] = cur.py;
   x[(D + 3) * C] = cur.r;
   x[(D + 4) * C] = cur.g;
   x[(D + 5) * C] = cur.b;
   for (int s = 0; s < 6; ++s) a.stats[s * C + c] += st[s];
 }
 
-}  // namespace drmlt
-
-extern "C" int drmlt_path_launch(const float* tri, int n_tris, const float* mat, int n_mats,
-                                 const float* em, int n_ems, const float* cam, int max_depth,
-                                 int min_depth, int rr_depth, int use_nee, float* state,
-                                 float* scratch, int D, int C, float* film, int H, int W,
-                                 float* stats, const float* uniforms, int n_rand, int n_mut,
-                                 uint32_t seed, uint32_t launch, int drtype, int sampled,
-                                 int timid, float p_large, float s1, float s2, float log_ratio,
-                                 float sig2, float disp, void* stream) {
-  drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
-                   max_depth, min_depth, rr_depth, use_nee};
-  drmlt::ChainArgs a{state, scratch, film, stats, D, C, H, W, n_mut, drtype, sampled, timid,
-                     p_large, s1, s2, log_ratio, sig2, disp};
+template <class Trace>
+static int launch_chain(const Trace& trace, const ChainArgs& a, const float* uniforms,
+                        int n_rand, uint32_t seed, uint32_t launch, cudaStream_t stream) {
   const int block = 128;
-  int grid = (C + block - 1) / block;
+  int grid = (a.C + block - 1) / block;
   if (grid > 0) {
-    drmlt::drmlt_path_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(tb, a, uniforms, n_rand,
-                                                                       seed, launch);
+    drmlt_chain_kernel<Trace><<<grid, block, 0, stream>>>(trace, a, uniforms, n_rand, seed, launch);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace drmlt
+
+// technique 0 = path (max/min/rr depth and use_nee of the PathConfig),
+// 1 = mmlt (max_depth = the group's k; light_image, eye_dims, light_dims of
+// its BDPTConfig).
+extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat, int n_mats,
+                                  const float* em, int n_ems, const float* cam, int technique,
+                                  int max_depth, int min_depth, int rr_depth, int use_nee,
+                                  int light_image, int eye_dims, int light_dims, float* state,
+                                  float* scratch, int D, int C, float* film, int H, int W,
+                                  float* stats, const float* uniforms, int n_rand, int n_mut,
+                                  uint32_t seed, uint32_t launch, int drtype, int sampled,
+                                  int timid, int fix_emitter_path, float p_large, float s1,
+                                  float s2, float log_ratio, float sig2, float disp,
+                                  float u_depth, float inv_k, void* stream) {
+  const bool mmlt = technique == 1;
+  if (mmlt && (max_depth < 1 || max_depth > drmlt::kMaxMmltDepth)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
+                   max_depth, min_depth, rr_depth, use_nee};
+  const int em_lo = 1 + eye_dims;
+  drmlt::ChainArgs a{state, scratch, film, stats, D, C, H, W, n_mut, drtype, sampled, timid,
+                     (mmlt && fix_emitter_path) ? 1 : 0, em_lo,
+                     em_lo + light_dims, max_depth, p_large, s1, s2, log_ratio, sig2, disp};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mmlt) {
+    drmlt::MmltTrace tr{tb, drmlt::MmltCfg{max_depth, light_image, eye_dims}, u_depth, inv_k};
+    return drmlt::launch_chain(tr, a, uniforms, n_rand, seed, launch, st);
+  }
+  return drmlt::launch_chain(drmlt::PathTrace{tb}, a, uniforms, n_rand, seed, launch, st);
 }

@@ -1,13 +1,15 @@
 // One unidirectional path per thread: the device-side trace shared by
-// path_trace.cu (bootstrap / MC trace) and drmlt_path.cu (chain kernel).
+// path_trace.cu (bootstrap / MC trace) and drmlt_chain.cu (chain kernel),
+// and the scene functions mmlt_trace.cuh shares with it.
 //
 // Port of the reference's Pallas trace body
 // drmlt_mitsuba_tpu/ops/pallas/megatrace.py:path_trace_tile (:832) for the
-// slice-1 subset: triangles (brute sweep), area emitters, pinhole camera,
-// BSDF kinds diffuse / mirror / smooth dielectric.  The plain-PyTorch twin
-// is ops/megatrace.py:path_trace_reference; every expression below keeps
-// the twin's evaluation order, and the library is built with
-// --fmad=false, so kernel and twin round alike.
+// port's subset: triangles (brute sweep), area emitters, pinhole camera,
+// BSDF kinds diffuse / rough diffuse (Oren-Nayar) / mirror / smooth
+// dielectric.  The plain-PyTorch twin is
+// ops/megatrace.py:path_trace_reference; every expression below keeps the
+// twin's evaluation order, and the library is built with --fmad=false, so
+// kernel and twin round alike.
 //
 // What is not carried over from the TPU kernel: the one-hot MXU row
 // fetches (tables are indexed directly), the Cephes atan / acos (unused on
@@ -35,6 +37,7 @@ constexpr int kEmCols = 20;    // rad area pmf cdf v0 e1 e2 ng kind
 constexpr int kDiffuse = 0;
 constexpr int kDielectric = 2;
 constexpr int kMirror = 8;
+constexpr int kRoughDiffuse = 12;
 
 // PSS layout (integrators/layout.py)
 constexpr int kSensorDims = 4;
@@ -67,6 +70,8 @@ __device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b
 __device__ __forceinline__ V3 operator*(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
 __device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 __device__ __forceinline__ V3 operator*(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 operator/(V3 a, float s) { return {a.x / s, a.y / s, a.z / s}; }
 
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
@@ -127,6 +132,88 @@ __device__ __forceinline__ V3 cosine_hemisphere(float u1, float u2) {
   if (zero) r = 0.0f;
   float px = r * cosf(phi), py = r * sinf(phi);
   return {px, py, sqrtf(fmaxf(1.0f - px * px - py * py, 0.0f))};
+}
+
+// Qualitative Oren-Nayar factor (roughdiffuse.cpp "fast" mode; reference
+// megatrace.py:_oren_nayar_term); the roughness column is sigma.  Out of
+// line: inlined, the branch cost the chain kernel ~2% on scenes where no
+// material takes it (scripts/chain_kernel_ab.py, H100).
+static __device__ __noinline__ float oren_nayar(V3 wi, V3 wo, float sigma) {
+  float s2 = sigma * sigma;
+  float a_on = 1.0f - 0.5f * s2 / (s2 + 0.33f);
+  float b_on = 0.45f * s2 / (s2 + 0.09f);
+  float ci = fabsf(wi.z), co = fabsf(wo.z);
+  float sin_i = sqrtf(fmaxf(1.0f - ci * ci, 0.0f));
+  float sin_o = sqrtf(fmaxf(1.0f - co * co, 0.0f));
+  float denom = fmaxf(sin_i * sin_o, 1e-7f);
+  float cos_dphi = fminf(fmaxf((wi.x * wo.x + wi.y * wo.y) / denom, -1.0f), 1.0f);
+  float sin_alpha = fmaxf(sin_i, sin_o);
+  float tan_beta = fminf(sin_i / fmaxf(ci, 1e-7f), sin_o / fmaxf(co, 1e-7f));
+  return a_on + b_on * fmaxf(cos_dphi, 0.0f) * sin_alpha * tan_beta;
+}
+
+__device__ __forceinline__ bool is_delta(int kind) { return kind == kMirror || kind == kDielectric; }
+
+// f * |cos_o| and the solid-angle pdf of material row mr for local
+// directions wi (incident; wi.z is its cosine) and wo; the delta kinds
+// evaluate to zero (megatrace.py:_eval_kinds).
+__device__ __forceinline__ V3 eval_bsdf(int kind, const float* mr, V3 wi, V3 wo, float* pdf) {
+  const float abs_co = fabsf(wo.z);
+  if ((kind == kDiffuse || kind == kRoughDiffuse) && (wi.z * wo.z) > 0.0f) {
+    float scale = abs_co / kPi;
+    if (kind == kRoughDiffuse) scale = scale * oren_nayar(wi, wo, __ldg(mr + 10));
+    *pdf = fmaxf(abs_co, 0.0f) / kPi;
+    return ld3(mr + 1) * scale;
+  }
+  *pdf = 0.0f;
+  return v3(0.0f, 0.0f, 0.0f);
+}
+
+struct BsdfSample {
+  V3 wo, weight;   // local direction; f * |cos| / pdf
+  float pdf, eta;  // solid-angle pdf (0 for a delta lobe); IOR crossed
+  bool delta;
+};
+
+// Sample an outgoing local direction at material row mr
+// (megatrace.py:_sample_kinds): uc picks the dielectric lobe, (ub1, ub2)
+// the direction.
+__device__ __forceinline__ BsdfSample sample_bsdf(int kind, const float* mr, V3 wi, float uc,
+                                                  float ub1, float ub2) {
+  BsdfSample s{v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), 0.0f, 1.0f, false};
+  const float cos_i = wi.z;
+  const float sign_i = cos_i < 0.0f ? -1.0f : 1.0f;
+  if (kind == kDiffuse || kind == kRoughDiffuse) {
+    s.wo = cosine_hemisphere(ub1, ub2) * sign_i;
+    s.pdf = fmaxf(s.wo.z * sign_i, 0.0f) / kPi;
+    s.weight = ld3(mr + 1);
+    if (kind == kRoughDiffuse) s.weight = s.weight * oren_nayar(wi, s.wo, __ldg(mr + 10));
+  } else if (kind == kMirror) {
+    s.wo = v3(-wi.x, -wi.y, wi.z);
+    s.weight = ld3(mr + 11);
+    s.delta = true;
+  } else if (kind == kDielectric) {
+    // smooth dielectric: reflect with probability F, else refract
+    float eta_d = __ldg(mr + 4);
+    float eta_it = cos_i > 0.0f ? eta_d : 1.0f / eta_d;
+    float ci = fabsf(cos_i);
+    float sin2_t = (1.0f - ci * ci) / (eta_it * eta_it);
+    float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+    float r_s = safe_div(ci - eta_it * cos_t, ci + eta_it * cos_t);
+    float r_p = safe_div(eta_it * ci - cos_t, eta_it * ci + cos_t);
+    float f_d = sin2_t >= 1.0f ? 1.0f : 0.5f * (r_s * r_s + r_p * r_p);
+    if (uc < f_d) {
+      s.wo = v3(-wi.x, -wi.y, wi.z);
+      s.weight = ld3(mr + 11);
+    } else {
+      float eta_ti = cos_i > 0.0f ? 1.0f / eta_d : eta_d;
+      s.wo = v3(-wi.x * eta_ti, -wi.y * eta_ti, cos_i > 0.0f ? -cos_t : cos_t);
+      s.weight = ld3(mr + 14) * eta_ti * eta_ti;
+      s.eta = cos_i > 0.0f ? eta_d : 1.0f / eta_d;
+    }
+    s.delta = true;
+  }
+  return s;
 }
 
 // Closest hit over every triangle (Moller-Trumbore).  The strict `<`
@@ -230,7 +317,6 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
 
     const float* mr = tb.mat + (int)__ldg(av + 18) * kMatCols;
     const int kind = (int)__ldg(mr);
-    const V3 albedo = ld3(mr + 1);
 
     // ---- emission at the hit, MIS'd against NEE at the previous vertex
     float cos_l = -dot(d, ng);
@@ -245,13 +331,11 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
     }
 
     const Frame fr = make_frame(ns);
-    const V3 wi = to_local(fr, v3(-d.x, -d.y, -d.z));
-    const float cos_i = wi.z;
-    const bool delta_m = kind == kMirror || kind == kDielectric;
+    const V3 wi = to_local(fr, -d);
+    const bool delta_m = is_delta(kind);
 
     // ---- NEE: one area-light sample, immediate shadow sweep
-    if (tb.use_nee && kind == kDiffuse && depth + 1 <= tb.max_depth &&
-        depth + 1 >= tb.min_depth) {
+    if (tb.use_nee && !delta_m && depth + 1 <= tb.max_depth && depth + 1 >= tb.min_depth) {
       float u_pick = u(base + kOffLightPick);
       float u_l1 = u(base + kOffLightU), u_l2 = u(base + kOffLightU + 1);
       int row = 0;
@@ -270,13 +354,8 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
       float area = __ldg(lr + 3);
       float ds_pdf = lcos * area > 0.0f ? __ldg(lr + 4) * dist2 / fmaxf(lcos * area, 1e-30f) : 0.0f;
       if (!(lcos > 1e-7f)) ds_pdf = 0.0f;
-      // diffuse eval: f * |cos_o| and its cosine pdf
-      V3 wo = to_local(fr, ldir);
-      float abs_co = fabsf(wo.z);
-      bool same_side = (cos_i * wo.z) > 0.0f;
-      float scale = abs_co / kPi;
-      V3 f = same_side ? albedo * scale : v3(0.0f, 0.0f, 0.0f);
-      float f_pdf = same_side ? fmaxf(abs_co, 0.0f) / kPi : 0.0f;
+      float f_pdf;
+      V3 f = eval_bsdf(kind, mr, wi, to_local(fr, ldir), &f_pdf);
       if (ds_pdf > 0.0f && lum(f) > 0.0f) {
         float eps_sh = kRayEps * fmaxf(t_hit, 1.0f);
         V3 sh_o = hp + ldir * eps_sh;
@@ -290,38 +369,10 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
     }
 
     // ---- BSDF sampling
-    float uc = u(base + kOffBsdfCmp);
-    float ub1 = u(base + kOffBsdfU), ub2 = u(base + kOffBsdfU + 1);
-    float sign_i = cos_i < 0.0f ? -1.0f : 1.0f;
-    V3 sw = v3(0.0f, 0.0f, 0.0f), bw = v3(0.0f, 0.0f, 0.0f);
-    float bs_pdf = 0.0f, bs_eta = 1.0f;
-    if (kind == kDiffuse) {
-      sw = cosine_hemisphere(ub1, ub2) * sign_i;
-      bs_pdf = fmaxf(sw.z * sign_i, 0.0f) / kPi;
-      bw = albedo;
-    } else if (kind == kMirror) {
-      sw = v3(-wi.x, -wi.y, wi.z);
-      bw = ld3(mr + 11);
-    } else if (kind == kDielectric) {
-      // smooth dielectric: reflect with probability F, else refract
-      float eta_d = __ldg(mr + 4);
-      float eta_it = cos_i > 0.0f ? eta_d : 1.0f / eta_d;
-      float ci = fabsf(cos_i);
-      float sin2_t = (1.0f - ci * ci) / (eta_it * eta_it);
-      float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-      float r_s = safe_div(ci - eta_it * cos_t, ci + eta_it * cos_t);
-      float r_p = safe_div(eta_it * ci - cos_t, eta_it * ci + cos_t);
-      float f_d = sin2_t >= 1.0f ? 1.0f : 0.5f * (r_s * r_s + r_p * r_p);
-      if (uc < f_d) {
-        sw = v3(-wi.x, -wi.y, wi.z);
-        bw = ld3(mr + 11);
-      } else {
-        float eta_ti = cos_i > 0.0f ? 1.0f / eta_d : eta_d;
-        sw = v3(-wi.x * eta_ti, -wi.y * eta_ti, cos_i > 0.0f ? -cos_t : cos_t);
-        bw = ld3(mr + 14) * eta_ti * eta_ti;
-        bs_eta = cos_i > 0.0f ? eta_d : 1.0f / eta_d;
-      }
-    }
+    const BsdfSample bs = sample_bsdf(kind, mr, wi, u(base + kOffBsdfCmp), u(base + kOffBsdfU),
+                                      u(base + kOffBsdfU + 1));
+    const V3 sw = bs.wo, bw = bs.weight;
+    const float bs_pdf = bs.pdf, bs_eta = bs.eta;
     V3 wo_w = to_world(fr, sw);
     tp = tp * bw;
     eta_scale = eta_scale * bs_eta;

@@ -91,7 +91,7 @@ def render_drmlt_path(scene, pcfg, cfg: DRMLTConfig, film_cfg, generator,
                         device=device)
     tables = make_tables(scene, pcfg, device)
     for i in range(n_launches):
-        megadrmlt.drmlt_path_step(tables, cfg, n_mut, arr, film, stats,
+        megadrmlt.drmlt_chain_step(tables, cfg, n_mut, arr, film, stats,
                                   seed, i)
     n_per_pixel = cfg.n_chains * steps_eff / film_cfg.npixels
     img = film * (b / n_per_pixel)

@@ -1,0 +1,31 @@
+"""MMLT technique wiring (counterpart of
+drmlt_mitsuba_tpu/integrators/mmlt.py).
+
+The pooled MMLT encoding gives the chain's PSS vector two leading
+technique dims:
+  u[0]  depth dim    - pinned; depth = 1 + floor(u0 * D);
+  u[1]  strategy dim - frozen on small steps (moves only on large steps).
+The traced value is multiplied by D (uniform depth pmf), so b and every
+MH ratio are consistent with the plain Monte-Carlo estimator.  This is the
+MMLT kernel's own interface (ops/megammlt.py); the depth-grouped driver
+(integrators/mmlt_grouped.py) pins the depth dim per group instead.
+"""
+from __future__ import annotations
+
+from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
+from drmlt_mitsuba_tpu_torch.scene.types import Scene
+
+TECH_DIMS = 2  # depth + strategy
+
+
+def mmlt_n_dims(cfg: BDPTConfig) -> int:
+    return TECH_DIMS + cfg.eye_dims + cfg.light_dims
+
+
+def make_mmlt_trace(scene: Scene, cfg: BDPTConfig, device):
+    """trace(u) -> Splats for u = [depth, strategy, eye..., light...(,
+    pad)] through ops.megammlt (the MMLT kernel on a CUDA device, its twin
+    on the CPU)."""
+    from drmlt_mitsuba_tpu_torch.ops.megammlt import make_mega_mmlt
+
+    return make_mega_mmlt(scene, cfg, device)

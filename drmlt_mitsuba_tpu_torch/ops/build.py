@@ -1,15 +1,18 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The sources are compiled with nvcc at first use into one shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds).  The library's file name carries a hash of the
+Each `.cu` source is compiled with its own nvcc process, all started
+together, into an object file (about half the wall of one nvcc command over
+every source; scripts/chain_kernel_ab.py times both); the objects are then
+linked into one shared library with a plain C interface, loaded with
+ctypes (no PyTorch headers, so a build takes seconds).  The library's file name carries a hash of the
 sources and flags; it lives under `build/` at the repository root, which
 git ignores.  ptxas's register / spill / shared-memory report of the build
 is kept beside it.
 
 There is no fallback: a missing nvcc, a failed build or a launch the
-CUDA runtime refuses raises.  `LAUNCHES` counts, per kernel, the launches the
-wrappers made; a wrapper adds one exactly where it launches its kernel.
+CUDA runtime refuses raises.  `LAUNCHES` counts, per kernel (the chain
+kernel per technique), the launches the wrappers made; a wrapper adds one
+exactly where it launches its kernel.
 """
 from __future__ import annotations
 
@@ -25,14 +28,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     # no a*b+c contraction: the plain PyTorch twins round every product
     # and sum separately, and hit tests near triangle edges and acceptance
     # coins near a threshold flip on the last bit
     "--fmad=false",
 ]
 
-LAUNCHES = {"path_trace": 0, "drmlt_path": 0}
+LAUNCHES = {"path_trace": 0, "drmlt_path": 0, "mmlt_trace": 0,
+            "drmlt_mmlt": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,16 +50,27 @@ _SIGNATURES = {
         _I, _I, _I, _I,                        # max/min/rr depth, use_nee
         _P, _I, _P, _P,                        # uT, R, out, stream
     ],
-    "drmlt_path_launch": [
+    "mmlt_trace_launch": [
         _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
+        _I, _I, _I,                            # max_depth, light_image,
+        #                                        eye_dims
+        _P, _I, _P, _P,                        # uT, R, out, stream
+    ],
+    "drmlt_chain_launch": [
+        _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
+        _I,                                    # technique (0 path, 1 mmlt)
         _I, _I, _I, _I,                        # max/min/rr depth, use_nee
+        _I, _I, _I,                            # light_image, eye_dims,
+        #                                        light_dims
         _P, _P, _I, _I,                        # state, scratch, D, C
         _P, _I, _I, _P,                        # film, H, W, stats
         _P, _I, _I, _U, _U,                    # uniforms, n_rand, n_mut,
         #                                        seed, launch
-        _I, _I, _I,                            # drtype, sampled, timid
+        _I, _I, _I, _I,                        # drtype, sampled, timid,
+        #                                        fix_emitter_path
         _F, _F, _F, _F, _F, _F,                # p_large, s1, s2, log_ratio,
         #                                        sigma2, dispersion
+        _F, _F,                                # u_depth, 1/k (mmlt)
         _P,                                    # stream
     ],
 }
@@ -88,7 +103,8 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/ into the hashed library unless it already exists."""
+    """Compile csrc/ into the hashed library unless it already exists: one
+    nvcc per source, run in parallel, then one link."""
     out = library_path()
     log = out.with_suffix(".ptxas.txt")
     if out.exists():
@@ -96,18 +112,42 @@ def build() -> Path:
                           ptxas=log.read_text() if log.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    procs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report = []
+    failed = []
+    for cmd, obj, proc in procs:
+        text = proc.communicate()[0]
+        report.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+    objs = [str(obj) for _, obj, _ in procs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed ({res.returncode}):\n"
+                          f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
-    log.write_text(res.stdout + res.stderr)
+    text = "".join(report)
+    log.write_text(text)
     build_info.update(path=str(out), seconds=time.time() - t0, cached=False,
-                      ptxas=res.stdout + res.stderr)
+                      ptxas=text)
     return out
 
 

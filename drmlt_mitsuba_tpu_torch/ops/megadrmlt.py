@@ -1,11 +1,12 @@
-"""n_mut whole DRMLT mutations per chain in one launch, path technique:
-the chain kernel and its plain twin.
+"""n_mut whole DRMLT mutations per chain in one launch, for the path and the
+MMLT technique: the chain kernel and its plain twin.
 
-`drmlt_path_step` launches `csrc/drmlt_path.cu:drmlt_path_kernel`, the
+`drmlt_chain_step` launches `csrc/drmlt_chain.cu:drmlt_chain_kernel`, the
 port of the reference's Pallas kernel `megadrmlt.py:_mega_drmlt_kernel`
-with technique="path" (its mmlt and pssmlt modes are not ported yet).
-`drmlt_path_step_reference` is the same loop in plain PyTorch; the wrapper
-takes it only for tensors on the CPU.
+with technique="path" (the tables are a megatrace.TraceTables) or
+technique="mmlt" (a fixed-depth group's megammlt.MmltTables); its pssmlt
+mode is not ported yet.  `drmlt_chain_step_reference` is the same loop in
+plain PyTorch; the wrapper takes it only for tensors on the CPU.
 
 Per mutation and chain (megadrmlt.py:264-435): a large-step coin and D
 large-step uniforms; the stage-1 proposal y (Kelemen, pairwise for
@@ -15,6 +16,14 @@ the y and z traces (and green's reverse trace y* = z - (y - x)); the
 per-type acceptance; a three-state or sampled splat into the film; and the
 state select.  `do_second` is cleared after a large step unless
 timid_after_large.
+
+MMLT mode (megadrmlt.py:158-190, 280-330, 367): the trace reads the pinned
+depth dim u_depth = 1 - 0.5/k before the chain's dims, and its value is
+scaled by 1/k; chain dim 0 (the strategy) is frozen on small steps in both
+stages and skipped by mira's q-ratio; with fix_emitter_path, stage 2 is
+the identity on the light-walk dims [1 + eye_dims, 1 + eye_dims +
+light_dims) unless the chain's strategy is light tracing (s == k).  The
+splat position is the trace's (the light-image projection for t = 1).
 
 Uniforms.  Each mutation draws n_rand uniforms per chain in this order:
 large coin, D u_large, the stage-1 draws (orbital: D/2 radii then D/2
@@ -41,10 +50,7 @@ from drmlt_mitsuba_tpu_torch.integrators import kernels
 from drmlt_mitsuba_tpu_torch.integrators.mcmc import (
     ChainState, metropolis_clamp,
 )
-from drmlt_mitsuba_tpu_torch.ops import build
-from drmlt_mitsuba_tpu_torch.ops.megatrace import (
-    TraceTables, path_trace_reference, table_args,
-)
+from drmlt_mitsuba_tpu_torch.ops import build, megammlt, megatrace
 
 
 def n_rand(cfg, n_dims: int) -> int:
@@ -60,6 +66,13 @@ def stage1_kernel(cfg) -> kernels.Kelemen:
         return kernels.Kelemen(cfg.s1 * cfg.kelemen_scale,
                                cfg.s2 * cfg.kelemen_scale)
     return kernels.Kelemen(cfg.s1, cfg.s2)
+
+
+def chain_dims(tables) -> int:
+    """PSS dims of a chain the trace reads (before even padding)."""
+    if tables.technique == "mmlt":
+        return tables.n_core - 1          # the depth dim is pinned
+    return tables.n_dims
 
 
 def _n_dims(state) -> int:
@@ -84,14 +97,22 @@ def unpack_chain_state(arr, n_dims: int) -> ChainState:
 
 
 # ---------------------------------------------------------------- twin
-def _trace(tables: TraceTables, v):
-    """(lum, rgb / lum) of dim-major PSS vectors v (D, C); non-finite or
-    negative lum becomes 0, as in the kernel."""
-    rgb = path_trace_reference(tables, v)
+def _trace(tables, v, work):
+    """(lum, rgb / lum, px, py) of dim-major chain vectors v (D, C);
+    non-finite or negative lum becomes 0, as in the kernel."""
+    if tables.technique == "mmlt":
+        k = tables.max_depth
+        u0 = torch.full((1, v.shape[1]), 1.0 - 0.5 / k, device=v.device)
+        out = megammlt.mmlt_trace_reference(tables, torch.cat([u0, v]),
+                                            work)
+        rgb, px, py = out[0:3] * (1.0 / k), out[3], out[4]
+    else:
+        rgb = megatrace.path_trace_reference(tables, v, work)
+        px, py = v[0], v[1]
     lum = 0.212671 * rgb[0] + 0.715160 * rgb[1] + 0.072169 * rgb[2]
     lum = torch.where(torch.isfinite(lum) & (lum >= 0), lum, 0.0)
     li = torch.where(lum > 0, 1.0 / torch.clamp(lum, min=1e-30), 0.0)
-    return lum, rgb * li
+    return lum, rgb * li, px, py
 
 
 def _splat(film, px, py, rgb, w):
@@ -107,17 +128,24 @@ def _splat(film, px, py, rgb, w):
                                 accumulate=True)
 
 
-def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
-                              film, stats, seed: int, launch: int,
-                              uniforms=None):
-    """Plain-PyTorch twin of drmlt_path_kernel (see the module docstring).
-    Updates state, film and stats in place and returns them."""
+def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
+                               seed: int, launch: int, uniforms=None,
+                               work=None):
+    """Plain-PyTorch twin of drmlt_chain_kernel (see the module docstring).
+    Updates state, film and stats in place and returns them.  With a dict
+    `work`, adds the kernel's ray-triangle tests to it."""
     D = _n_dims(state)
     C = state.shape[1]
     nr = n_rand(cfg, D)
     kel = stage1_kernel(cfg)
     wc = kernels.WrappedCauchy(cfg.rho)
     sig2 = cfg.scale_second * cfg.sigma
+    frozen0 = tables.technique == "mmlt"
+    fix_em = frozen0 and cfg.fix_emitter_path
+    if fix_em:
+        k = tables.max_depth
+        em_lo = 1 + tables.eye_dims
+        em_hi = em_lo + tables.light_dims
     x = state[:D].clone()
     lum_x = state[D].clone()
     px_x, py_x = state[D + 1].clone(), state[D + 2].clone()
@@ -137,11 +165,17 @@ def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
             d = kel.sample(U[j:j + P, :, None])
             ang = U[j + P:j + 2 * P] * (2.0 * math.pi)
             j += 2 * P
+            du0 = d * torch.cos(ang)
+            if frozen0:
+                du0[0] = 0.0
             y_raw = torch.empty_like(x)
-            y_raw[0::2] = x[0::2] + d * torch.cos(ang)
+            y_raw[0::2] = x[0::2] + du0
             y_raw[1::2] = x[1::2] + d * torch.sin(ang)
         else:
-            y_raw = x + kel.sample(U[j:j + D, :, None])
+            du = kel.sample(U[j:j + D, :, None])
+            if frozen0:
+                du[0] = 0.0
+            y_raw = x + du
             j += D
         y_raw = torch.where(large[None], u_large, y_raw)
         y = pss_wrap(y_raw)
@@ -159,12 +193,18 @@ def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
                 torch.stack([U[j:j + D], U[j + D:j + 2 * D]], -1))
             j += 2 * D
             z_raw = x + g
+        if frozen0:
+            z_raw[0] = x[0]
+        if fix_em:
+            s_cur = torch.clamp(torch.floor(x[0] * (k + 1)), max=float(k))
+            z_raw[em_lo:em_hi] = torch.where(s_cur == k, z_raw[em_lo:em_hi],
+                                             x[em_lo:em_hi])
         z = pss_wrap(z_raw)
         coin1, coin2 = U[j], U[j + 1]
         j += 2
 
-        lum_y, v_y = _trace(tables, y)
-        lum_z, v_z = _trace(tables, z)
+        lum_y, v_y, px_y, py_y = _trace(tables, y, work)
+        lum_z, v_z, px_z, py_z = _trace(tables, z, work)
         a1 = metropolis_clamp(lum_y / torch.clamp(lum_x, min=1e-30))
         accept1 = coin1 < a1
         do_second = ~accept1
@@ -181,7 +221,7 @@ def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
         elif cfg.type == "mira":
             a_rev = metropolis_clamp(lum_y / torch.clamp(lum_z, min=1e-30))
             lq = torch.zeros_like(lum_x)
-            for dd in range(D):
+            for dd in range(1 if frozen0 else 0, D):
                 lq = lq + (kel.log_pdf(z_raw[dd] - y_raw[dd])
                            - kel.log_pdf(x[dd] - y_raw[dd]))
             q_ratio = torch.where(large, 1.0, torch.exp(lq))
@@ -190,7 +230,7 @@ def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
             a2 = torch.where(a_rev >= 1.0, 0.0, a2)
             a2 = torch.where(torch.isfinite(q_ratio), a2, 0.0)
         else:
-            lum_rev, _ = _trace(tables, pss_wrap(z_raw - (y_raw - x)))
+            lum_rev = _trace(tables, pss_wrap(z_raw - (y_raw - x)), work)[0]
             a_rev = metropolis_clamp(lum_rev / torch.clamp(lum_z, min=1e-30))
             a2 = metropolis_clamp(lum_ratio * (1.0 - a_rev)
                                   / torch.clamp(1.0 - a1, min=1e-12))
@@ -210,12 +250,12 @@ def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
             def sel(ay, az, ax):
                 return torch.where(pick_y, ay, torch.where(pick_z, az, ax))
 
-            _splat(film, sel(y[0], z[0], px_x), sel(y[1], z[1], py_x),
+            _splat(film, sel(px_y, px_z, px_x), sel(py_y, py_z, py_x),
                    sel(v_y, v_z, v_x), torch.ones_like(w_x))
         else:
             _splat(film, px_x, py_x, v_x, w_x)
-            _splat(film, y[0], y[1], v_y, w_y)
-            _splat(film, z[0], z[1], v_z, w_z)
+            _splat(film, px_y, py_y, v_y, w_y)
+            _splat(film, px_z, py_z, v_z, w_z)
 
         a1m = accept1
         a2m = accept2 & ~accept1
@@ -225,8 +265,8 @@ def drmlt_path_step_reference(tables: TraceTables, cfg, n_mut: int, state,
 
         x = pick(y, z, x)
         lum_x = pick(lum_y, lum_z, lum_x)
-        px_x = pick(y[0], z[0], px_x)
-        py_x = pick(y[1], z[1], py_x)
+        px_x = pick(px_y, px_z, px_x)
+        py_x = pick(py_y, py_z, py_x)
         v_x = pick(v_y, v_z, v_x)
         st = st + torch.stack([a1, a2, accept1.float(), accept2.float(),
                                large.float(), (a1m | a2m).float()])
@@ -251,9 +291,9 @@ def _check(tables, cfg, n_mut, state, film, stats, uniforms):
         raise ValueError(f"stats shape {tuple(stats.shape)}, want {(6, C)}")
     if film.dim() != 3 or film.shape[2] != 3:
         raise ValueError(f"film shape {tuple(film.shape)}, want (H, W, 3)")
-    if D < tables.n_dims:
-        raise ValueError(f"chain has {D} dims, the path config reads "
-                         f"{tables.n_dims}")
+    if D < chain_dims(tables):
+        raise ValueError(f"chain has {D} dims, the {tables.technique} "
+                         f"config reads {chain_dims(tables)}")
     ts = [state, film, stats] + ([uniforms] if uniforms is not None else [])
     for t in ts:
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -266,35 +306,50 @@ def _check(tables, cfg, n_mut, state, film, stats, uniforms):
                          f"{want}")
 
 
-def drmlt_path_step(tables: TraceTables, cfg, n_mut: int, state, film,
-                    stats, seed: int, launch: int, uniforms=None):
-    """Run n_mut mutations of every chain under DRMLTConfig cfg.  Updates
-    state (D+6, C), film (H, W, 3) and stats (6, C) in place and returns
-    them.
+def _technique_args(tables):
+    """(technique code, max/min/rr depth, use_nee, light_image, eye_dims,
+    light_dims) and (u_depth, 1/k) as drmlt_chain_launch takes them."""
+    if tables.technique == "mmlt":
+        k = tables.max_depth
+        megammlt.check_depth(k)
+        return ((1, k, 1, 0, 1, int(tables.light_image), tables.eye_dims,
+                 tables.light_dims), (1.0 - 0.5 / k, 1.0 / k))
+    return ((0, tables.max_depth, tables.min_depth, tables.rr_depth,
+             int(tables.use_nee), 0, 0, 0), (0.0, 0.0))
 
-    CUDA tensors launch drmlt_path_kernel (one thread per chain); CPU
-    tensors run drmlt_path_step_reference."""
+
+def drmlt_chain_step(tables, cfg, n_mut: int, state, film, stats, seed: int,
+                     launch: int, uniforms=None):
+    """Run n_mut mutations of every chain under DRMLTConfig cfg, with the
+    technique of `tables` (megatrace.TraceTables: path; megammlt.MmltTables:
+    a fixed-depth MMLT group).  Updates state (D+6, C), film (H, W, 3) and
+    stats (6, C) in place and returns them.
+
+    CUDA tensors launch drmlt_chain_kernel (one thread per chain); CPU
+    tensors run drmlt_chain_step_reference."""
     _check(tables, cfg, n_mut, state, film, stats, uniforms)
     if state.device.type == "cpu":
-        return drmlt_path_step_reference(tables, cfg, n_mut, state, film,
-                                         stats, seed, launch, uniforms)
+        return drmlt_chain_step_reference(tables, cfg, n_mut, state, film,
+                                          stats, seed, launch, uniforms)
     if state.device.type != "cuda":
         raise NotImplementedError(f"no chain kernel for {state.device}")
     D, C = _n_dims(state), state.shape[1]
     kel = stage1_kernel(cfg)
+    tech, (u_depth, inv_k) = _technique_args(tables)
     scratch = torch.empty((2 * D, C), dtype=torch.float32,
                           device=state.device)
     lib = build.load()
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    rc = lib.drmlt_path_launch(
-        *table_args(tables), state.data_ptr(), scratch.data_ptr(), D, C,
-        film.data_ptr(), film.shape[0], film.shape[1], stats.data_ptr(),
+    rc = lib.drmlt_chain_launch(
+        *megatrace.scene_args(tables), *tech, state.data_ptr(),
+        scratch.data_ptr(), D, C, film.data_ptr(), film.shape[0],
+        film.shape[1], stats.data_ptr(),
         uniforms.data_ptr() if uniforms is not None else None,
         n_rand(cfg, D), n_mut, seed & 0xFFFFFFFF, launch & 0xFFFFFFFF,
         _DRTYPE_CODE[cfg.type], int(cfg.splat_mode == "sampled"),
-        int(cfg.timid_after_large), cfg.p_large, kel.s1, kel.s2,
-        kel.log_ratio, cfg.scale_second * cfg.sigma,
-        kernels.WrappedCauchy(cfg.rho).dispersion, stream)
-    build.check(rc, "drmlt_path_kernel")
-    build.LAUNCHES["drmlt_path"] += 1
+        int(cfg.timid_after_large), int(cfg.fix_emitter_path), cfg.p_large,
+        kel.s1, kel.s2, kel.log_ratio, cfg.scale_second * cfg.sigma,
+        kernels.WrappedCauchy(cfg.rho).dispersion, u_depth, inv_k, stream)
+    build.check(rc, "drmlt_chain_kernel")
+    build.LAUNCHES["drmlt_" + tables.technique] += 1
     return state, film, stats

@@ -179,6 +179,8 @@ class TraceTables:
     rr_depth: int
     use_nee: bool
 
+    technique = "path"
+
     @property
     def n_dims(self) -> int:
         return SENSOR_DIMS + self.max_depth * BOUNCE_DIMS
@@ -202,12 +204,18 @@ def make_tables(scene: Scene, cfg, device) -> TraceTables:
                        use_nee=bool(cfg.use_nee))
 
 
-def table_args(tables: TraceTables):
-    """The tables as the C entry points take them."""
+def scene_args(tables):
+    """The scene tables (tri, T, mat, M, em, E, cam) as the C entry points
+    take them."""
     return (tables.tri.data_ptr(), tables.tri.shape[0],
             tables.mat.data_ptr(), tables.mat.shape[0],
             tables.em.data_ptr(), tables.em.shape[0],
-            tables.cam.data_ptr(), tables.max_depth, tables.min_depth,
+            tables.cam.data_ptr())
+
+
+def table_args(tables: TraceTables):
+    """The tables and path config as path_trace_launch takes them."""
+    return (*scene_args(tables), tables.max_depth, tables.min_depth,
             tables.rr_depth, int(tables.use_nee))
 
 
@@ -247,8 +255,35 @@ def occluded(tri, o, d, tmax):
     return (hit & (tt < tmax[:, None])).any(1)
 
 
-def path_trace_reference(tables: TraceTables, uT):
-    """Plain-PyTorch twin of path_trace_kernel: uT (n_dims, R) -> (3, R)."""
+# Work the kernels do, as the twins can count it for a roofline bound:
+# ray-triangle tests (Moller-Trumbore: two crosses, four dots, the
+# reciprocal, the origin shift, the barycentric and t products and the
+# b1 + b2 sum are 46 FP32 operations).  A closest-hit sweep tests every
+# triangle; a shadow ray stops at its first occluder, as the kernels'
+# loops do.
+FLOP_PER_TRI_TEST = 46
+
+
+def count_sweeps(work, tri, mask, o=None, d=None, tmax=None):
+    """Add to work["tri_tests"] the tests the kernels make for the lanes
+    in `mask`: every triangle for a closest-hit sweep (tmax None), up to
+    the first occluder for a shadow ray."""
+    if work is None:
+        return
+    T = tri.shape[0]
+    if tmax is None:
+        n = int(mask.sum()) * T
+    else:
+        tt, hit = _sweep(tri, o, d)
+        occ = hit & (tt < tmax[:, None])
+        first = occ.to(torch.int8).argmax(1) + 1
+        n = int(torch.where(occ.any(1), first, T)[mask].sum())
+    work["tri_tests"] = work.get("tri_tests", 0) + n
+
+
+def path_trace_reference(tables: TraceTables, uT, work=None):
+    """Plain-PyTorch twin of path_trace_kernel: uT (n_dims, R) -> (3, R).
+    With a dict `work`, adds the kernel's ray-triangle tests to it."""
     tri, mat, em, cam = tables.tri, tables.mat, tables.em, tables.cam
     R = uT.shape[1]
     dev = uT.device
@@ -274,6 +309,7 @@ def path_trace_reference(tables: TraceTables, uT):
     for depth in range(1, max_depth + 1):
         base = SENSOR_DIMS + (depth - 1) * BOUNCE_DIMS
         best_t, best_id = closest_hit(tri, o, d)
+        count_sweeps(work, tri, active)
         hit_valid = best_t < INF
         t_hit = torch.where(hit_valid, best_t, INF)
         av = torch.where((best_id >= 0)[:, None],
@@ -296,7 +332,7 @@ def path_trace_reference(tables: TraceTables, uT):
 
         m = mat[av[:, 18].to(torch.int64)]
         kind = m[:, 0].to(torch.int64)
-        albedo, eta = m[:, 1:4], m[:, 4:7]
+        albedo, eta, rough = m[:, 1:4], m[:, 4:7], m[:, 10]
         spec_refl, spec_trans = m[:, 11:14], m[:, 14:17]
 
         # ---- emission at the hit, MIS'd against NEE at the previous vertex
@@ -320,7 +356,8 @@ def path_trace_reference(tables: TraceTables, uT):
             ld, dist, ds_pdf, l_rad = sample_direct(
                 em, hp, uT[base + OFF_LIGHT_PICK], uT[base + OFF_LIGHT_U],
                 uT[base + OFF_LIGHT_U + 1])
-            f, f_pdf = eval_bsdf(kind, albedo, wi, to_local(ns, ld))
+            f, f_pdf = eval_bsdf(kind, albedo, rough, wi,
+                                 to_local(ns, ld))
             nee_ok = active & ~delta_m & (ds_pdf > 0) & (luminance(f) > 0)
             if not (min_depth <= depth + 1 <= max_depth):
                 nee_ok = torch.zeros_like(nee_ok)
@@ -328,6 +365,7 @@ def path_trace_reference(tables: TraceTables, uT):
             sh_o = hp + ld * eps_sh[:, None]
             sh_tmax = torch.where(nee_ok, dist * (1.0 - 1e-3) - RAY_EPS, 0.0)
             blocked = occluded(tri, sh_o, ld, sh_tmax)
+            count_sweeps(work, tri, nee_ok, sh_o, ld, sh_tmax)
             w_nee = mis_power(ds_pdf, f_pdf)
             inv_pdf = torch.where(
                 ds_pdf > 0, w_nee / torch.clamp(ds_pdf, min=1e-20), 0.0)
@@ -336,7 +374,7 @@ def path_trace_reference(tables: TraceTables, uT):
                                 tp * f * l_rad * inv_pdf[:, None], 0.0)
 
         # ---- BSDF sampling --------------------------------------------------
-        bs = sample_bsdf(kind, albedo, eta, spec_refl, spec_trans, wi,
+        bs = sample_bsdf(kind, albedo, rough, eta, spec_refl, spec_trans, wi,
                          uT[base + OFF_BSDF_CMP],
                          torch.stack([uT[base + OFF_BSDF_U],
                                       uT[base + OFF_BSDF_U + 1]], -1))

@@ -1,7 +1,8 @@
 """Procedural test scenes (counterpart of drmlt_mitsuba_tpu/scene/builders.py).
 
-`cornell_box` builds the same arrays as the reference builder, leaf for
-leaf, for the tall-box materials slice 1 renders.
+`cornell_box` and `veach_door` build the same arrays as the reference
+builders, leaf for leaf (the Cornell box for the tall-box materials the
+port renders).
 """
 from __future__ import annotations
 
@@ -46,6 +47,15 @@ TALL_BOX_MATERIALS = {
     "mirror": dict(kind=st.BSDF_MIRROR, albedo=(0.9, 0.9, 0.9)),
     "glass": dict(kind=st.BSDF_DIELECTRIC, eta=(1.5, 1.5, 1.5)),
 }
+
+
+def _area_rows_of_tris(tris, emitters, n_faces):
+    """Per-triangle emitter-table rows (-1 = not emissive)."""
+    area_rows = np.nonzero(emitters.kind.numpy() == st.EMITTER_AREA)[0]
+    row_of_tri = np.full(n_faces, -1, np.int32)
+    row_of_tri[emitters.tri_idx.numpy()[area_rows]] = area_rows.astype(
+        np.int32)
+    tris.emitter_id = st._t(row_of_tri)
 
 
 def cornell_box(width: int = 128, height: int = 128,
@@ -107,15 +117,94 @@ def cornell_box(width: int = 128, height: int = 128,
     emitters = st.build_emitters(tris, np.asarray([light_radiance],
                                                   np.float32))
     # per-triangle emitter ids become emitter-table rows
-    area_rows = np.nonzero(emitters.kind.numpy() == st.EMITTER_AREA)[0]
-    row_of_tri = np.full(len(faces), -1, np.int32)
-    row_of_tri[emitters.tri_idx.numpy()[area_rows]] = area_rows.astype(
-        np.int32)
-    tris.emitter_id = st._t(row_of_tri)
+    _area_rows_of_tris(tris, emitters, len(faces))
 
     cam = st.make_camera(
         transform.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]),
         fov_x_deg=39.3077, aspect=width / height)
+    return st.Scene(tris=tris, spheres=st.empty_spheres(),
+                    materials=st.make_material_table(mats),
+                    emitters=emitters, camera=cam)
+
+
+def veach_door(width: int = 128, height: int = 128,
+               door_angle_deg: float = 12.0,
+               light_radiance=(60.0, 55.0, 45.0)) -> st.Scene:
+    """Procedural stand-in for the veach-door scene: two rooms joined by a
+    slightly open door, the light in the far room, so the camera room is
+    lit almost entirely through the door gap (24 triangles; the door is
+    rough diffuse, Oren-Nayar sigma 0.35)."""
+    verts: list = []
+    faces: list = []
+    mat_ids: list = []
+    emit_ids: list = []
+
+    def add_tri(tri, mat, emit=-1):
+        base = len(verts)
+        verts.extend(tri)
+        faces.append([base, base + 1, base + 2])
+        mat_ids.append(mat)
+        emit_ids.append(emit)
+
+    def add_quad(p0, p1, p2, p3, mat, emit=-1):
+        for t in _quad(p0, p1, p2, p3):
+            add_tri(t, mat, emit)
+
+    white, red, wood, light_m = 0, 1, 2, 3
+    X, Y, Z = 10.0, 5.0, 10.0        # total footprint; divider at x=5
+    dx = 5.0
+    dz0, dz1 = 4.0, 6.0              # doorway span in z
+    dh = 4.0                         # doorway height
+
+    # outer shell (normals inward)
+    add_quad([0, 0, 0], [0, 0, Z], [X, 0, Z], [X, 0, 0], white)        # floor
+    add_quad([0, Y, 0], [X, Y, 0], [X, Y, Z], [0, Y, Z], white)        # ceil
+    add_quad([0, 0, Z], [0, Y, Z], [X, Y, Z], [X, 0, Z], white)        # back
+    add_quad([X, 0, 0], [X, Y, 0], [0, Y, 0], [0, 0, 0], white)        # front
+    add_quad([0, 0, 0], [0, Y, 0], [0, Y, Z], [0, 0, Z], red)          # left
+    add_quad([X, 0, 0], [X, 0, Z], [X, Y, Z], [X, Y, 0], white)        # right
+
+    # divider wall at x=dx with a doorway (two-sided white)
+    def divider(z0, z1, y0, y1):
+        add_quad([dx, y0, z0], [dx, y1, z0], [dx, y1, z1], [dx, y0, z1],
+                 white)
+
+    divider(0.0, dz0, 0.0, Y)        # solid section z < doorway
+    divider(dz1, Z, 0.0, Y)          # solid section z > doorway
+    divider(dz0, dz1, dh, Y)         # lintel above the door
+
+    # door panel: hinge at (dx, *, dz0), swings into the camera room
+    a = np.deg2rad(door_angle_deg)
+    dirv = np.array([-np.sin(a), 0.0, np.cos(a)])
+    p0 = np.array([dx, 0.0, dz0])
+    p1 = p0 + dirv * (dz1 - dz0)
+    add_quad(list(p0), list(p0 + [0, dh, 0]),
+             list(p1 + [0, dh, 0]), list(p1), wood)
+    add_quad(list(p1), list(p1 + [0, dh, 0]),
+             list(p0 + [0, dh, 0]), list(p0), wood)
+
+    # light panel on the far-room ceiling
+    lx0, lx1, lz0, lz1 = 7.0, 8.5, 4.0, 6.0
+    ly = Y - 0.01
+    add_quad([lx0, ly, lz0], [lx1, ly, lz0], [lx1, ly, lz1], [lx0, ly, lz1],
+             light_m, emit=0)
+
+    mats = [
+        dict(kind=st.BSDF_DIFFUSE, albedo=(0.73, 0.71, 0.68)),
+        dict(kind=st.BSDF_DIFFUSE, albedo=(0.61, 0.10, 0.08)),
+        dict(kind=st.BSDF_ROUGH_DIFFUSE, albedo=(0.44, 0.27, 0.14),
+             roughness=0.35),
+        dict(kind=st.BSDF_DIFFUSE, albedo=(0.78, 0.78, 0.78)),
+    ]
+    tris = st.build_triangles(
+        np.asarray(verts, np.float32), np.asarray(faces, np.int32),
+        np.asarray(mat_ids, np.int32), np.asarray(emit_ids, np.int32))
+    emitters = st.build_emitters(tris, np.asarray([light_radiance],
+                                                  np.float32))
+    _area_rows_of_tris(tris, emitters, len(faces))
+    cam = st.make_camera(
+        transform.look_at([1.2, 2.2, 1.5], [dx, 2.0, dz0 + 1.0], [0, 1, 0]),
+        fov_x_deg=55.0, aspect=width / height)
     return st.Scene(tris=tris, spheres=st.empty_spheres(),
                     materials=st.make_material_table(mats),
                     emitters=emitters, camera=cam)

@@ -74,7 +74,7 @@ def _run_port(tables, cfg, n_mut, state0, W, H, uni):
     state = state0.clone()
     film = torch.zeros((H, W, 3))
     stats = torch.zeros((6, C))
-    MD.drmlt_path_step(tables, cfg, n_mut, state, film, stats, 0, 0,
+    MD.drmlt_chain_step(tables, cfg, n_mut, state, film, stats, 0, 0,
                        torch.from_numpy(uni))
     return MD.unpack_chain_state(state, state.shape[0] - 6), film, stats
 
@@ -150,12 +150,12 @@ def test_philox_stream_equals_uniform_mode():
                                  for m in range(2)])):
         st, film, stats = (state0.clone(), torch.zeros(16, 16, 3),
                            torch.zeros(6, C))
-        outs.append(MD.drmlt_path_step(tables, cfg, 2, st, film, stats, 99, 4,
+        outs.append(MD.drmlt_chain_step(tables, cfg, 2, st, film, stats, 99, 4,
                                        uni))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="uniforms shape"):
-        MD.drmlt_path_step(tables, cfg, 2, state0.clone(),
+        MD.drmlt_chain_step(tables, cfg, 2, state0.clone(),
                            torch.zeros(16, 16, 3), torch.zeros(6, C), 0, 0,
                            torch.zeros(3, C))
 

@@ -20,11 +20,12 @@ from drmlt_mitsuba_tpu.ops.pallas.megatrace import (
     pack_mega_tables as jax_pack,
 )
 from drmlt_mitsuba_tpu.scene.builders import cornell_box as jax_cornell
+from drmlt_mitsuba_tpu.scene.builders import veach_door as jax_veach
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
 from drmlt_mitsuba_tpu_torch.ops.megatrace import (
     mega_eligible, pack_mega_tables,
 )
-from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box
+from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box, veach_door
 from drmlt_mitsuba_tpu_torch.scene.convert import scene_from_arrays
 
 torch.set_num_threads(1)
@@ -83,6 +84,26 @@ def test_pack_mega_tables_matches_reference(tall):
     for a, b in zip(got, ref):
         assert a.dtype == np.float32
         np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_veach_door_matches_reference():
+    """The veach-door scene (rough-diffuse door): every leaf and every
+    packed kernel table equal to the reference's."""
+    ref = jax_leaves(jax_veach(64, 48))
+    got = port_leaves(veach_door(64, 48))
+    for k, v in got.items():
+        if isinstance(v, torch.Tensor):
+            assert v.numpy().dtype == np.asarray(ref[k]).dtype, k
+            np.testing.assert_array_equal(v.numpy(), np.asarray(ref[k]),
+                                          err_msg=k)
+        else:
+            assert v == ref[k], k
+    assert got["tris.v0"].shape == (24, 3)
+    assert 12 in got["materials.kind"].tolist()       # rough diffuse
+    for a, b in zip(pack_mega_tables(veach_door(64, 48)),
+                    jax_pack(jax_veach(64, 48))):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert mega_eligible(veach_door(8, 8), PathConfig(max_depth=3))
 
 
 def test_scene_from_arrays_equals_builder():
@@ -146,4 +167,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 19
+    for m in ("integrators.bidir", "integrators.mmlt",
+              "integrators.mmlt_grouped", "ops.megammlt"):
+        assert "drmlt_mitsuba_tpu_torch." + m in mods

@@ -131,4 +131,23 @@ def test_cli_cornell_writes_exr(tmp_path, capsys):
     with pytest.raises(SystemExit):
         cli.main(["cornell", "-D", "nope=1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="technique"):
-        cli.main(["cornell", "-D", "technique=mmlt", "--device", "cpu"])
+        cli.main(["cornell", "-D", "technique=bdpt", "--device", "cpu"])
+
+
+def test_cli_mmlt_writes_exr(tmp_path, capsys):
+    """-D technique=mmlt runs the depth-grouped driver (the reference CLI's
+    default for drmlt + mmlt) on the built-in veach-door scene."""
+    out = tmp_path / "v.exr"
+    rc = cli.main(["veach", "-D", "technique=mmlt", "-D", "variant=orbital",
+                   "-D", "maxDepth=2", "-D", "luminanceSamples=1000",
+                   "-D", "fixEmitterPath=true", "--chains", "4096",
+                   "--spp", "1", "-s", "3", "--device", "cpu", "-o",
+                   str(out)])
+    assert rc == 0
+    img = read_exr(str(out))
+    assert img.shape == (256, 256, 3)
+    assert np.all(np.isfinite(img)) and img.mean() > 0
+    assert "steps per depth group" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="pooled"):
+        cli.main(["veach", "-D", "technique=mmlt", "-D", "grouped=false",
+                  "--device", "cpu"])
