@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two slices once on one GPU: the DRMLT path
-render and the depth-grouped DRMLT-over-MMLT render.
+"""Drive the PyTorch/CUDA port's three slices once on one GPU: the DRMLT path
+render, the depth-grouped DRMLT-over-MMLT render and differentiable
+rendering (inverse rendering through the adjoint and splat kernels).
 
     python3 chip_smoke.py
 
@@ -44,7 +45,24 @@ non-zero):
      device-busy share, each kernel's device time and the chain kernel's
      time per depth group; and the spread of the image scale b over 32
      bootstrap seeds per scene;
- 10. each MMLT kernel's time against its twin's at the slice's shapes.
+ 10. each MMLT kernel's time against its twin's at the slice's shapes;
+ 11. slice 3, the splat kernel vs its twin: the 65,536 box-filter taps of a
+     render_pt chunk into a 256x256 film (per-pixel sums to rtol 1e-5, the
+     backward gather exact), timed against the twin and index_add_;
+ 12. the adjoint kernels (radiance, albedo) vs their twins: 65,536 lanes,
+     max_depth 6, rr_depth 5, on the Cornell box with each tall box and on
+     the veach door (rgb bit-equal on >= 99.8% of lanes, Jacobian rows to
+     rtol 1e-5 there, the gradient of mean(lum) through the kernels vs the
+     twins' rows), each kernel's time, and grad-paths/s as the JAX bench
+     defines it (forward + backward, 16 calls);
+ 13. the replay gradient (path kernel forward, autograd of the twin
+     backward) at rr_depth 100 against the adjoint kernels' gradients (rtol
+     1e-3), grad_replay_paths_per_sec and the replay's peak memory;
+ 14. slice 3's main path, inverse rendering: 40 Adam steps (lr 0.25) on
+     the red wall's albedo through sigmoid(param), and then on the light's
+     radiance scale, each with a per-pixel image loss through the splat
+     kernel against a target rendered with the same 65,536 lanes; the
+     launch counters are reset before and read after it.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -80,7 +98,11 @@ from drmlt_mitsuba_tpu_torch.integrators.mmlt_grouped import (  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.path import (  # noqa: E402
     make_path_trace, render_pt,
 )
+from drmlt_mitsuba_tpu_torch.core.spectrum import (  # noqa: E402
+    LUMINANCE_WEIGHTS,
+)
 from drmlt_mitsuba_tpu_torch.ops import build  # noqa: E402
+from drmlt_mitsuba_tpu_torch.ops import splat as SP  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt as MD  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megammlt as MM  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megatrace as MT  # noqa: E402
@@ -94,6 +116,10 @@ DEPTH = 8
 MMLT_DEPTH = 6
 CHAINS = 65536
 B_SEEDS = 32     # bootstrap seeds for the spread of b (phase 9)
+# slice 3 (the JAX bench's differentiable-rendering config, bench.py:211)
+GRAD_DEPTH, GRAD_RR = 6, 5
+GRAD_CALLS = 16  # forward + backward calls per grad-paths/s figure
+ADAM_STEPS = 40
 C4 = 4096        # chains of the short kernel-vs-twin comparisons
 # lane tolerances: the library is built with --fmad=false, so kernel and
 # twin round alike; lanes may still differ where the CUDA math library and
@@ -150,6 +176,18 @@ def event_ms(fn, runs, warmup=1):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / runs
+
+
+def device_ms(fn, runs):
+    """(device ms per call, device busy share of the window): the summed
+    device time of every kernel `fn` launches, from torch.profiler, over
+    `runs` calls after a warm-up.  For kernels too short for CUDA events
+    to separate from the host's launch overhead."""
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(lambda: [fn() for _ in range(runs)])
+    busy, per = device_profile(prof.events(), wall)
+    return sum(t for t, _ in per.values()) / runs, busy
 
 
 def bound(n_bytes, tri_tests):
@@ -314,6 +352,332 @@ def slice2_starts(scene, k, gen, dev):
     return tables, MD.pack_chain_state(state), n_dims
 
 
+def grad_rate(step, calls):
+    """(paths per second, seconds) of `calls` forward + backward calls of
+    CHAINS lanes each, after one warm-up call (bench.py:245-302)."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return calls * CHAINS / dt, dt
+
+
+def film_image(fc, sp):
+    """The accum film's rgb of a batch of splats, through film.splat (the
+    splat kernel on the card; differentiable in the values)."""
+    scale = torch.tensor([fc.width, fc.height], dtype=torch.float32,
+                         device=sp.value.device)
+    film = filmlib.splat(fc, filmlib.new_film(fc, sp.value.device),
+                         sp.pos[:, 0, :] * scale, sp.value[:, 0, :],
+                         mode="accum")
+    return film[..., :3]
+
+
+def inverse_render(trace, leaf, value, p0, truth, target, u, fc,
+                   steps=ADAM_STEPS):
+    """The inverse-rendering loop of tests/test_gradients.py:55 with a
+    per-pixel image loss: Adam (lr 0.25) on p for `steps` steps.  Returns
+    (losses, recovered value, ms per step, largest error)."""
+    p = p0.clone().requires_grad_()
+    opt = torch.optim.Adam([p], lr=0.25)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = ((film_image(fc, trace(leaf(p), u)) - target) ** 2).sum()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    got = value(p).detach()
+    return ([float(x) for x in losses], got, ms,
+            float((got - truth).abs().max()))
+
+
+def slice3(name, dev, gen, fc, report):
+    """Phases 11-14; returns the kernels' JSON entries' numbers."""
+    lum_w = torch.tensor(LUMINANCE_WEIGHTS, device=dev)
+    gcfg = PathConfig(max_depth=GRAD_DEPTH, rr_depth=GRAD_RR)
+    cornell = cornell_box(SIZE, SIZE)
+    out = {}
+
+    # ---- 11. splat kernel vs twin ------------------------------------------
+    trace = make_path_trace(cornell, gcfg, dev)
+    u = torch.rand((CHAINS, gcfg.n_dims), generator=gen, device=dev)
+    sp = trace(u)
+    scale = torch.tensor([SIZE, SIZE], dtype=torch.float32, device=dev)
+    py, px, vals = filmlib.taps(fc, sp.pos[:, 0, :] * scale,
+                                sp.value[:, 0, :], mode="accum")
+    need(vals.shape[0] == CHAINS, f"{vals.shape[0]} taps")
+    film0 = filmlib.new_film(fc, dev)
+    k = SP.splat_add_(film0.clone(), py, px, vals)
+    torch.cuda.synchronize()
+    t = SP.splat_add_reference_(film0.clone(), py, px, vals)
+    splat_err = float((k - t).abs().max())
+    splat_ok = bool(torch.allclose(k, t, rtol=1e-5, atol=0.0))
+    # the backward: the gather of the film cotangent, against the twin's
+    # (autograd on the CPU)
+    ct = torch.rand((SIZE, SIZE, 4), generator=gen, device=dev)
+    v = vals.detach().clone().requires_grad_()
+    SP.splat_add(film0, py, px, v).backward(ct)
+    v_cpu = vals.detach().cpu().requires_grad_()
+    SP.splat_add(film0.cpu(), py.cpu(), px.cpu(), v_cpu).backward(ct.cpu())
+    gather_exact = bool(torch.equal(v.grad.cpu(), v_cpu.grad))
+    # per call on the host's clock (CUDA events around back-to-back calls,
+    # launch overhead included) and on the device's (profiler)
+    film_k = film0.clone()
+    film_t = film0.clone()
+    flat = py * SIZE + px
+    film_l = film0.clone().view(-1, 4)
+    calls = {
+        "kernel": lambda: SP.splat_add_(film_k, py, px, vals),
+        "twin": lambda: SP.splat_add_reference_(film_t, py, px, vals),
+        "index_add_": lambda: film_l.index_add_(0, flat, vals)}
+    call_ms = {k: event_ms(fn, runs=200, warmup=5) for k, fn in calls.items()}
+    dev_ms = {k: device_ms(fn, runs=50)[0] for k, fn in calls.items()}
+    ms_splat, plain_splat, lib_splat = (dev_ms["kernel"], dev_ms["twin"],
+                                        dev_ms["index_add_"])
+    # film read and written, int32 indices and f32 values read once
+    bound_splat = bound(2 * nbytes(film0) + nbytes(py, px, vals), 0)
+    report["splat_vs_twin"] = dict(
+        taps=CHAINS, max_abs=splat_err, rtol_1e5=splat_ok,
+        gather_exact=gather_exact, device_ms=dev_ms, call_ms=call_ms,
+        bound_ms=bound_splat[0])
+    print(f"[11 splat kernel vs twin] {name}: {CHAINS} box-filter taps of a "
+          f"render_pt chunk into a {SIZE}x{SIZE} film: max |d| "
+          f"{splat_err:.3e}, per-pixel rtol 1e-5 {splat_ok}, backward "
+          f"gather exact {gather_exact}; device ms per call: "
+          f"splat_add_kernel {ms_splat:.4f}, twin {plain_splat:.4f}, "
+          f"index_add_ {lib_splat:.4f} (bound {bound_splat[0]:.5f} ms by "
+          f"{bound_splat[1]}); per call with launch overhead (events): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in call_ms.items()))
+    need(splat_ok, f"splat kernel differs from its twin by {splat_err}")
+    need(gather_exact, "the splat backward is not the exact gather")
+    out["splat"] = (splat_err, ms_splat, plain_splat, bound_splat, lib_splat)
+
+    # ---- 12. adjoint kernels vs twins ----------------------------------------
+    scenes = {t: cornell_box(SIZE, SIZE, tall_box_material=t)
+              for t in ("diffuse", "mirror", "glass")}
+    scenes["veach"] = veach_door(SIZE, SIZE)
+    report["adjoint_vs_twin"] = {}
+    adj_err = {"rad": 0.0, "alb": 0.0}
+    for sname, sc in scenes.items():
+        tables = MT.make_tables(sc, gcfg, dev)
+        uT = torch.rand((gcfg.n_dims, CHAINS), generator=gen, device=dev)
+        row = []
+        for mode, fn, twin in (("rad", MT.path_trace_rad,
+                                MT.path_trace_rad_reference),
+                               ("alb", MT.path_trace_alb,
+                                MT.path_trace_alb_reference)):
+            kk = fn(tables, uT)
+            torch.cuda.synchronize()
+            tt = twin(tables, uT)
+            same = (kk[:3] == tt[:3]).all(0)
+            rows_ok = ((kk[3:] - tt[3:]).abs()
+                       <= 1e-5 * tt[3:].abs()).all(0) & same
+            err = (float((kk[3:] - tt[3:])[:, same].abs().max())
+                   if bool(same.any()) else float("inf"))
+            # d mean(lum) / d param through the kernel's rows and the twin's
+            g_k = torch.einsum("c,kcr->kc", lum_w, kk[3:].view(-1, 3, CHAINS))
+            g_t = torch.einsum("c,kcr->kc", lum_w, tt[3:].view(-1, 3, CHAINS))
+            g_rel = float(((g_k - g_t).abs() / (g_t.abs() + 1e-12)).max())
+            r = dict(rgb_bit_equal=float(same.double().mean()),
+                     rows_rtol_1e5=float(rows_ok.double().mean()),
+                     rows_max_abs=err, grad_rel=g_rel,
+                     finite=bool(torch.isfinite(kk).all()))
+            report["adjoint_vs_twin"][f"{sname}/{mode}"] = r
+            row.append(f"{mode}: rgb bit-equal {r['rgb_bit_equal']:.5f}, "
+                       f"rows {r['rows_rtol_1e5']:.5f}, grad rel {g_rel:.1e}")
+            need(r["finite"], f"{sname}/{mode}: non-finite rows")
+            need(r["rgb_bit_equal"] >= 1.0 - MAX_BAD_LANES,
+                 f"{sname}/{mode}: rgb rows differ")
+            need(r["rows_rtol_1e5"] >= 1.0 - MAX_BAD_LANES,
+                 f"{sname}/{mode}: Jacobian rows differ")
+            need(g_rel <= 1e-5, f"{sname}/{mode}: gradients differ {g_rel}")
+            adj_err[mode] = max(adj_err[mode], float((kk - tt).abs().max()))
+        print(f"[12 adjoint kernels vs twins] {name}: {sname}, {CHAINS} "
+              f"lanes, depth {GRAD_DEPTH}: " + "; ".join(row))
+
+    tables = MT.make_tables(cornell, gcfg, dev)
+    uT = torch.rand((gcfg.n_dims, CHAINS), generator=gen, device=dev)
+    u_g = uT.T.contiguous()
+    work = {}
+    MT.path_trace_reference(tables, uT, work)
+    timing = {}
+    for mode, fn, twin, K in (
+            ("rad", MT.path_trace_rad, MT.path_trace_rad_reference,
+             tables.em.shape[0]),
+            ("alb", MT.path_trace_alb, MT.path_trace_alb_reference,
+             tables.mat.shape[0])):
+        ms = event_ms(lambda: fn(tables, uT), runs=20)
+        plain = event_ms(lambda: twin(tables, uT), runs=3)
+        rows = fn(tables, uT)[3:].view(K, 3, CHAINS)
+        g = torch.rand((CHAINS, 3), generator=gen, device=dev)
+        lib = event_ms(lambda: torch.einsum("rc,kcr->kc", g, rows), runs=50)
+        bnd = bound(nbytes(uT, tables.tri, tables.mat, tables.em, tables.cam)
+                    + (3 + 3 * K) * CHAINS * 4, work["tri_tests"])
+        timing[mode] = (ms, plain, bnd, lib)
+    rad0 = cornell.emitters.radiance.to(dev)
+    alb0 = cornell.materials.albedo.to(dev)
+    trace_r = MT.make_mega_trace_rad(cornell, gcfg, dev)
+    trace_a = MT.make_mega_trace_alb(cornell, gcfg, dev)
+
+    def step_r():
+        r = rad0.clone().requires_grad_()
+        return torch.autograd.grad(trace_r(r, u_g).lum.mean(), r)[0]
+
+    def step_a():
+        a = alb0.clone().requires_grad_()
+        return torch.autograd.grad(trace_a(a, u_g).lum.mean(), a)[0]
+
+    rate_r, _ = grad_rate(step_r, GRAD_CALLS)
+    rate_a, _ = grad_rate(step_a, GRAD_CALLS)
+    # where a forward + backward call's time goes on the device
+    step_dev_ms, step_busy = device_ms(step_r, runs=GRAD_CALLS)
+    report["adjoint_timing"] = dict(
+        rad_ms=timing["rad"][0], rad_plain_ms=timing["rad"][1],
+        rad_einsum_ms=timing["rad"][3], alb_ms=timing["alb"][0],
+        alb_plain_ms=timing["alb"][1], alb_einsum_ms=timing["alb"][3],
+        bound_ms=timing["rad"][2][0], tri_tests=work["tri_tests"],
+        grad_paths_per_sec=rate_r, grad_albedo_paths_per_sec=rate_a,
+        rad_step_device_ms=step_dev_ms, rad_step_busy_share=step_busy)
+    print(f"[12 timing] {name}: path_trace_rad_kernel {timing['rad'][0]:.3f} "
+          f"ms vs twin {timing['rad'][1]:.3f} ms, its einsum "
+          f"{timing['rad'][3]:.4f} ms; path_trace_alb_kernel "
+          f"{timing['alb'][0]:.3f} ms vs twin {timing['alb'][1]:.3f} ms, its "
+          f"einsum {timing['alb'][3]:.4f} ms ({CHAINS} lanes, depth "
+          f"{GRAD_DEPTH}, rr {GRAD_RR}; bound {timing['rad'][2][0]:.4f} ms by "
+          f"{timing['rad'][2][1]}, {work['tri_tests']} ray-triangle tests); "
+          f"grad_paths_per_sec {rate_r:.4e}, grad_albedo_paths_per_sec "
+          f"{rate_a:.4e} (forward + backward, {GRAD_CALLS} calls; a "
+          f"radiance call keeps the device busy {step_dev_ms:.3f} ms, a "
+          f"busy share of {step_busy:.3f})")
+    out["rad"] = (adj_err["rad"], *timing["rad"])
+    out["alb"] = (adj_err["alb"], *timing["alb"])
+
+    # ---- 13. replay gradient vs the adjoints ---------------------------------
+    rcfg = PathConfig(max_depth=GRAD_DEPTH, rr_depth=100)
+    diff = MT.make_mega_trace_diff(cornell, rcfg, dev)
+    t_r = MT.make_mega_trace_rad(cornell, rcfg, dev)
+    t_a = MT.make_mega_trace_alb(cornell, rcfg, dev)
+    r1, a1 = rad0.clone().requires_grad_(), alb0.clone().requires_grad_()
+    build.reset_launches()
+    g_diff = torch.autograd.grad(
+        diff({"emitters.radiance": r1, "materials.albedo": a1},
+             u_g).lum.mean(), [r1, a1])
+    replay_launches = build.LAUNCHES["path_trace"]
+    r2, a2 = rad0.clone().requires_grad_(), alb0.clone().requires_grad_()
+    g_rad = torch.autograd.grad(t_r(r2, u_g).lum.mean(), r2)[0]
+    g_alb = torch.autograd.grad(t_a(a2, u_g).lum.mean(), a2)[0]
+    rel_r = float(((g_diff[0] - g_rad).abs() / g_rad.abs().clamp(min=1e-12))
+                  .max())
+    rel_a = float(((g_diff[1] - g_alb).abs() / g_alb.abs().clamp(min=1e-12))
+                  .max())
+
+    def step_replay():
+        r = rad0.clone().requires_grad_()
+        lum = diff({"emitters.radiance": r}, u_g).lum
+        return torch.autograd.grad(lum.mean(), r)[0]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    rate_replay, replay_s = grad_rate(step_replay, 2)
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    # the replay's forward is kernel #5 at this config: its time, the
+    # twin's, and the work bound of the same lanes
+    rtab = MT.make_tables(cornell, rcfg, dev)
+    ruT = u_g.T.contiguous()
+    ms_fwd = event_ms(lambda: MT.path_trace(rtab, ruT), runs=20)
+    plain_fwd = event_ms(lambda: MT.path_trace_reference(rtab, ruT), runs=3)
+    rwork = {}
+    MT.path_trace_reference(rtab, ruT, rwork)
+    bound_fwd = bound(nbytes(ruT, rtab.tri, rtab.mat, rtab.em, rtab.cam)
+                      + 3 * CHAINS * 4, rwork["tri_tests"])
+    report["replay"] = dict(grad_rel_radiance=rel_r, grad_rel_albedo=rel_a,
+                            path_kernel_launches=replay_launches,
+                            grad_replay_paths_per_sec=rate_replay,
+                            replay_call_s=replay_s / 2,
+                            peak_bytes_over_baseline=peak,
+                            forward_ms=ms_fwd, forward_plain_ms=plain_fwd,
+                            forward_bound_ms=bound_fwd[0],
+                            tri_tests=rwork["tri_tests"])
+    print(f"[13 replay gradient] {name}: {CHAINS} lanes, depth {GRAD_DEPTH}, "
+          f"rr 100: vs the adjoint kernels, radiance rel {rel_r:.2e}, albedo "
+          f"rel {rel_a:.2e} (path kernel launches {replay_launches}); "
+          f"grad_replay_paths_per_sec {rate_replay:.4e} "
+          f"({replay_s / 2:.3f} s per call), peak memory "
+          f"{peak / 2**20:.1f} MiB above the {base_mem / 2**20:.1f} MiB "
+          f"already allocated; its forward, path_trace_kernel, {ms_fwd:.3f} "
+          f"ms vs twin {plain_fwd:.3f} ms (bound {bound_fwd[0]:.4f} ms by "
+          f"{bound_fwd[1]}, {rwork['tri_tests']} ray-triangle tests)")
+    need(replay_launches > 0, "the replay forward did not run the kernel")
+    need(rel_r <= 1e-3 and rel_a <= 1e-3,
+         f"replay and adjoint gradients differ ({rel_r}, {rel_a})")
+    out["replay"] = (rate_replay, replay_s / 2, ms_fwd, plain_fwd,
+                     bound_fwd)
+
+    # ---- 14. inverse rendering (slice 3's main path) -------------------------
+    icfg = PathConfig(max_depth=GRAD_DEPTH, rr_depth=100)
+    u_i = torch.rand((CHAINS, icfg.n_dims), generator=gen, device=dev)
+    tr_a = MT.make_mega_trace_alb(cornell, icfg, dev)
+    tr_r = MT.make_mega_trace_rad(cornell, icfg, dev)
+    with torch.no_grad():
+        target = film_image(fc, tr_a(alb0, u_i))
+    build.reset_launches()
+    losses_a, got_a, ms_a, err_a = inverse_render(
+        tr_a, lambda p: torch.cat([alb0[:1], torch.sigmoid(p)[None],
+                                   alb0[2:]]),
+        torch.sigmoid, torch.zeros(3, device=dev), alb0[1], target, u_i, fc)
+    losses_r, got_r, ms_r, err_r = inverse_render(
+        tr_r, lambda p: rad0 * p, lambda p: p,
+        torch.tensor(0.5, device=dev), torch.tensor(1.0, device=dev),
+        target, u_i, fc)
+    launches3 = dict(build.LAUNCHES)
+    # device view of 10 more albedo steps: busy share and kernel times
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = sync_time(lambda: inverse_render(
+            tr_a, lambda p: torch.cat([alb0[:1], torch.sigmoid(p)[None],
+                                       alb0[2:]]),
+            torch.sigmoid, torch.zeros(3, device=dev), alb0[1], target, u_i,
+            fc, steps=10))
+    busy3, per3 = device_profile(prof.events(), prof_wall)
+    top3 = sorted(per3.items(), key=lambda kv: -kv[1][0])
+    report["inverse"] = dict(
+        albedo=dict(losses=losses_a, recovered=got_a.tolist(),
+                    truth=alb0[1].tolist(), max_err=err_a, ms_per_step=ms_a),
+        radiance_scale=dict(losses=losses_r, recovered=float(got_r),
+                            max_err=err_r, ms_per_step=ms_r),
+        launches=launches3, profile_wall_s=prof_wall, busy_share=busy3,
+        kernels_ms=[[k, t, n] for k, (t, n) in top3])
+    print(f"[14 inverse rendering] {name}: {CHAINS} lanes, {SIZE}x{SIZE} "
+          f"per-pixel loss, depth {GRAD_DEPTH}, rr 100, Adam lr 0.25 x "
+          f"{ADAM_STEPS}: albedo {[round(x, 4) for x in got_a.tolist()]} vs "
+          f"{[round(x, 4) for x in alb0[1].tolist()]} (max err {err_a:.4f}), "
+          f"loss {losses_a[0]:.4e} -> {losses_a[-1]:.4e}, {ms_a:.3f} ms per "
+          f"step; radiance scale {float(got_r):.4f} vs 1 (err {err_r:.4f}), "
+          f"loss {losses_r[0]:.4e} -> {losses_r[-1]:.4e}, {ms_r:.3f} ms per "
+          f"step; launches {launches3}")
+    print(f"[14 inverse rendering profile] {name}: device busy {busy3:.4f} "
+          f"of {prof_wall:.3f} s for 10 albedo steps; " + "; ".join(
+              f"{k.split('(')[0][:60]} {t:.3f} ms x{n}"
+              for k, (t, n) in top3[:6]))
+    for tag, losses, err in (("albedo", losses_a, err_a),
+                             ("radiance scale", losses_r, err_r)):
+        need(losses[-1] < 0.01 * losses[0],
+             f"{tag}: loss fell only to {losses[-1] / losses[0]:.4f}")
+        need(err <= 0.08, f"{tag}: recovered to within {err}")
+    need(all(launches3[k] > 0 for k in ("splat_add", "path_trace_rad",
+                                        "path_trace_alb")),
+         f"a kernel of slice 3 did not launch: {launches3}")
+    out["launches"] = launches3
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -340,7 +704,8 @@ def main():
                            cached=build.build_info["cached"], ptxas=regs)
     for k in ("path_trace_kernel", "mmlt_trace_kernel",
               "drmlt_chain_kernelINS_9PathTrace",
-              "drmlt_chain_kernelINS_9MmltTrace"):
+              "drmlt_chain_kernelINS_9MmltTrace", "splat_add_kernel",
+              "path_trace_rad_kernel", "path_trace_alb_kernel"):
         need(any(k in n for n in regs), f"ptxas reported no {k}")
     print(f"[2 build] {name}: nvcc {build.build_info['seconds']:.1f} s "
           f"(cached={build.build_info['cached']}); " + "; ".join(
@@ -427,6 +792,8 @@ def main():
     ref_film, ref_wall = sync_time(lambda: render_pt(
         scene, pcfg, gen, SIZE * SIZE * 64, fc, mode="accum"))
     ref = filmlib.develop(fc, ref_film, mode="accum")
+    # render_pt splats through the splat kernel (phase 11 checks it)
+    ref_splats = build.LAUNCHES["splat_add"]
     mean_rel, block_l1 = mc_compare(img, ref)
     m_img = img.double().mean((0, 1))
     m_ref = ref.double().mean((0, 1))
@@ -436,16 +803,18 @@ def main():
         image_mean=m_img.tolist(), ref_mean=m_ref.tolist(),
         mean_rel_err=mean_rel, block_rel_l1=block_l1, accept2=acc2,
         accept1=float(aux["stats"]["accept1"]), finite=finite,
-        launches=launches, ref_wall_s=ref_wall)
+        launches=launches, ref_wall_s=ref_wall, ref_splat_launches=ref_splats)
     print(f"[5 slice] {name}: b {b:.6f}, warm wall {wall:.3f} s for "
           f"{n_mutations} mutations ({n_mutations / wall:.4e} mutations/s, "
           f"bootstrap included; first call {first_wall:.3f} s), "
           f"image mean {m_img.tolist()}, finite "
           f"{finite}, vs MC mean rel {mean_rel:.4f}, 16x16-block rel L1 "
-          f"{block_l1:.4f}, accept2 {acc2:.4f}, launches {launches}")
+          f"{block_l1:.4f}, accept2 {acc2:.4f}, launches {launches}; the MC "
+          f"render_pt: {ref_splats} splat kernel launches")
     need(finite, "slice image not finite")
     need(launches["path_trace"] > 0 and launches["drmlt_path"] > 0,
          f"a kernel of the path did not launch: {launches}")
+    need(ref_splats > 0, "render_pt did not splat through the kernel")
     # MCMC-vs-MC: 16.8M mutations against 4.2M MC samples.  The image
     # scale b alone varies by 1.8% (relative std) between seeds at 106,496
     # bootstrap samples (path luminance CV ~7 on this box), so 0.08 is
@@ -790,14 +1159,18 @@ def main():
           f"ray-triangle tests); whole script "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 11-14. slice 3 -----------------------------------------------------
+    s3 = slice3(name, dev, gen, fc, report)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
-    def entry(kname, source, replaces, launched, err, ms, plain, bnd):
+    def entry(kname, source, replaces, launched, err, ms, plain, bnd,
+              library=None):
         return dict(name=kname, route="cuda", source=src + source,
                     replaces=ref_src + replaces, launches=launched,
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                    bound_by=bnd[1], library_ms=None)
+                    bound_by=bnd[1], library_ms=library)
 
     kernels = [
         entry("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
@@ -812,6 +1185,15 @@ def main():
         entry("drmlt_chain_kernel[mmlt]", "drmlt_chain.cu",
               "megadrmlt.py:105", launches2["drmlt_mmlt"], mmlt_chain_err,
               ms_mmlt_chain, plain_mmlt_chain, bound_mmlt_chain),
+        # library: index_add_ of the taps; the einsum of the backward
+        entry("splat_add_kernel", "splat.cu", "splat_kernel.py:79",
+              s3["launches"]["splat_add"], *s3["splat"]),
+        entry("path_trace_rad_kernel", "path_trace_grad.cu",
+              "megatrace.py:1798", s3["launches"]["path_trace_rad"],
+              *s3["rad"]),
+        entry("path_trace_alb_kernel", "path_trace_grad.cu",
+              "megatrace.py:1943", s3["launches"]["path_trace_alb"],
+              *s3["alb"]),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -13,8 +13,9 @@ RAY_EPS = 1e-4  # min-t offset to avoid self-intersection
 
 
 def safe_sqrt(x):
-    """sqrt clamped to 0 for non-positive inputs."""
-    return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=1e-30)), 0.0)
+    """sqrt(max(x, 0)), with a backward that is 0, not inf, at x <= 0."""
+    ok = x > 0.0
+    return torch.where(ok, torch.sqrt(torch.where(ok, x, 1.0)), 0.0)
 
 
 def safe_div(a, b, default=0.0):
@@ -53,7 +54,7 @@ def fresnel_dielectric(cos_i, eta):
     ci = torch.abs(cos_i)
     sin2_t = (1.0 - ci * ci) / (eta_it * eta_it)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = safe_sqrt(1.0 - sin2_t)
     r_s = safe_div(ci - eta_it * cos_t, ci + eta_it * cos_t)
     r_p = safe_div(eta_it * ci - cos_t, eta_it * ci + cos_t)
     f = 0.5 * (r_s * r_s + r_p * r_p)

@@ -280,8 +280,55 @@ struct PssView {
   }
 };
 
-// The path radiance of one lane.
-static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) {
+// Gradient modes of the trace body: none (the path kernel and the chain
+// kernel), emitter radiance (path_trace_rad_kernel) or material albedo
+// (path_trace_alb_kernel), as the reference's emit_grad / albedo_grad
+// (megatrace.py:886-915).
+constexpr int kGradNone = 0;
+constexpr int kGradEmit = 1;
+constexpr int kGradAlbedo = 2;
+// Diffuse-like bounces a path may take in albedo mode (its max_depth);
+// ops/megatrace.py checks the config against it.
+constexpr int kMaxGradDepth = 16;
+
+// A lane's Jacobian rows: row k of the lane lives at rows[k * stride]
+// (a (3K, R) block, dim-major, so a warp's adds are coalesced).  Rows 3e+c
+// hold d value[c] / d radiance[e, c] (emit) or 3m+c d value[c] / d
+// albedo[m, c] (albedo).
+struct GradRows {
+  float* rows;
+  long stride;
+  __device__ __forceinline__ void add(int k, float v) const { rows[(long)k * stride] += v; }
+};
+
+// Albedo mode: a contribution c is a polynomial in the albedos, with power
+// pw_m of material m (its diffuse-like bounces on the path so far), so
+// d c / d al_m = c * pw_m / al_m; a black channel (al <= 1e-12) gets 0, as
+// in the reference.  dl[0..n) are the materials of those bounces.
+__device__ __forceinline__ void albedo_rows(const Tables& tb, const GradRows& g, const int* dl,
+                                            int n, V3 c) {
+  for (int i = 0; i < n; ++i) {
+    const int m = dl[i];
+    bool seen = false;
+    for (int j = 0; j < i; ++j) seen = seen || dl[j] == m;
+    if (seen) continue;
+    float pw = 0.0f;
+    for (int j = i; j < n; ++j) pw += dl[j] == m ? 1.0f : 0.0f;
+    const float* al = tb.mat + m * kMatCols + 1;
+    const float cc[3] = {c.x, c.y, c.z};
+    for (int ch = 0; ch < 3; ++ch) {
+      float a = __ldg(al + ch);
+      float gm = a > 1e-12f ? pw / fmaxf(a, 1e-12f) : 0.0f;
+      g.add(3 * m + ch, cc[ch] * gm);
+    }
+  }
+}
+
+// The path radiance of one lane; in a gradient mode it also adds the
+// lane's Jacobian rows to g.  Inlined into each caller: the no-gradient
+// instantiation is the body trace_path has always had.
+template <int G>
+__device__ __forceinline__ V3 trace_body(const Tables& tb, const PssView u, const GradRows g) {
   const float* cam = tb.cam;
   float cx = (2.0f * u(0) - 1.0f) * cam[12];
   float cy = (1.0f - 2.0f * u(1)) * cam[13];
@@ -294,6 +341,8 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
   float prev_pdf = 0.0f;
   bool prev_delta = true;
   float eta_scale = 1.0f;
+  int dl[G == kGradAlbedo ? kMaxGradDepth : 1];
+  int n_dl = 0;
 
   for (int depth = 1; depth <= tb.max_depth; ++depth) {
     const int base = kSensorDims + (depth - 1) * kBounceDims;
@@ -328,11 +377,22 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
         w_bsdf = mis_power(prev_pdf, nee_pdf);
       }
       L = L + tp * ld3(er) * w_bsdf;
+      if constexpr (G == kGradEmit) {
+        const V3 t_e = tp * w_bsdf;
+        g.add(3 * erow, t_e.x);
+        g.add(3 * erow + 1, t_e.y);
+        g.add(3 * erow + 2, t_e.z);
+      }
+      if constexpr (G == kGradAlbedo) albedo_rows(tb, g, dl, n_dl, tp * ld3(er) * w_bsdf);
     }
 
     const Frame fr = make_frame(ns);
     const V3 wi = to_local(fr, -d);
     const bool delta_m = is_delta(kind);
+    if constexpr (G == kGradAlbedo) {
+      // this vertex's albedo enters its NEE term and every later one
+      if (kind == kDiffuse || kind == kRoughDiffuse) dl[n_dl++] = (int)__ldg(av + 18);
+    }
 
     // ---- NEE: one area-light sample, immediate shadow sweep
     if (tb.use_nee && !delta_m && depth + 1 <= tb.max_depth && depth + 1 >= tb.min_depth) {
@@ -364,6 +424,13 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
           float w_nee = mis_power(ds_pdf, f_pdf);
           float inv_pdf = w_nee / fmaxf(ds_pdf, 1e-20f);
           L = L + tp * f * ld3(lr) * inv_pdf;
+          if constexpr (G == kGradEmit) {
+            const V3 t_e = tp * f * inv_pdf;
+            g.add(3 * row, t_e.x);
+            g.add(3 * row + 1, t_e.y);
+            g.add(3 * row + 2, t_e.z);
+          }
+          if constexpr (G == kGradAlbedo) albedo_rows(tb, g, dl, n_dl, tp * f * ld3(lr) * inv_pdf);
         }
       }
     }
@@ -395,6 +462,11 @@ static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) 
     prev_delta = delta_m;
   }
   return L;
+}
+
+// The path radiance of one lane (the path kernel and the chain kernel).
+static __device__ __noinline__ V3 trace_path(const Tables& tb, const PssView u) {
+  return trace_body<kGradNone>(tb, u, GradRows{nullptr, 0});
 }
 
 }  // namespace drmlt

@@ -22,6 +22,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from drmlt_mitsuba_tpu_torch.core.spectrum import luminance
+
 SENSOR_DIMS = 4
 BOUNCE_DIMS = 9
 
@@ -68,3 +72,18 @@ class PathConfig:
 
 def bounce_base(b: int) -> int:
     return SENSOR_DIMS + b * BOUNCE_DIMS
+
+
+@dataclasses.dataclass
+class Splats:
+    """Fixed-size splat list: one splat per unidirectional sample."""
+    pos: torch.Tensor     # (R, 1, 2) continuous [0,1)^2 film position
+    value: torch.Tensor   # (R, 1, 3)
+    lum: torch.Tensor     # (R,) luminance (the MCMC target density)
+
+
+def path_splats(u, value) -> Splats:
+    """The splats of a unidirectional trace: film position u[:, 0:2] and
+    value (R, 3), with its luminance."""
+    return Splats(pos=u[:, None, 0:2], value=value[:, None, :],
+                  lum=luminance(value))

@@ -8,7 +8,7 @@ import dataclasses
 import torch
 
 from drmlt_mitsuba_tpu_torch.core.rng import uniform
-from drmlt_mitsuba_tpu_torch.integrators.path import Splats
+from drmlt_mitsuba_tpu_torch.integrators.layout import Splats
 
 BOOTSTRAP_BATCH = 8192
 

@@ -4,41 +4,29 @@ drmlt_mitsuba_tpu/integrators/path.py).
 The function is pure in the primary-sample matrix u (R, n_dims), so the
 same trace serves plain Monte-Carlo rendering (u uniform) and MCMC (u =
 chain state).  `make_path_trace` runs the CUDA path kernel on a CUDA
-device (ops/megatrace.py); `trace_paths` is its plain-PyTorch twin.
+device (ops/megatrace.py); `trace_paths` is its plain-PyTorch twin, and
+is differentiable in the scene's float leaves.  `make_path_trace_diff`
+is the differentiable trace of inverse rendering.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
 from drmlt_mitsuba_tpu_torch.core.rng import uniform
-from drmlt_mitsuba_tpu_torch.core.spectrum import luminance
-from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
+from drmlt_mitsuba_tpu_torch.integrators.layout import (  # noqa: F401
+    PathConfig, Splats, path_splats,
+)
 from drmlt_mitsuba_tpu_torch.ops import megatrace
 from drmlt_mitsuba_tpu_torch.render import film as filmlib
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
 
 
-@dataclasses.dataclass
-class Splats:
-    """Fixed-size splat list: one splat per unidirectional sample."""
-    pos: torch.Tensor     # (R, 1, 2) continuous [0,1)^2 film position
-    value: torch.Tensor   # (R, 1, 3)
-    lum: torch.Tensor     # (R,) luminance (the MCMC target density)
-
-
-def _splats(u, rgb_T):
-    value = rgb_T.T
-    return Splats(pos=u[:, None, 0:2], value=value[:, None, :],
-                  lum=luminance(value))
-
-
 def trace_paths(scene: Scene, cfg: PathConfig, u) -> Splats:
-    """Plain-PyTorch trace of a batch of camera paths u (R, cfg.n_dims)."""
+    """Plain-PyTorch trace of a batch of camera paths u (R, cfg.n_dims),
+    differentiable in the scene's float leaves."""
     tables = megatrace.make_tables(scene, cfg, u.device)
-    return _splats(u, megatrace.path_trace_reference(
-        tables, u[:, :cfg.n_dims].T))
+    return path_splats(u, megatrace.path_trace_reference(
+        tables, u[:, :cfg.n_dims].T).T)
 
 
 def make_path_trace(scene: Scene, cfg: PathConfig, device):
@@ -47,10 +35,20 @@ def make_path_trace(scene: Scene, cfg: PathConfig, device):
     tables = megatrace.make_tables(scene, cfg, device)
 
     def trace(u):
-        return _splats(u, megatrace.path_trace(
-            tables, u[:, :cfg.n_dims].T.contiguous()))
+        return path_splats(u, megatrace.path_trace(
+            tables, u[:, :cfg.n_dims].T.contiguous()).T)
 
     return trace
+
+
+def make_path_trace_diff(scene: Scene, cfg: PathConfig, device="cuda"):
+    """trace(leaves, u) -> Splats, differentiable in the scene leaves named
+    in `leaves` ({"materials.albedo": tensor, ...}; the others are
+    `scene`'s): the path kernel (its twin on the CPU) runs forward and the
+    backward replays the twin under autograd
+    (ops.megatrace.make_mega_trace_diff; counterpart of the reference's
+    path.py:make_path_trace_diff)."""
+    return megatrace.make_mega_trace_diff(scene, cfg, device)
 
 
 def render_pt(scene: Scene, cfg: PathConfig, generator, n_samples: int,
@@ -67,6 +65,6 @@ def render_pt(scene: Scene, cfg: PathConfig, generator, n_samples: int,
         n = min(chunk, n_samples - start)
         u = uniform((n, cfg.n_dims), generator)
         sp = trace(u)
-        filmlib.splat(film_cfg, film, sp.pos[:, 0, :] * scale,
-                      sp.value[:, 0, :], mode=mode)
+        film = filmlib.splat(film_cfg, film, sp.pos[:, 0, :] * scale,
+                             sp.value[:, 0, :], mode=mode)
     return film

@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES = {"path_trace": 0, "drmlt_path": 0, "mmlt_trace": 0,
-            "drmlt_mmlt": 0}
+            "drmlt_mmlt": 0, "splat_add": 0, "path_trace_rad": 0,
+            "path_trace_alb": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,11 +45,18 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 
 # C signatures of the entry points (csrc/*.cu, extern "C")
+_PATH_TRACE = [
+    _P, _I, _P, _I, _P, _I, _P,                # tri, T, mat, M, em, E, cam
+    _I, _I, _I, _I,                            # max/min/rr depth, use_nee
+    _P, _I, _P, _P,                            # uT, R, out, stream
+]
 _SIGNATURES = {
-    "path_trace_launch": [
-        _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
-        _I, _I, _I, _I,                        # max/min/rr depth, use_nee
-        _P, _I, _P, _P,                        # uT, R, out, stream
+    "path_trace_launch": _PATH_TRACE,
+    "path_trace_rad_launch": _PATH_TRACE,
+    "path_trace_alb_launch": _PATH_TRACE,
+    "splat_add_launch": [
+        _P, _I, _I, _P, _P, _P, _I, _P,        # film, H, W, py, px, vals,
+        #                                        N, stream
     ],
     "mmlt_trace_launch": [
         _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam

@@ -32,11 +32,11 @@ from drmlt_mitsuba_tpu_torch.core.math import (
 from drmlt_mitsuba_tpu_torch.core.spectrum import luminance
 from drmlt_mitsuba_tpu_torch.core.warp import square_to_cosine_hemisphere
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
-from drmlt_mitsuba_tpu_torch.integrators.path import Splats
+from drmlt_mitsuba_tpu_torch.integrators.layout import Splats
 from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.ops.megatrace import (
     INF, closest_hit, count_sweeps, mega_eligible, occluded,
-    pack_mega_tables, scene_args,
+    pack_mega_tables_torch, scene_args,
 )
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     eval_bsdf, is_delta, sample_bsdf,
@@ -82,13 +82,10 @@ class MmltTables:
 def make_mmlt_tables(scene: Scene, cfg: BDPTConfig, device) -> MmltTables:
     """Check eligibility, pack and move the tables to `device`."""
     mega_mmlt_eligible(scene, cfg)
-    tri, mat, emt, cam = pack_mega_tables(scene)[:4]
-
-    def dev(a):
-        return torch.from_numpy(a).to(device).contiguous()
-
-    return MmltTables(tri=dev(tri), mat=dev(mat), em=dev(emt),
-                      cam=dev(cam.reshape(-1)), max_depth=cfg.max_depth,
+    tri, mat, emt, cam = (t.contiguous()
+                          for t in pack_mega_tables_torch(scene, device))
+    return MmltTables(tri=tri, mat=mat, em=emt,
+                      cam=cam.reshape(-1), max_depth=cfg.max_depth,
                       light_image=bool(cfg.light_image),
                       eye_dims=cfg.eye_dims, light_dims=cfg.light_dims)
 

@@ -15,14 +15,25 @@ sweep (strict `<`, so the lower triangle index wins a tie), NEE to one
 area-light sample with an immediate shadow sweep, power-heuristic MIS,
 BSDF sampling, Russian roulette after rr_depth.
 
-`pack_mega_tables` is a numpy copy of the reference's host-side packing
-(megatrace.py:280-387), with the same column layouts.
+`pack_mega_tables_torch` packs the tri, mat, em and cam tables of the
+reference's host-side packing (megatrace.py:280-387), column for column,
+with torch ops, so they carry the gradient of the scene leaves; it serves
+every kernel of the port.
+
+Differentiable rendering (the reference's megatrace.py:1798-2370):
+`path_trace_rad` / `path_trace_alb` launch the adjoint kernels of
+`csrc/path_trace_grad.cu` (twins `path_trace_rad_reference` /
+`path_trace_alb_reference`), which add to each lane's radiance its
+Jacobian rows with respect to the emitters' radiance or the materials'
+albedo; `make_mega_trace_rad` / `make_mega_trace_alb` wrap them in
+autograd Functions whose backward is one einsum, and
+`make_mega_trace_diff` runs the path kernel forward and replays the twin
+under autograd backward, for any float scene leaf.
 """
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from drmlt_mitsuba_tpu_torch.core.math import (
@@ -32,14 +43,19 @@ from drmlt_mitsuba_tpu_torch.core.frame import to_local, to_world
 from drmlt_mitsuba_tpu_torch.core.spectrum import luminance
 from drmlt_mitsuba_tpu_torch.integrators.layout import (
     BOUNCE_DIMS, OFF_BSDF_CMP, OFF_BSDF_U, OFF_LIGHT_PICK, OFF_LIGHT_U,
-    OFF_RR, SENSOR_DIMS,
+    OFF_RR, SENSOR_DIMS, path_splats,
 )
 from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     SUPPORTED_KINDS, eval_bsdf, is_delta, sample_bsdf,
 )
-from drmlt_mitsuba_tpu_torch.render.emitter import hit_emission, sample_direct
-from drmlt_mitsuba_tpu_torch.scene.types import EMITTER_AREA, Scene
+from drmlt_mitsuba_tpu_torch.render.emitter import (
+    hit_emission, pick_row, sample_direct,
+)
+from drmlt_mitsuba_tpu_torch.scene.convert import replace_leaves
+from drmlt_mitsuba_tpu_torch.scene.types import (
+    BSDF_DIFFUSE, BSDF_ROUGH_DIFFUSE, EMITTER_AREA, Scene,
+)
 
 INF = 3.0e38
 MAX_TRIS = 4096   # above this the reference switches to clustered traversal
@@ -49,94 +65,66 @@ _TRI_COLS = 20   # v0 e1 e2 n0 n1 n2 mat_id erow
 _MAT_COLS = 18   # kind albedo eta k rough spec_refl spec_trans tex_id
 _EM_COLS = 20    # rad area pmf cdf v0 e1 e2 ng kind
 _CAM_COLS = 24   # R00..R22 t0..t2 thx thy aperture focus env_rgb pad
-_SPH_COLS = 8    # center radius mat_id emitter_id valid pad
-_TRI_EXT_COLS = 28  # _TRI_COLS attrs + uv0 uv1 uv2 + pad
-_TEX_COLS = 4    # rgb + pad
 
 
 # ---------------------------------------------------------------- packing
-def pack_mega_tables(scene: Scene):
-    """Host-side tables (numpy): tri, mat, emt, cam, sph, tri_ext, tex,
-    env_tab, env_col, env_row.  The port's scenes carry no textures and no
-    image environment, so those four are the reference's zero
-    placeholders."""
+def pack_mega_tables_torch(scene: Scene, device=None):
+    """The tri, mat, em and cam tables of the reference's pack_mega_tables
+    (megatrace.py:280), built with torch ops on the live scene leaves
+    (counterpart of its pack_mega_tables_jnp, :390) on `device` (default:
+    the CPU): equal to the reference's tables byte for byte, and
+    differentiable in the float leaves (tris.v0 / e1 / e2 / n0-n2,
+    materials.*, emitters.radiance / area / pmf / cdf, camera.to_world and
+    the camera scalars), wherever those live.  The reference's other six
+    tables (spheres, triangle attributes, textures, environment) hold
+    nothing the port's kernels read."""
+    def f(x):
+        return x.to(device=device, dtype=torch.float32)
+
     tris = scene.tris
-    v0 = tris.v0.numpy().astype(np.float32)
-    e1 = tris.e1.numpy().astype(np.float32)
-    e2 = tris.e2.numpy().astype(np.float32)
-    valid = tris.valid.numpy().astype(bool)
-    T = v0.shape[0]
-    tri = np.zeros((T, _TRI_COLS), np.float32)
-    tri[:, 0:3] = v0
-    tri[:, 3:6] = e1
-    tri[:, 6:9] = e2
-    tri[:, 9:12] = tris.n0.numpy()
-    tri[:, 12:15] = tris.n1.numpy()
-    tri[:, 15:18] = tris.n2.numpy()
-    tri[:, 18] = tris.mat_id.numpy().astype(np.float32)
-    tri[:, 19] = tris.emitter_id.numpy().astype(np.float32)
-    tri[~valid, 3:9] = 0.0      # degenerate edges: det 0, never hit
+    T = tris.v0.shape[0]
+    valid = tris.valid.to(device=device, dtype=torch.bool)[:, None]
+    tri = torch.cat([
+        f(tris.v0), torch.where(valid, f(tris.e1), 0.0),
+        torch.where(valid, f(tris.e2), 0.0),
+        f(tris.n0), f(tris.n1), f(tris.n2),
+        f(tris.mat_id)[:, None], f(tris.emitter_id)[:, None],
+    ], 1)
 
     mats = scene.materials
-    M = mats.kind.shape[0]
-    mat = np.zeros((M, _MAT_COLS), np.float32)
-    mat[:, 0] = mats.kind.numpy().astype(np.float32)
-    mat[:, 1:4] = mats.albedo.numpy()
-    mat[:, 4:7] = mats.eta.numpy()
-    mat[:, 7:10] = mats.k.numpy()
-    mat[:, 10] = np.maximum(mats.roughness.numpy().astype(np.float32), 1e-3)
-    mat[:, 11:14] = mats.spec_refl.numpy()
-    mat[:, 14:17] = mats.spec_trans.numpy()
-    mat[:, 17] = mats.tex_id.numpy().astype(np.float32)
+    mat = torch.cat([
+        f(mats.kind)[:, None], f(mats.albedo), f(mats.eta), f(mats.k),
+        torch.clamp(f(mats.roughness), min=1e-3)[:, None],
+        f(mats.spec_refl), f(mats.spec_trans), f(mats.tex_id)[:, None],
+    ], 1)
 
     em = scene.emitters
-    E = em.kind.shape[0]
-    emt = np.zeros((E, _EM_COLS), np.float32)
-    emt[:, 0:3] = em.radiance.numpy()
-    emt[:, 3] = em.area.numpy()
-    emt[:, 4] = em.pmf.numpy()
-    emt[:, 5] = em.cdf.numpy()
-    ti = np.clip(em.tri_idx.numpy(), 0, T - 1)
-    emt[:, 6:9] = v0[ti]
-    emt[:, 9:12] = e1[ti]
-    emt[:, 12:15] = e2[ti]
-    ng = np.cross(e1[ti], e2[ti])
-    ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
-    emt[:, 15:18] = ng
-    emt[:, 18] = em.kind.numpy().astype(np.float32)
+    ti = torch.clamp(em.tri_idx.to(device=device, dtype=torch.int64), 0,
+                     T - 1)
+    v0e, e1e, e2e = f(tris.v0)[ti], f(tris.e1)[ti], f(tris.e2)[ti]
+    ng = cross(e1e, e2e)
+    # |ng| as numpy's norm computes it, with a backward free of inf at 0
+    n2 = dot(ng, ng)
+    norm = torch.where(n2 > 0, torch.sqrt(torch.where(n2 > 0, n2, 1.0)), 0.0)
+    ng = ng / torch.clamp(norm, min=1e-20)[:, None]
+    E = ti.shape[0]
+    emt = torch.cat([
+        f(em.radiance), f(em.area)[:, None], f(em.pmf)[:, None],
+        f(em.cdf)[:, None], v0e, e1e, e2e, ng, f(em.kind)[:, None],
+        torch.zeros((E, _EM_COLS - 19), dtype=torch.float32,
+                    device=ti.device),
+    ], 1)
 
-    cam = np.zeros((1, _CAM_COLS), np.float32)
-    c2w = scene.camera.to_world.numpy().astype(np.float32)
-    cam[0, 0:9] = c2w[:3, :3].reshape(9)
-    cam[0, 9:12] = c2w[:3, 3]
-    cam[0, 12] = float(scene.camera.tan_half_fov_x)
-    cam[0, 13] = float(scene.camera.tan_half_fov_y)
-    cam[0, 14] = float(scene.camera.aperture_radius)
-    cam[0, 15] = float(scene.camera.focus_distance)
-    cam[0, 16:19] = em.env_radiance.numpy()
-
-    sp = scene.spheres
-    sv = sp.valid.numpy().astype(bool)
-    sph = np.zeros((max(1, sv.shape[0]), _SPH_COLS), np.float32)
-    if sv.shape[0]:
-        sph[:sv.shape[0], 0:3] = sp.center.numpy()
-        sph[:sv.shape[0], 3] = sp.radius.numpy()
-        sph[:sv.shape[0], 4] = sp.mat_id.numpy().astype(np.float32)
-        sph[:sv.shape[0], 5] = sp.emitter_id.numpy().astype(np.float32)
-        sph[:sv.shape[0], 6] = sv.astype(np.float32)
-
-    Tp = -(-T // 512) * 512
-    tri_ext = np.zeros((Tp, _TRI_EXT_COLS), np.float32)
-    tri_ext[:T, :_TRI_COLS] = tri
-    tri_ext[:T, 20:22] = tris.uv0.numpy()
-    tri_ext[:T, 22:24] = tris.uv1.numpy()
-    tri_ext[:T, 24:26] = tris.uv2.numpy()
-
-    tex = np.zeros((1, _TEX_COLS), np.float32)
-    env_tab = np.zeros((1, _TEX_COLS), np.float32)
-    env_col = np.zeros((1, 1), np.float32)
-    env_row = np.zeros((1, 1), np.float32)
-    return tri, mat, emt, cam, sph, tri_ext, tex, env_tab, env_col, env_row
+    cam_ = scene.camera
+    c2w = f(cam_.to_world)
+    cam = torch.cat([
+        c2w[:3, :3].reshape(9), c2w[:3, 3],
+        f(cam_.tan_half_fov_x).reshape(1), f(cam_.tan_half_fov_y).reshape(1),
+        f(cam_.aperture_radius).reshape(1),
+        f(cam_.focus_distance).reshape(1), f(em.env_radiance).reshape(3),
+        torch.zeros(_CAM_COLS - 19, dtype=torch.float32, device=c2w.device),
+    ]).reshape(1, _CAM_COLS)
+    return tri, mat, emt, cam
 
 
 def mega_eligible(scene: Scene, cfg) -> bool:
@@ -191,17 +179,15 @@ class TraceTables:
 
 
 def make_tables(scene: Scene, cfg, device) -> TraceTables:
-    """Check eligibility, pack and move the tables to `device`."""
+    """Check eligibility, pack (pack_mega_tables_torch: the tables carry
+    the gradient of any scene leaf that requires one) and move the tables
+    to `device`."""
     mega_eligible(scene, cfg)
-    tri, mat, emt, cam = pack_mega_tables(scene)[:4]
-
-    def dev(a):
-        return torch.from_numpy(a).to(device).contiguous()
-
-    return TraceTables(tri=dev(tri), mat=dev(mat), em=dev(emt),
-                       cam=dev(cam.reshape(-1)), max_depth=cfg.max_depth,
-                       min_depth=cfg.min_depth, rr_depth=cfg.rr_depth,
-                       use_nee=bool(cfg.use_nee))
+    tri, mat, emt, cam = (t.contiguous()
+                          for t in pack_mega_tables_torch(scene, device))
+    return TraceTables(tri=tri, mat=mat, em=emt, cam=cam.reshape(-1),
+                       max_depth=cfg.max_depth, min_depth=cfg.min_depth,
+                       rr_depth=cfg.rr_depth, use_nee=bool(cfg.use_nee))
 
 
 def scene_args(tables):
@@ -240,16 +226,31 @@ def _sweep(tri, o, d):
 
 
 def closest_hit(tri, o, d):
-    """(best_t (R,), best_id (R,) int64, -1 on a miss)."""
-    tt, hit = _sweep(tri, o, d)
-    hit = hit & (tt < INF)
-    t_m = torch.where(hit, tt, INF)
-    best_t = t_m.min(1).values
-    first = (hit & (t_m == best_t[:, None])).to(torch.int8).argmax(1)
-    best_id = torch.where(best_t < INF, first, -1)
+    """(best_t (R,), best_id (R,) int64, -1 on a miss).
+
+    The sweep runs without autograd; when autograd records (a table, o or
+    d requires grad), the winner's distance is recomputed from its row by
+    the same expressions, so its value is the sweep's and only (R,)
+    tensors, not (R, T) ones, are kept for the backward."""
+    with torch.no_grad():
+        tt, hit = _sweep(tri, o, d)
+        hit = hit & (tt < INF)
+        t_m = torch.where(hit, tt, INF)
+        best_t = t_m.min(1).values
+        first = (hit & (t_m == best_t[:, None])).to(torch.int8).argmax(1)
+        best_id = torch.where(best_t < INF, first, -1)
+    if torch.is_grad_enabled() and (tri.requires_grad or o.requires_grad
+                                    or d.requires_grad):
+        w = tri[torch.clamp(best_id, min=0)]
+        p = cross(d, w[:, 6:9])
+        det = dot(w[:, 3:6], p)
+        inv = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1.0)
+        tt_w = dot(w[:, 6:9], cross(o - w[:, 0:3], w[:, 3:6])) * inv
+        best_t = torch.where(best_id >= 0, tt_w, INF)
     return best_t, best_id
 
 
+@torch.no_grad()
 def occluded(tri, o, d, tmax):
     tt, hit = _sweep(tri, o, d)
     return (hit & (tt < tmax[:, None])).any(1)
@@ -281,9 +282,50 @@ def count_sweeps(work, tri, mask, o=None, d=None, tmax=None):
     work["tri_tests"] = work.get("tri_tests", 0) + n
 
 
+# gradient modes of the twin (the kernels' kGradEmit / kGradAlbedo)
+GRAD_EMIT = "emit"
+GRAD_ALBEDO = "albedo"
+
+
+def _albedo_rows(al, pw, mask, c):
+    """d c / d albedo of contributions c (R, 3) with albedo powers pw
+    (R, M): c * pw / al where al > 1e-12, else 0 (R, M, 3), masked."""
+    g = torch.where(al > 1e-12, pw[:, :, None] / torch.clamp(al, min=1e-12),
+                    0.0)
+    return torch.where(mask[:, None, None], c[:, None, :] * g, 0.0)
+
+
 def path_trace_reference(tables: TraceTables, uT, work=None):
     """Plain-PyTorch twin of path_trace_kernel: uT (n_dims, R) -> (3, R).
-    With a dict `work`, adds the kernel's ray-triangle tests to it."""
+    With a dict `work`, adds the kernel's ray-triangle tests to it.
+    Differentiable in the tables (the replay backward of
+    make_mega_trace_diff); its backward is free of inf and NaN."""
+    return _trace_reference(tables, uT, work)[0].T.contiguous()
+
+
+def path_trace_rad_reference(tables: TraceTables, uT):
+    """Plain-PyTorch twin of path_trace_rad_kernel: (3 + 3E, R), the
+    radiance and, in row 3 + 3e + c, d radiance[c] / d em[e, c]."""
+    L, rows = _trace_reference(tables, uT, grad=GRAD_EMIT)
+    return torch.cat([L.T, rows.permute(1, 2, 0).reshape(-1, L.shape[0])])
+
+
+def path_trace_alb_reference(tables: TraceTables, uT):
+    """Plain-PyTorch twin of path_trace_alb_kernel: (3 + 3M, R), the
+    radiance and, in row 3 + 3m + c, d radiance[c] / d albedo[m, c]
+    (Russian-roulette survival detached; 0 for a black channel)."""
+    L, rows = _trace_reference(tables, uT, grad=GRAD_ALBEDO)
+    return torch.cat([L.T, rows.permute(1, 2, 0).reshape(-1, L.shape[0])])
+
+
+def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
+    """The path trace of every lane, in the kernels' evaluation order:
+    (L (R, 3), Jacobian rows (R, K, 3) in a gradient mode, else None).
+
+    Lanes that have left the path (a miss, a dead throughput) keep being
+    evaluated under masks; every value they feed is finite (a miss
+    distance of 1, guarded divisions and square roots), so the backward
+    through the masks multiplies zeros by finite numbers only."""
     tri, mat, em, cam = tables.tri, tables.mat, tables.em, tables.cam
     R = uT.shape[1]
     dev = uT.device
@@ -305,13 +347,23 @@ def path_trace_reference(tables: TraceTables, uT, work=None):
     prev_pdf = torch.zeros(R, device=dev)
     prev_delta = torch.ones(R, dtype=torch.bool, device=dev)
     eta_scale = torch.ones(R, device=dev)
+    rows = None
+    if grad == GRAD_EMIT:
+        rows = torch.zeros((R, em.shape[0], 3), device=dev)
+        e_ids = torch.arange(em.shape[0], device=dev)
+    elif grad == GRAD_ALBEDO:
+        rows = torch.zeros((R, mat.shape[0], 3), device=dev)
+        m_ids = torch.arange(mat.shape[0], device=dev)
+        al = mat[:, 1:4].detach()
+        pw = torch.zeros((R, mat.shape[0]), device=dev)
 
     for depth in range(1, max_depth + 1):
         base = SENSOR_DIMS + (depth - 1) * BOUNCE_DIMS
         best_t, best_id = closest_hit(tri, o, d)
         count_sweeps(work, tri, active)
         hit_valid = best_t < INF
-        t_hit = torch.where(hit_valid, best_t, INF)
+        # every use of the distance on a miss is masked; 1 keeps hp finite
+        t_hit = torch.where(hit_valid, best_t, 1.0)
         av = torch.where((best_id >= 0)[:, None],
                          tri[torch.clamp(best_id, min=0)], 0.0)
         erow = torch.where(hit_valid, av[:, 19], -1.0).to(torch.int64)
@@ -330,7 +382,8 @@ def path_trace_reference(tables: TraceTables, uT, work=None):
         ns = normalize(w0[:, None] * av[:, 9:12] + b1[:, None] * av[:, 12:15]
                        + b2[:, None] * av[:, 15:18])
 
-        m = mat[av[:, 18].to(torch.int64)]
+        mat_id = av[:, 18].to(torch.int64)
+        m = mat[mat_id]
         kind = m[:, 0].to(torch.int64)
         albedo, eta, rough = m[:, 1:4], m[:, 4:7], m[:, 10]
         spec_refl, spec_trans = m[:, 11:14], m[:, 14:17]
@@ -346,15 +399,29 @@ def path_trace_reference(tables: TraceTables, uT, work=None):
                        & (depth >= min_depth))
         L = L + torch.where(hit_emitter[:, None],
                             tp * e_rad * w_bsdf[:, None], 0.0)
+        if grad == GRAD_EMIT:
+            m_e = hit_emitter[:, None] & (erow[:, None] == e_ids)
+            rows = rows + torch.where(m_e[:, :, None],
+                                      (tp * w_bsdf[:, None])[:, None, :], 0.0)
+        elif grad == GRAD_ALBEDO:
+            rows = rows + _albedo_rows(al, pw, hit_emitter,
+                                       tp * e_rad * w_bsdf[:, None])
         active = active & hit_valid
 
         wi = to_local(ns, -d)
         delta_m = is_delta(kind)
+        if grad == GRAD_ALBEDO:
+            # this vertex's albedo enters its NEE term and every later one
+            dlike = ((kind == BSDF_DIFFUSE) | (kind == BSDF_ROUGH_DIFFUSE)) \
+                & active
+            pw = pw + (dlike[:, None] & (mat_id[:, None] == m_ids)).to(
+                pw.dtype)
 
         # ---- NEE with an immediate shadow sweep ---------------------------
         if tables.use_nee:
+            u_pick = uT[base + OFF_LIGHT_PICK]
             ld, dist, ds_pdf, l_rad = sample_direct(
-                em, hp, uT[base + OFF_LIGHT_PICK], uT[base + OFF_LIGHT_U],
+                em, hp, u_pick, uT[base + OFF_LIGHT_U],
                 uT[base + OFF_LIGHT_U + 1])
             f, f_pdf = eval_bsdf(kind, albedo, rough, wi,
                                  to_local(ns, ld))
@@ -372,6 +439,14 @@ def path_trace_reference(tables: TraceTables, uT, work=None):
             add = nee_ok & ~blocked
             L = L + torch.where(add[:, None],
                                 tp * f * l_rad * inv_pdf[:, None], 0.0)
+            if grad == GRAD_EMIT:
+                m_e = add[:, None] & (pick_row(em, u_pick)[:, None] == e_ids)
+                rows = rows + torch.where(
+                    m_e[:, :, None], (tp * f * inv_pdf[:, None])[:, None, :],
+                    0.0)
+            elif grad == GRAD_ALBEDO:
+                rows = rows + _albedo_rows(al, pw, add,
+                                           tp * f * l_rad * inv_pdf[:, None])
 
         # ---- BSDF sampling --------------------------------------------------
         bs = sample_bsdf(kind, albedo, rough, eta, spec_refl, spec_trans, wi,
@@ -401,7 +476,7 @@ def path_trace_reference(tables: TraceTables, uT, work=None):
         prev_pdf = bs.pdf
         prev_delta = bs.delta
         active = alive
-    return L.T.contiguous()
+    return L, rows
 
 
 # ---------------------------------------------------------------- kernel
@@ -436,3 +511,214 @@ def path_trace(tables: TraceTables, uT):
     build.LAUNCHES["path_trace"] += 1
     return out
 
+
+
+# Diffuse-like bounces the albedo kernel keeps per lane
+# (csrc/path_trace.cuh:kMaxGradDepth)
+MAX_GRAD_DEPTH = 16
+
+
+def _grad_launch(tables: TraceTables, uT, n_rows, entry, kernel):
+    uT = uT.contiguous()
+    R = uT.shape[1]
+    out = torch.empty((3 + n_rows, R), dtype=torch.float32, device=uT.device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(uT.device).cuda_stream
+    rc = getattr(lib, entry)(*table_args(tables), uT.data_ptr(), R,
+                             out.data_ptr(), stream)
+    build.check(rc, kernel)
+    build.LAUNCHES[kernel.removesuffix("_kernel")] += 1
+    return out
+
+
+def path_trace_rad(tables: TraceTables, uT):
+    """(3 + 3E, R): path radiance and its Jacobian rows with respect to
+    each emitter's radiance.  A CUDA tensor launches path_trace_rad_kernel;
+    a CPU tensor runs path_trace_rad_reference."""
+    _check_u(tables, uT)
+    if uT.device.type == "cpu":
+        return path_trace_rad_reference(tables, uT)
+    if uT.device.type != "cuda":
+        raise NotImplementedError(f"no path kernel for {uT.device}")
+    return _grad_launch(tables, uT, 3 * tables.em.shape[0],
+                        "path_trace_rad_launch", "path_trace_rad_kernel")
+
+
+def path_trace_alb(tables: TraceTables, uT):
+    """(3 + 3M, R): path radiance and its Jacobian rows with respect to
+    each material's albedo.  A CUDA tensor launches path_trace_alb_kernel;
+    a CPU tensor runs path_trace_alb_reference."""
+    _check_u(tables, uT)
+    if tables.max_depth > MAX_GRAD_DEPTH:
+        raise ValueError(f"max_depth {tables.max_depth}: the albedo kernel "
+                         f"keeps at most {MAX_GRAD_DEPTH} bounces")
+    if uT.device.type == "cpu":
+        return path_trace_alb_reference(tables, uT)
+    if uT.device.type != "cuda":
+        raise NotImplementedError(f"no path kernel for {uT.device}")
+    return _grad_launch(tables, uT, 3 * tables.mat.shape[0],
+                        "path_trace_alb_launch", "path_trace_alb_kernel")
+
+
+# ------------------------------------------------------ differentiable traces
+class _AdjointTrace(torch.autograd.Function):
+    """value (R, 3) of u through an adjoint kernel; the backward is one
+    einsum of the cotangent with the forward's Jacobian rows.  The callers
+    take lum outside it (path_splats), so autograd folds the luminance
+    weights into the cotangent of value."""
+
+    @staticmethod
+    def forward(ctx, param, u, tables, column, launch):
+        K = param.shape[0]
+        if column == "em":
+            em = tables.em.clone()
+            em[:, 0:3] = param.detach()
+            tables = dataclasses.replace(tables, em=em)
+        else:
+            mat = tables.mat.clone()
+            mat[:, 1:4] = param.detach()
+            tables = dataclasses.replace(tables, mat=mat)
+        out = launch(tables, u[:, :tables.n_dims].T.contiguous())
+        R = out.shape[1]
+        ctx.save_for_backward(out[3:].view(K, 3, R))
+        ctx.param_device = param.device
+        return out[:3].T.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        grad = torch.einsum("rc,kcr->kc", g, rows).to(ctx.param_device)
+        return grad, None, None, None, None
+
+
+def make_mega_trace_rad(scene: Scene, cfg, device="cuda"):
+    """trace(radiance (E, 3), u (R, n_dims)) -> Splats, differentiable in
+    radiance with an exact backward (counterpart of the reference's
+    make_mega_trace_rad, megatrace.py:1825).
+
+    Radiance enters the estimator linearly (emitter hits and NEE; the
+    sampling pmf / cdf are separate leaves), so the kernel accumulates the
+    per-lane coefficient rows during the forward and the backward is one
+    einsum: no replay."""
+    tables = make_tables(scene, cfg, device)
+
+    def trace(radiance, u):
+        return path_splats(u, _AdjointTrace.apply(radiance, u, tables, "em",
+                                                  path_trace_rad))
+
+    return trace
+
+
+def make_mega_trace_alb(scene: Scene, cfg, device="cuda"):
+    """trace(albedo (M, 3), u (R, n_dims)) -> Splats, differentiable in the
+    materials' constant albedos (counterpart of the reference's
+    make_mega_trace_alb, megatrace.py:1970).
+
+    Contributions are polynomials in each albedo (a diffuse-like bounce
+    multiplies the throughput by it), so d value[c] / d al_m[c] = sum over
+    contributions of contrib[c] * power_m / al_m[c], accumulated per lane
+    in the forward.  Exact for al > 1e-12 (a black channel's derivative is
+    lost) and with Russian-roulette survival detached, so equal to the
+    derivative of trace_paths only when rr_depth > max_depth."""
+    if bool((scene.materials.tex_id >= 0).any()):
+        raise ValueError("the albedo adjoint takes constant albedos only")
+    tables = make_tables(scene, cfg, device)
+
+    def trace(albedo, u):
+        return path_splats(u, _AdjointTrace.apply(albedo, u, tables, "mat",
+                                                  path_trace_alb))
+
+    return trace
+
+
+# lanes per chunk of the replay backward.  closest_hit keeps only the
+# winner's (R,) distance for the backward, so a bounce saves a few (R, 3)
+# tensors: 8,192 lanes at depth 6 peaked at 50.6 MiB on an H100
+# (chip_smoke phase 13), so the 65,536 lanes of a call fit in one chunk,
+# and a chunk costs the same host-bound ~0.13 s whatever its size
+REPLAY_CHUNK = 65536
+
+
+class _ReplayTrace(torch.autograd.Function):
+    """value (R, 3) of u through the path kernel; the backward replays the
+    twin on the same u, chunk by chunk, and differentiates it with
+    autograd (the reference replays its XLA trace under jax.vjp,
+    megatrace.py:2358-2370)."""
+
+    @staticmethod
+    def forward(ctx, u, scene0, cfg, names, *leaves):
+        scene = replace_leaves(scene0, {n: v.detach()
+                                        for n, v in zip(names, leaves)})
+        tables = make_tables(scene, cfg, u.device)
+        ctx.scene0, ctx.cfg, ctx.names = scene0, cfg, names
+        ctx.save_for_backward(u, *leaves)
+        return path_trace(tables, u[:, :cfg.n_dims].T.contiguous()).T \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        u, *leaves = ctx.saved_tensors
+        want = [i for i, _ in enumerate(leaves)
+                if ctx.needs_input_grad[4 + i]]
+        grads = [None] * len(leaves)
+        if not want:
+            return (None, None, None, None, *grads)
+        cfg = ctx.cfg
+        with torch.enable_grad():
+            live = {n: v.detach().requires_grad_(i in want)
+                    for i, (n, v) in enumerate(zip(ctx.names, leaves))}
+            tables = make_tables(replace_leaves(ctx.scene0, live), cfg,
+                                 u.device)
+            # the chunks differentiate with respect to the tables; one
+            # backward through the packer then takes the summed table
+            # gradients to the leaves
+            fields = [f for f in ("tri", "mat", "em", "cam")
+                      if getattr(tables, f).requires_grad]
+            packed = [getattr(tables, f) for f in fields]
+            inputs = [t.detach().requires_grad_() for t in packed]
+            chunk_tables = dataclasses.replace(tables,
+                                               **dict(zip(fields, inputs)))
+            if packed:        # else no wanted leaf reaches the tables
+                g_tables = [torch.zeros_like(t) for t in packed]
+                for start in range(0, u.shape[0], REPLAY_CHUNK):
+                    sl = slice(start, start + REPLAY_CHUNK)
+                    L = path_trace_reference(
+                        chunk_tables, u[sl, :cfg.n_dims].T.contiguous())
+                    part = torch.autograd.grad((L.T * g[sl]).sum(), inputs,
+                                               allow_unused=True)
+                    for gt, p in zip(g_tables, part):
+                        if p is not None:
+                            gt += p
+                part = torch.autograd.grad(
+                    packed, [live[ctx.names[i]] for i in want], g_tables,
+                    allow_unused=True)
+                for i, gi in zip(want, part):
+                    grads[i] = gi
+        for i in want:
+            if grads[i] is None:
+                grads[i] = torch.zeros_like(leaves[i])
+        return (None, None, None, None, *grads)
+
+
+def make_mega_trace_diff(scene: Scene, cfg, device="cuda"):
+    """trace(leaves, u) -> Splats, differentiable in any float scene leaf
+    (counterpart of the reference's make_mega_trace_diff,
+    megatrace.py:2252): the forward runs the path kernel, the backward
+    replays path_trace_reference on the same u under autograd.
+
+    `leaves` maps dotted leaf names ("materials.albedo",
+    "emitters.radiance", "tris.v0", "camera.to_world", ...) to the live
+    tensors that replace `scene`'s; an autograd Function routes gradients
+    only to its tensor arguments, so they are passed explicitly."""
+    mega_eligible(scene, cfg)
+    device = torch.device(device)
+
+    def trace(leaves, u):
+        if u.device.type != device.type:
+            raise ValueError(f"u on {u.device}, the trace on {device}")
+        names = sorted(leaves)
+        value = _ReplayTrace.apply(u, scene, cfg, tuple(names),
+                                   *(leaves[n] for n in names))
+        return path_splats(u, value)
+
+    return trace

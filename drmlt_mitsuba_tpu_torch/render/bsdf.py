@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from drmlt_mitsuba_tpu_torch.core.math import fresnel_dielectric
+from drmlt_mitsuba_tpu_torch.core.math import fresnel_dielectric, safe_sqrt
 from drmlt_mitsuba_tpu_torch.core.warp import square_to_cosine_hemisphere
 from drmlt_mitsuba_tpu_torch.scene.types import (
     BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MIRROR, BSDF_ROUGH_DIFFUSE,
@@ -23,6 +23,13 @@ from drmlt_mitsuba_tpu_torch.scene.types import (
 
 SUPPORTED_KINDS = (BSDF_DIFFUSE, BSDF_MIRROR, BSDF_DIELECTRIC,
                    BSDF_ROUGH_DIFFUSE)
+
+
+def _div_pi(x):
+    """x / pi as a true division on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, which rounds
+    differently from the kernels' x / pi."""
+    return x / torch.full((), math.pi, dtype=x.dtype, device=x.device)
 
 
 def is_delta(kind):
@@ -37,8 +44,8 @@ def oren_nayar(wi, wo, sigma):
     b_on = 0.45 * s2 / (s2 + 0.09)
     ci = torch.abs(wi[:, 2])
     co = torch.abs(wo[:, 2])
-    sin_i = torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
-    sin_o = torch.sqrt(torch.clamp(1.0 - co * co, min=0.0))
+    sin_i = safe_sqrt(1.0 - ci * ci)
+    sin_o = safe_sqrt(1.0 - co * co)
     denom = torch.clamp(sin_i * sin_o, min=1e-7)
     cos_dphi = torch.clamp((wi[:, 0] * wo[:, 0] + wi[:, 1] * wo[:, 1])
                            / denom, -1.0, 1.0)
@@ -54,12 +61,12 @@ def eval_bsdf(kind, albedo, rough, wi, wo):
     cos_o = wo[:, 2]
     abs_co = torch.abs(cos_o)
     same_side = (wi[:, 2] * cos_o) > 0
-    scale = abs_co / math.pi
+    scale = _div_pi(abs_co)
     scale = torch.where(kind == BSDF_ROUGH_DIFFUSE,
                         scale * oren_nayar(wi, wo, rough), scale)
     m = ((kind == BSDF_DIFFUSE) | (kind == BSDF_ROUGH_DIFFUSE)) & same_side
     f = torch.where(m[:, None], albedo * scale[:, None], 0.0)
-    pdf = torch.where(m, torch.clamp(abs_co, min=0.0) / math.pi, 0.0)
+    pdf = torch.where(m, _div_pi(torch.clamp(abs_co, min=0.0)), 0.0)
     return f, pdf
 
 
@@ -84,7 +91,7 @@ def sample_bsdf(kind, albedo, rough, eta, spec_refl, spec_trans, wi, uc,
     # diffuse: cosine hemisphere on the incident side; rough diffuse
     # samples the same and weighs the albedo by the Oren-Nayar factor
     dw = square_to_cosine_hemisphere(ub) * sign_i[:, None]
-    d_pdf = torch.clamp(dw[:, 2] * sign_i, min=0.0) / math.pi
+    d_pdf = _div_pi(torch.clamp(dw[:, 2] * sign_i, min=0.0))
     m_on = kind == BSDF_ROUGH_DIFFUSE
     m_d = (kind == BSDF_DIFFUSE) | m_on
     wo = torch.where(m_d[:, None], dw, zero3)

@@ -32,10 +32,12 @@ def hit_emission(em, erow, d, ng, t_hit):
     g = emitter_rows(em, erow)
     cos_l = -dot(d, ng)
     front = cos_l > 0
+    ok = (erow >= 0) & front
+    # the masked quotient divides by 1, not by the 1e-30 floor, so its
+    # backward stays finite
+    den = torch.where(ok, cos_l * g[:, 3], 1.0)
     nee_pdf = torch.where(
-        (erow >= 0) & (cos_l > 0),
-        g[:, 4] * t_hit * t_hit / torch.clamp(cos_l * g[:, 3], min=1e-30),
-        0.0)
+        ok, g[:, 4] * t_hit * t_hit / torch.clamp(den, min=1e-30), 0.0)
     return g[:, 0:3], front, nee_pdf
 
 
@@ -61,8 +63,8 @@ def sample_direct(em, p, u_pick, u_l1, u_l2):
     ld = tol / dist[:, None]
     lcos = -dot(ld, g[:, 15:18])
     area = g[:, 3]
-    pdf = torch.where(lcos * area > 0,
-                      g[:, 4] * dist2 / torch.clamp(lcos * area, min=1e-30),
-                      0.0)
+    ok = lcos * area > 0
+    den = torch.where(ok, lcos * area, 1.0)
+    pdf = torch.where(ok, g[:, 4] * dist2 / torch.clamp(den, min=1e-30), 0.0)
     pdf = torch.where(lcos > 1e-7, pdf, 0.0)
     return ld, dist, pdf, g[:, 0:3]

@@ -8,9 +8,10 @@ accumulation modes, as in the reference:
   * splat — MLT splats: each splat's footprint weights are normalised to 1;
     develop() scales by a caller-provided factor (b / mutations per pixel).
 
-`splat` is the exact f32 scatter-add of film.py:71-105 (index_put_ with
-accumulate); taps outside the image get zero weight, so a position of
-exactly W (or H) is dropped, not clamped.
+`splat` computes the taps of film.py:71-105 and adds them through
+ops/splat.py: the splat kernel on a CUDA film, the exact f32 scatter
+(index_put_ with accumulate) on a CPU film.  Taps outside the image get
+zero weight, so a position of exactly W (or H) is dropped, not clamped.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import dataclasses
 
 import torch
 
+from drmlt_mitsuba_tpu_torch.ops.splat import splat_add, splat_add_
 from drmlt_mitsuba_tpu_torch.render.filters import Filter, make_filter
 
 
@@ -45,7 +47,7 @@ def new_film(cfg: FilmConfig, device=None):
 
 def _footprint(cfg: FilmConfig, pos):
     """Separable footprint of continuous pixel positions (N, 2): clamped
-    pixel indices and 1-D filter weights, each (N, F)."""
+    int32 pixel indices and 1-D filter weights, each (N, F)."""
     f = cfg.filter
     base_x = torch.floor(pos[:, 0] - f.radius + 0.5).to(torch.int64)
     base_y = torch.floor(pos[:, 1] - f.radius + 0.5).to(torch.int64)
@@ -56,12 +58,13 @@ def _footprint(cfg: FilmConfig, pos):
     wy = f.eval1d(py.to(torch.float32) + 0.5 - pos[:, 1:2])
     wx = torch.where((px >= 0) & (px < cfg.width), wx, 0.0)
     wy = torch.where((py >= 0) & (py < cfg.height), wy, 0.0)
-    return (torch.clamp(px, 0, cfg.width - 1),
-            torch.clamp(py, 0, cfg.height - 1), wx, wy)
+    return (torch.clamp(px, 0, cfg.width - 1).to(torch.int32),
+            torch.clamp(py, 0, cfg.height - 1).to(torch.int32), wx, wy)
 
 
-def splat(cfg: FilmConfig, film, pos, value, weight=None, mode="splat"):
-    """Scatter-add a batch of splats into `film` in place and return it.
+def taps(cfg: FilmConfig, pos, value, weight=None, mode="splat"):
+    """The filter taps of a batch of splats: (py, px, vals), each tap a
+    pixel and its rgb + weight (N * F * F of them, F the footprint).
 
     pos: (N, 2) continuous pixel coordinates; value: (N, 3); weight: (N,)
     optional per-splat scalar (MLT acceptance weights)."""
@@ -77,9 +80,22 @@ def splat(cfg: FilmConfig, film, pos, value, weight=None, mode="splat"):
                             device=value.device)
     contrib = torch.cat([value, w_chan[:, None]], -1)
     vals = (w2[:, :, :, None] * contrib[:, None, None, :]).reshape(-1, 4)
-    flat_idx = (py[:, None, :] * cfg.width + px[:, :, None]).reshape(-1)
-    film.view(-1, 4).index_put_((flat_idx,), vals, accumulate=True)
-    return film
+    F = cfg.filter.footprint
+    n = py.shape[0]
+    return (py[:, None, :].expand(n, F, F).reshape(-1),
+            px[:, :, None].expand(n, F, F).reshape(-1), vals)
+
+
+def splat(cfg: FilmConfig, film, pos, value, weight=None, mode="splat"):
+    """Scatter-add a batch of splats (see `taps`) into `film` and return
+    the film.  The add is in place unless autograd records it (film or
+    value requires grad): then the film is not touched and a new film,
+    differentiable in both, is returned (the reference's splat_add is
+    functional)."""
+    py, px, vals = taps(cfg, pos, value, weight, mode)
+    if torch.is_grad_enabled() and (film.requires_grad or vals.requires_grad):
+        return splat_add(film, py, px, vals)
+    return splat_add_(film, py, px, vals)
 
 
 def develop(cfg: FilmConfig, film, mode: str = "splat", scale: float = 1.0):

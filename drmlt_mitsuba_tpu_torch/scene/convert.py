@@ -47,3 +47,20 @@ def scene_from_arrays(arrays: dict[str, np.ndarray]) -> st.Scene:
             kw[f.name] = st._t(arrays[f"{g}.{f.name}"])
         parts[g] = cls(**kw)
     return st.Scene(**parts)
+
+
+def replace_leaves(scene: st.Scene, leaves: dict) -> st.Scene:
+    """A copy of `scene` with the given leaves, keyed by dotted field name
+    ("materials.albedo", "tris.v0", ...), replaced; the other leaves are
+    shared.  This is how live tensors that require grad enter the tables
+    (ops/megatrace.py:pack_mega_tables_torch)."""
+    groups: dict[str, dict] = {}
+    for key, value in leaves.items():
+        g, _, f = key.partition(".")
+        if g not in _GROUPS or f not in {x.name for x in
+                                         dataclasses.fields(_GROUPS[g])}:
+            raise KeyError(f"no scene leaf {key!r}")
+        groups.setdefault(g, {})[f] = value
+    return dataclasses.replace(scene, **{
+        g: dataclasses.replace(getattr(scene, g), **kw)
+        for g, kw in groups.items()})
