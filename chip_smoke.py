@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three slices once on one GPU: the DRMLT path
-render, the depth-grouped DRMLT-over-MMLT render and differentiable
-rendering (inverse rendering through the adjoint and splat kernels).
+"""Drive the PyTorch/CUDA port's four slices once on one GPU: the DRMLT path
+render, the depth-grouped DRMLT-over-MMLT render, differentiable
+rendering (inverse rendering through the adjoint and splat kernels) and
+asset-scale scenes (the XML loader, the BVH walk in every trace kernel,
+the intersection kernel).
 
     python3 chip_smoke.py
 
@@ -62,13 +64,37 @@ non-zero):
      the red wall's albedo through sigmoid(param), and then on the light's
      radiance scale, each with a per-pixel image loss through the splat
      kernel against a target rendered with the same 65,536 lanes; the
-     launch counters are reset before and read after it.
+     launch counters are reset before and read after it;
+ 15. slice 4, the intersection kernel vs its plain version on 1,048,576
+     rays: brute mode (bumpy sphere, 4,000 triangles) and BVH mode (bumpy
+     sphere at 20,000 and 65,826, cornell_large.xml): t bit-equal, id and
+     any-hit equal on every ray, and in BVH mode the walk equal to the
+     brute kernel; times, MRays/s, bounds; then raybench (the kernel's
+     entry point) at 20,000 and 4,000 triangles with the counters reset;
+ 16. every trace kernel on cornell_large.xml (19,586 triangles, the walk)
+     vs its twin: the path kernel (65,536 lanes, depth 8), the MMLT kernel
+     at depths 1-6 and both adjoints (65,536 lanes, the twins on the
+     first 16,384), the chain kernel in both modes at 4,096 x 2 (Philox),
+     and at 65,536 x 64 against its own brute mode bit for bit;
+ 17. slice 4's main path: both renders of cornell_large.xml through the
+     CLI's load_scene and render at 65,536 chains, 256 mutations per
+     pixel (grouped MMLT depth 6; path depth 8), each against a
+     Monte-Carlo render_pt of the same scene and its b against the
+     36-triangle box's b (phases 5 and 9), with the counters reset before
+     and read after, and a profiled render for the busy share and the
+     chain kernel's ms per launch / per depth group;
+ 18. the depth-2 path trace at 65,536 lanes on cornell_box(tessellate =
+     1, 2, 4, 8, 11, 13, 24, 44: 36 to 65,826 triangles), walk against
+     brute mode (paths/s, bit-equal), a BVH built for the walk's side at
+     or below BVH_MIN_TRIS: where the two cross.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import re
@@ -102,6 +128,7 @@ from drmlt_mitsuba_tpu_torch.core.spectrum import (  # noqa: E402
     LUMINANCE_WEIGHTS,
 )
 from drmlt_mitsuba_tpu_torch.ops import build  # noqa: E402
+from drmlt_mitsuba_tpu_torch.ops import intersect as IX  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import splat as SP  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt as MD  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megammlt as MM  # noqa: E402
@@ -110,6 +137,9 @@ from drmlt_mitsuba_tpu_torch.render import film as filmlib  # noqa: E402
 from drmlt_mitsuba_tpu_torch.scene.builders import (  # noqa: E402
     cornell_box, veach_door,
 )
+from drmlt_mitsuba_tpu_torch.scene.bvh import build_bvh, pack_nodes  # noqa: E402
+from drmlt_mitsuba_tpu_torch.scene.types import prepare_scene  # noqa: E402
+from drmlt_mitsuba_tpu_torch.utils import cli, raybench  # noqa: E402
 
 SIZE = 256
 DEPTH = 8
@@ -190,13 +220,14 @@ def device_ms(fn, runs):
     return sum(t for t, _ in per.values()) / runs, busy
 
 
-def bound(n_bytes, tri_tests):
+def bound(n_bytes, tri_tests, node_tests=0):
     """(least ms for the work on the card, which side binds it): the bytes
     each input read once and each output written once over the HBM rate,
-    against the ray-triangle tests the run's data needed times their FP32
-    operations over the FP32 peak."""
+    against the ray-triangle and ray-box tests the run's data needed times
+    their FP32 operations over the FP32 peak."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = tri_tests * MT.FLOP_PER_TRI_TEST / PEAK_FP32_S * 1e3
+    t_ops = (tri_tests * MT.FLOP_PER_TRI_TEST
+             + node_tests * MT.FLOP_PER_NODE_TEST) / PEAK_FP32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -678,6 +709,335 @@ def slice3(name, dev, gen, fc, report):
     return out
 
 
+
+LARGE_XML = os.path.join(ROOT, "tests", "data", "large", "cornell_large.xml")
+RAYS = 1 << 20   # raybench's rays
+TWIN_LANES = 16384   # the MMLT and adjoint twins' lane subset (phase 16)
+# slice 4's b against the 36-triangle Cornell box's b (the same geometry
+# and materials): about four standard deviations of the difference of two
+# independent b's, from b's spread over bootstrap seeds (PERF.md: path
+# 1.8%, MMLT 0.46%, so sqrt(2) x 1.8% x 4 and sqrt(2) x 0.46% x 4)
+B_GATE = {"path": 0.10, "mmlt": 0.026}
+
+
+def box_rays(n, gen, dev):
+    """Rays from inside the 556-unit box in uniform directions."""
+    o = torch.rand((n, 3), generator=gen, device=dev) * 554.0 + 1.0
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    return o, d / d.norm(dim=1, keepdim=True)
+
+
+def ray_bytes(tables, n):
+    """Bytes the intersection kernel must move: o, d, tmax read, t and id
+    written, and the tables read once."""
+    nd = tables.nodes
+    tab = nbytes(tables.tri) + (0 if nd is None else
+                                nbytes(nd.box, nd.link, nd.order))
+    return n * (28 + 8) + tab
+
+
+def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
+    """Phases 15-18: asset-scale scenes (the BVH walk in every trace kernel,
+    the intersection kernel, the XML loader).  Returns the kernels-line
+    figures of the intersection kernel and the walk."""
+    out = {}
+    # ---- 15. the intersection kernel vs its plain version -------------------
+    cases = [("sphere-4000", raybench.bumpy_sphere(4000)),
+             ("sphere-20000", raybench.bumpy_sphere(20000)),
+             ("sphere-65826", raybench.bumpy_sphere(65826)),
+             ("cornell_large", cli.load_scene(LARGE_XML, {})[0])]
+    report["intersect"] = {}
+    for cname, sc in cases:
+        sc = prepare_scene(sc)
+        tables = IX.make_ray_tables(sc, dev)
+        if cname.startswith("sphere"):
+            o, d = raybench.rays(RAYS, dev)
+            tmax = torch.rand(RAYS, generator=gen, device=dev) * 6.0
+        else:
+            o, d = box_rays(RAYS, gen, dev)
+            tmax = torch.rand(RAYS, generator=gen, device=dev) * 900.0
+        t, i = IX.closest(tables, o, d)
+        hit = IX.any_hit(tables, o, d, tmax)
+        torch.cuda.synchronize()
+        work = {}
+        (rt, ri), plain_s = sync_time(lambda: IX.closest_reference(
+            tables, o, d, work=work))
+        ra = IX.any_reference(tables, o, d, tmax)
+        t_eq = float((t.view(torch.int32) == rt.view(torch.int32))
+                     .double().mean())
+        i_eq = float((i == ri).double().mean())
+        a_eq = float((hit == ra).double().mean())
+        mode = "bvh" if tables.nodes is not None else "brute"
+        row = dict(mode=mode, triangles=sc.tris.v0.shape[0], t_equal=t_eq,
+                   id_equal=i_eq, any_equal=a_eq,
+                   hit_share=float((i >= 0).double().mean()))
+        ms = event_ms(lambda: IX.closest(tables, o, d), runs=10)
+        bnd = bound(ray_bytes(tables, RAYS), work.get("tri_tests", 0),
+                    work.get("node_tests", 0))
+        row.update(ms=ms, mrays_per_s=RAYS / ms / 1e3, plain_ms=plain_s * 1e3,
+                   bound_ms=bnd[0], bound_by=bnd[1], **work)
+        if mode == "bvh":
+            brute = IX.make_ray_tables(sc, dev, walk=False)
+            bt, bi = IX.closest(brute, o, d)
+            ba = IX.any_hit(brute, o, d, tmax)
+            ms_b = event_ms(lambda: IX.closest(brute, o, d), runs=1)
+            row.update(walk_equals_brute=bool(
+                torch.equal(bt.view(torch.int32), t.view(torch.int32))
+                and torch.equal(bi, i) and torch.equal(ba, hit)),
+                brute_ms=ms_b)
+            need(row["walk_equals_brute"], f"{cname}: walk != brute kernel")
+        report["intersect"][cname] = row
+        print(f"[15 intersection kernel vs plain] {name}: {cname} "
+              f"({row['triangles']} triangles, {mode}), {RAYS} rays: t "
+              f"bit-equal {t_eq:.6f}, id equal {i_eq:.6f}, any-hit equal "
+              f"{a_eq:.6f} (hits {row['hit_share']:.3f}); {ms:.3f} ms "
+              f"({row['mrays_per_s']:.1f} MRays/s) vs plain "
+              f"{row['plain_ms']:.1f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} "
+              f"({work.get('node_tests', 0)} box tests, "
+              f"{work.get('tri_tests', 0)} triangle tests)"
+              + (f"; the walk equals the brute kernel "
+                 f"({row['brute_ms']:.2f} ms)" if mode == "bvh" else ""))
+        need(t_eq == 1.0 and i_eq == 1.0 and a_eq == 1.0,
+             f"{cname}: intersection kernel differs from its plain version")
+    # raybench, the entry point of the intersection kernel, in both modes
+    report["raybench_launches"] = {}
+    for tris in (20000, 4000):
+        build.reset_launches()
+        raybench.main(["--tris", str(tris), "--rays", str(RAYS)])
+        report["raybench_launches"][tris] = build.LAUNCHES["intersect"]
+        need(build.LAUNCHES["intersect"] > 0, "raybench launched nothing")
+    out["intersect_bvh"] = dict(
+        launches=report["raybench_launches"][20000], err=0.0,
+        **{k: report["intersect"]["sphere-20000"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by")})
+    out["intersect_brute"] = dict(
+        launches=report["raybench_launches"][4000], err=0.0,
+        **{k: report["intersect"]["sphere-4000"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+    # ---- 16. every trace kernel on the large scene vs its twin --------------
+    scene, settings = cli.load_scene(LARGE_XML, {"integrator": "drmlt"})
+    need(scene.bvh is not None, "the large scene has no BVH")
+    pcfg = PathConfig(max_depth=DEPTH, rr_depth=100)
+    tables = MT.make_tables(scene, pcfg, dev)
+    uT = torch.rand((pcfg.n_dims, CHAINS), generator=gen, device=dev)
+    k = MT.path_trace(tables, uT)
+    torch.cuda.synchronize()
+    walk_work = {}
+    t, plain_s = sync_time(lambda: MT.path_trace_reference(tables, uT,
+                                                           walk_work))
+    mx, mean, bad = lane_diff(k, t)
+    ms_walk = event_ms(lambda: MT.path_trace(tables, uT), runs=10)
+    nd = tables.nodes
+    bnd = bound(nbytes(uT, tables.tri, tables.mat, tables.em, tables.cam,
+                       nd.box, nd.link, nd.order) + 3 * CHAINS * 4,
+                walk_work["tri_tests"], walk_work["node_tests"])
+    report["large_path_vs_twin"] = dict(
+        max_abs=mx, mean_abs=mean, bad_lanes=bad, ms=ms_walk,
+        plain_ms=plain_s * 1e3, bound_ms=bnd[0], bound_by=bnd[1], **walk_work)
+    print(f"[16 path kernel on the large scene vs twin] {name}: "
+          f"{scene.tris.v0.shape[0]} triangles, BVH of {nd.n_nodes} nodes, "
+          f"{CHAINS} lanes, depth {DEPTH}: lanes differing {bad:.5f}, max |d| "
+          f"{mx:.2e}; {ms_walk:.3f} ms vs twin {plain_s * 1e3:.0f} ms; "
+          f"bound {bnd[0]:.4f} ms by {bnd[1]} ({walk_work['node_tests']} box "
+          f"tests, {walk_work['tri_tests']} triangle tests)")
+    need(bad <= MAX_BAD_LANES, f"large scene path kernel: {bad} lanes differ")
+    out["walk"] = dict(err=mx, ms=ms_walk, plain_ms=plain_s * 1e3,
+                       bound_ms=bnd[0], bound_by=bnd[1])
+
+    row = []
+    for depth in range(1, MMLT_DEPTH + 1):
+        mt = MM.make_mmlt_tables(scene, BDPTConfig(max_depth=depth), dev)
+        uM = torch.rand((mt.n_core, CHAINS), generator=gen, device=dev)
+        k = MM.mmlt_trace(mt, uM)[:, :TWIN_LANES]
+        torch.cuda.synchronize()
+        t = MM.mmlt_trace_reference(mt, uM[:, :TWIN_LANES].contiguous())
+        mx, _, bad = lane_diff(k, t, pos_rows=2)
+        row.append(f"d{depth} {1 - bad:.5f}")
+        report[f"large_mmlt_vs_twin_d{depth}"] = dict(max_abs=mx,
+                                                      bad_lanes=bad)
+        need(bad <= MAX_BAD_LANES_MMLT, f"large MMLT d{depth}: {bad} differ")
+    print(f"[16 MMLT kernel on the large scene vs twin] {name}: {CHAINS} "
+          f"lanes, the twin on the first {TWIN_LANES} (depth, lanes "
+          f"agreeing): " + ", ".join(row))
+
+    for mode, fn, twin in (("rad", MT.path_trace_rad,
+                            MT.path_trace_rad_reference),
+                           ("alb", MT.path_trace_alb,
+                            MT.path_trace_alb_reference)):
+        gcfg = PathConfig(max_depth=GRAD_DEPTH, rr_depth=GRAD_RR)
+        gt = MT.make_tables(scene, gcfg, dev)
+        uG = torch.rand((gcfg.n_dims, CHAINS), generator=gen, device=dev)
+        k = fn(gt, uG)[:, :TWIN_LANES]
+        torch.cuda.synchronize()
+        t = twin(gt, uG[:, :TWIN_LANES].contiguous())
+        same = (k[:3] == t[:3]).all(0)
+        rows_ok = bool(torch.allclose(k[3:, same], t[3:, same], rtol=1e-5,
+                                      atol=0.0))
+        share = float(same.double().mean())
+        report[f"large_{mode}_vs_twin"] = dict(rgb_bit_equal=share,
+                                              rows_rtol_1e5=rows_ok)
+        print(f"[16 {mode} adjoint kernel on the large scene vs twin] "
+              f"{name}: rgb bit-equal on {share:.5f} of {TWIN_LANES} lanes, "
+              f"Jacobian rows within rtol 1e-5 there: {rows_ok}")
+        need(share >= 1.0 - MAX_BAD_LANES and rows_ok,
+             f"large scene {mode} adjoint differs from its twin")
+
+    # the chain kernel, both modes: against the twin at 4,096 x 2; at
+    # 65,536 x 64 against its own brute mode (the same launch without the
+    # node table; state and stats bit for bit), since the twin would take
+    # ~10 minutes there
+    cfg = DRMLTConfig(type="orbital", n_chains=CHAINS, n_bootstrap=100_000,
+                      p_large=0.3, splat_mode="sampled")
+    trace = make_path_trace(scene, pcfg, dev)
+    D = pcfg.n_dims + pcfg.n_dims % 2
+    cand = torch.rand((2 * CHAINS, D), generator=gen, device=dev)
+    u0 = cand[torch.nonzero(trace(cand).lum > 0)[:CHAINS, 0]]
+    need(u0.shape[0] == CHAINS, "too few valid starting states")
+    path_state = MD.pack_chain_state(state_from_splats(u0, trace(u0)))
+    mtab, mstate, _ = slice2_starts(scene, MMLT_DEPTH, gen, dev)
+    out["chain"] = {}
+    for tech, tab, st0 in (("path", tables, path_state),
+                           ("mmlt", mtab, mstate)):
+        r = compare_chain(tab, dataclasses.replace(cfg, n_chains=C4), 2,
+                          st0[:, :C4].contiguous(), SIZE, 41, 1, None)
+        report[f"large_chain_vs_twin_{tech}"] = r
+        print(f"[16 chain kernel ({tech}) on the large scene vs twin] "
+              f"{name}: {C4} chains x 2 mutations, Philox: lanes agreeing "
+              f"{r['lane_agreement']:.5f}, film rel L1 "
+              f"{r['film_rel_l1']:.2e}, stats {r['stats_kernel']} vs "
+              f"{r['stats_twin']}")
+        check_chain(f"large {tech}", r)
+        runs = []
+        for tb in (tab, dataclasses.replace(tab, nodes=None)):
+            st = st0.clone()
+            film = torch.zeros((SIZE, SIZE, 3), device=dev)
+            stats = torch.zeros((6, CHAINS), device=dev)
+            _, sec = sync_time(lambda: MD.drmlt_chain_step(
+                tb, cfg, 64, st, film, stats, 43, 0))
+            runs.append((st, film, stats, sec))
+        (sw, fw, tw, _), (sb, fb, tb_, brute_s) = runs
+        # the film's atomic adds land in no fixed order: rtol 1e-5
+        film_rel = float((fw - fb).abs().sum() / fb.abs().sum())
+        same = bool(torch.equal(sw, sb) and torch.equal(tw, tb_)
+                    and film_rel <= 1e-5)
+        st = st0.clone()
+        film = torch.zeros((SIZE, SIZE, 3), device=dev)
+        stats = torch.zeros((6, CHAINS), device=dev)
+        ms = event_ms(lambda: MD.drmlt_chain_step(tab, cfg, 64, st, film,
+                                                  stats, 43, 0), runs=3)
+        out["chain"][tech] = ms
+        report[f"large_chain_walk_vs_brute_{tech}"] = dict(
+            equal=same, film_rel_l1=film_rel, walk_ms=ms,
+            brute_ms=brute_s * 1e3)
+        print(f"[16 chain kernel ({tech}) walk vs brute mode] {name}: "
+              f"{CHAINS} chains x 64 mutations: state and stats bit-equal, "
+              f"film rel L1 {film_rel:.1e}: {same}; walk {ms:.2f} ms, brute "
+              f"{brute_s * 1e3:.1f} ms per launch")
+        need(same, f"large {tech}: the walk and the sweep differ")
+
+    # ---- 17. both renders of the XML scene through the CLI's functions ------
+    args = argparse.Namespace(chains=CHAINS, spp=256, seed=0)
+    report["slice4"] = {}
+    for tech, depth, b_ref in (("mmlt", MMLT_DEPTH, b_mmlt),
+                               ("path", DEPTH, b_path)):
+        (sc, st), load_s = sync_time(lambda: cli.load_scene(
+            LARGE_XML, {"integrator": "drmlt", "technique": tech}))
+        st.integrator["maxDepth"] = depth
+        cli.render(args, sc, st, dev)              # first call
+        args.seed = 1
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: cli.render(args, sc, st, dev))
+        launches = dict(build.LAUNCHES)
+        if tech == "mmlt":
+            muts = sum(CHAINS * s for s in aux["steps_eff"].values())
+        else:
+            muts = CHAINS * aux["steps"]
+        gen.manual_seed(30)
+        ref = filmlib.develop(fc, render_pt(
+            sc, PathConfig(max_depth=depth, rr_depth=100), gen,
+            SIZE * SIZE * 64, fc, mode="accum"), mode="accum")
+        mean_rel, block_l1 = mc_compare(img, ref)
+        b = float(aux["b"])
+        b_rel = abs(b - b_ref) / b_ref
+        args.seed = 2
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (_, auxp), prof_wall = sync_time(lambda: cli.render(
+                args, sc, st, dev))
+        evs = prof.events()
+        busy, per = device_profile(evs, prof_wall)
+        chain_ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                          for e in evs if e.device_type == DeviceType.CUDA
+                          and "drmlt_chain_kernel" in e.name)
+        if tech == "mmlt":
+            chain_ms, i = {}, 0
+            for kk, n_l in group_launches(auxp).items():
+                chain_ms[kk] = round(sum(us for _, us in
+                                         chain_ev[i:i + n_l]) / 1e3, 3)
+                i += n_l
+        else:
+            chain_ms = round(sum(us for _, us in chain_ev) / 1e3
+                             / max(len(chain_ev), 1), 3)
+        report["slice4"][tech] = dict(
+            load_s=load_s, b=b, b_36=b_ref, b_rel=b_rel, wall_s=wall,
+            mutations=muts,
+            mutations_per_s=muts / wall, mean_rel_err=mean_rel,
+            block_rel_l1=block_l1, launches=launches, busy_share=busy,
+            profile_wall_s=prof_wall, chain_ms=chain_ms)
+        print(f"[17 slice 4, {tech} render of cornell_large.xml] {name}: "
+              f"load (XML, OBJ, BVH build on the host) {load_s:.2f} s; b "
+              f"{b:.6f} vs the 36-triangle box's {b_ref:.6f} (rel "
+              f"{b_rel:.4f}, gate {B_GATE[tech]}); warm {wall:.3f} s for "
+              f"{muts} mutations ({muts / wall:.4e} mutations/s, bootstrap "
+              f"included); vs MC mean rel {mean_rel:.4f}, 16x16-block rel "
+              f"L1 {block_l1:.4f}; chain kernel ms "
+              f"{'per group ' if tech == 'mmlt' else 'per launch '}"
+              f"{chain_ms}; device busy {busy:.4f}; launches {launches}")
+        need(bool(torch.isfinite(img).all()), f"{tech}: image not finite")
+        gate = MC_GATE["cornell" if tech == "mmlt" else "path"]
+        need(mean_rel < gate and block_l1 < 0.25,
+             f"large {tech}: differs from MC by {mean_rel} / {block_l1}")
+        need(b_rel < B_GATE[tech], f"large {tech}: b {b} vs {b_ref}")
+        names = (("mmlt_trace", "drmlt_mmlt") if tech == "mmlt" else
+                 ("path_trace", "drmlt_path"))
+        need(all(launches[n] > 0 for n in names),
+             f"a kernel of the large-scene path did not launch: {launches}")
+        out.setdefault("walk_launches", 0)
+        out["walk_launches"] += sum(launches[n] for n in names)
+
+    # ---- 18. the depth-2 path-trace sweep over the triangle count -----------
+    pcfg2 = PathConfig(max_depth=2, rr_depth=100)
+    u2 = torch.rand((pcfg2.n_dims, CHAINS), generator=gen, device=dev)
+    report["sweep"] = {}
+    # at and below BVH_MIN_TRIS the tables carry no BVH; one is built here
+    # for the walk's side, to place the crossover
+    for tess in (1, 2, 4, 8, 11, 13, 24, 44):
+        sc = prepare_scene(cornell_box(SIZE, SIZE, tessellate=tess))
+        brute = dataclasses.replace(MT.make_tables(sc, pcfg2, dev),
+                                    nodes=None)
+        t = sc.tris
+        tb = dataclasses.replace(brute, nodes=pack_nodes(
+            sc.bvh if sc.bvh is not None else build_bvh(
+                t.v0.numpy(), t.e1.numpy(), t.e2.numpy()), dev))
+        ms_w = event_ms(lambda: MT.path_trace(tb, u2), runs=10)
+        ms_b = event_ms(lambda: MT.path_trace(brute, u2), runs=2)
+        same = bool(torch.equal(MT.path_trace(tb, u2),
+                                MT.path_trace(brute, u2)))
+        T = sc.tris.v0.shape[0]
+        report["sweep"][T] = dict(walk_ms=ms_w, brute_ms=ms_b,
+                                  walk_paths_per_s=CHAINS / ms_w * 1e3,
+                                  brute_paths_per_s=CHAINS / ms_b * 1e3,
+                                  bvh_by_default=sc.bvh is not None,
+                                  bit_equal=same)
+        print(f"[18 depth-2 path trace sweep] {name}: {T} triangles "
+              f"(default: {'walk' if sc.bvh is not None else 'sweep'}): "
+              f"walk {ms_w:.3f} ms ({CHAINS / ms_w * 1e3:.4e} paths/s), "
+              f"brute {ms_b:.3f} ms ({CHAINS / ms_b * 1e3:.4e} paths/s), "
+              f"equal {same}")
+        need(same, f"tessellate {tess}: walk and sweep differ")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -705,7 +1065,8 @@ def main():
     for k in ("path_trace_kernel", "mmlt_trace_kernel",
               "drmlt_chain_kernelINS_9PathTrace",
               "drmlt_chain_kernelINS_9MmltTrace", "splat_add_kernel",
-              "path_trace_rad_kernel", "path_trace_alb_kernel"):
+              "path_trace_rad_kernel", "path_trace_alb_kernel",
+              "intersect_kernel"):
         need(any(k in n for n in regs), f"ptxas reported no {k}")
     print(f"[2 build] {name}: nvcc {build.build_info['seconds']:.1f} s "
           f"(cached={build.build_info['cached']}); " + "; ".join(
@@ -1162,6 +1523,10 @@ def main():
     # ---- 11-14. slice 3 -----------------------------------------------------
     s3 = slice3(name, dev, gen, fc, report)
 
+    # ---- 15-18. slice 4 -----------------------------------------------------
+    s4 = slice4(name, dev, gen, fc, report, b,
+                report["slice2"]["cornell"]["b"])
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -1194,6 +1559,23 @@ def main():
         entry("path_trace_alb_kernel", "path_trace_grad.cu",
               "megatrace.py:1943", s3["launches"]["path_trace_alb"],
               *s3["alb"]),
+        # one kernel for the reference's three sweeps: its brute mode for
+        # sweep_closest (intersect_kernel.py:104) and sweep_closest_v2
+        # (:220), its BVH mode for sweep_clusters (bvh_kernel.py:155)
+        *(entry(f"intersect_kernel[{m}]", "intersect.cu", rep,
+                s4[f"intersect_{m}"]["launches"], s4[f"intersect_{m}"]["err"],
+                s4[f"intersect_{m}"]["ms"], s4[f"intersect_{m}"]["plain_ms"],
+                (s4[f"intersect_{m}"]["bound_ms"],
+                 s4[f"intersect_{m}"]["bound_by"]))
+          for m, rep in (("brute", "intersect_kernel.py:220"),
+                         ("bvh", "bvh_kernel.py:155"))),
+        # the walk is device code inside every trace kernel: its figures
+        # are the path kernel's on the 19,586-triangle scene, its launches
+        # the trace kernels' on the large-scene renders
+        entry("bvh_walk (bvh.cuh, in every trace kernel)", "bvh.cuh",
+              "cluster_sweep.py:327", s4["walk_launches"], s4["walk"]["err"],
+              s4["walk"]["ms"], s4["walk"]["plain_ms"],
+              (s4["walk"]["bound_ms"], s4["walk"]["bound_by"])),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -374,7 +374,8 @@ static int launch_chain(const Trace& trace, const ChainArgs& a, const float* uni
 // 1 = mmlt (max_depth = the group's k; light_image, eye_dims, light_dims of
 // its BDPTConfig).
 extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat, int n_mats,
-                                  const float* em, int n_ems, const float* cam, int technique,
+                                  const float* em, int n_ems, const float* cam, const float* box,
+                                  const int* link, const int* order, int n_nodes, int technique,
                                   int max_depth, int min_depth, int rr_depth, int use_nee,
                                   int light_image, int eye_dims, int light_dims, float* state,
                                   float* scratch, int D, int C, float* film, int H, int W,
@@ -389,6 +390,7 @@ extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat
   }
   drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
                    max_depth, min_depth, rr_depth, use_nee};
+  drmlt::set_bvh(tb, box, link, order, n_nodes);
   const int em_lo = 1 + eye_dims;
   drmlt::ChainArgs a{state, scratch, film, stats, D, C, H, W, n_mut, drtype, sampled, timid,
                      (mmlt && fix_emitter_path) ? 1 : 0, em_lo,

@@ -37,11 +37,13 @@ __global__ void mmlt_trace_kernel(Tables tb, MmltCfg mc, const float* __restrict
 }  // namespace drmlt
 
 extern "C" int mmlt_trace_launch(const float* tri, int n_tris, const float* mat, int n_mats,
-                                 const float* em, int n_ems, const float* cam, int max_depth,
+                                 const float* em, int n_ems, const float* cam, const float* box,
+                                 const int* link, const int* order, int n_nodes, int max_depth,
                                  int light_image, int eye_dims, const float* uT, int R,
                                  float* out, void* stream) {
   if (max_depth < 1 || max_depth > drmlt::kMaxMmltDepth) return (int)cudaErrorInvalidValue;
   drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems, max_depth, 1, 1 << 30, 1};
+  drmlt::set_bvh(tb, box, link, order, n_nodes);
   drmlt::MmltCfg mc{max_depth, light_image, eye_dims};
   const int block = 128;
   int grid = (R + block - 1) / block;

@@ -7,8 +7,9 @@
 // ops/megatrace.py:path_trace_reference.
 //
 // What bounds it on an H100: per-thread, divergent, latency-bound work.
-// Each lane sweeps every triangle twice per bounce (closest hit + shadow)
-// and paths end at different depths, so warps diverge; the reads are a few
+// Each lane sweeps every triangle (or walks the BVH) twice per bounce
+// (closest hit + shadow) and paths end at different depths, so warps
+// diverge; the reads are a few
 // bytes of PSS dims per bounce plus the scene tables, which every thread
 // of a warp reads at the same address (a broadcast from L1).  It is bound
 // by instruction issue and latency, not by device-memory bandwidth.
@@ -36,11 +37,13 @@ __global__ void path_trace_kernel(Tables tb, const float* __restrict__ uT, int R
 }  // namespace drmlt
 
 extern "C" int path_trace_launch(const float* tri, int n_tris, const float* mat, int n_mats,
-                                 const float* em, int n_ems, const float* cam, int max_depth,
+                                 const float* em, int n_ems, const float* cam, const float* box,
+                                 const int* link, const int* order, int n_nodes, int max_depth,
                                  int min_depth, int rr_depth, int use_nee, const float* uT,
                                  int R, float* out, void* stream) {
   drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
                    max_depth, min_depth, rr_depth, use_nee};
+  drmlt::set_bvh(tb, box, link, order, n_nodes);
   const int block = 128;
   int grid = (R + block - 1) / block;
   if (grid > 0) {

@@ -4,7 +4,8 @@
 //
 // Port of the reference's Pallas trace body
 // drmlt_mitsuba_tpu/ops/pallas/megatrace.py:path_trace_tile (:832) for the
-// port's subset: triangles (brute sweep), area emitters, pinhole camera,
+// port's subset: triangles (a brute sweep, or above BVH_MIN_TRIS triangles
+// the BVH walk of bvh.cuh), area emitters, pinhole camera,
 // BSDF kinds diffuse / rough diffuse (Oren-Nayar) / mirror / smooth
 // dielectric.  The plain-PyTorch twin is
 // ops/megatrace.py:path_trace_reference; every expression below keeps the
@@ -55,7 +56,22 @@ struct Tables {
   const float* cam;   // (24,)
   int n_tris, n_mats, n_ems;
   int max_depth, min_depth, rr_depth, use_nee;
+  // the BVH's node table (scene/bvh.py:NodeTable); n_nodes = 0: no BVH,
+  // every triangle is swept
+  const float4* box;  // (N, 2): lo.xyz, hi.xyz
+  const int4* link;   // (N,): first, count, skip
+  const int* order;   // (T,) triangle ids in leaf order
+  int n_nodes;
 };
+
+// The BVH arguments of every entry point, as they arrive from ctypes.
+__host__ __forceinline__ void set_bvh(Tables& tb, const float* box, const int* link,
+                                      const int* order, int n_nodes) {
+  tb.box = reinterpret_cast<const float4*>(box);
+  tb.link = reinterpret_cast<const int4*>(link);
+  tb.order = order;
+  tb.n_nodes = n_nodes;
+}
 
 struct V3 {
   float x, y, z;
@@ -216,24 +232,41 @@ __device__ __forceinline__ BsdfSample sample_bsdf(int kind, const float* mr, V3 
   return s;
 }
 
-// Closest hit over every triangle (Moller-Trumbore).  The strict `<`
-// keeps the lower triangle index on a tie, as the reference sweep does.
+// Moller-Trumbore test of ray (o, d) against triangle row r: true on a hit
+// with t > kRayEps, its distance in *t_hit.  The sweeps below and the BVH
+// walk of bvh.cuh test with these expressions in this order, so they round
+// alike (ops/intersect.py:moller_trumbore is the twin).
+__device__ __forceinline__ bool tri_hit(const float* r, V3 o, V3 d, float* t_hit) {
+  V3 v0 = ld3(r), e1 = ld3(r + 3), e2 = ld3(r + 6);
+  V3 p = cross(d, e2);
+  float det = dot(e1, p);
+  bool ok = fabsf(det) > 1e-12f;
+  float inv = 1.0f / (ok ? det : 1.0f);
+  V3 t = o - v0;
+  float b1 = dot(t, p) * inv;
+  V3 q = cross(t, e1);
+  float b2 = dot(d, q) * inv;
+  float tt = dot(e2, q) * inv;
+  *t_hit = tt;
+  return ok && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > kRayEps;
+}
+
+}  // namespace drmlt
+
+#include "bvh.cuh"
+
+namespace drmlt {
+
+// Closest hit: the BVH walk when the tables carry one, else a sweep over
+// every triangle, whose strict `<` keeps the lower triangle index on a
+// tie, as the reference sweep does (the walk breaks ties the same way).
 static __device__ float closest_hit(const Tables& tb, V3 o, V3 d, int* best_id) {
+  if (tb.n_nodes > 0) return bvh_closest(tb, o, d, best_id);
   float best_t = kInf;
   int best = -1;
   for (int i = 0; i < tb.n_tris; ++i) {
-    const float* r = tb.tri + i * kTriCols;
-    V3 v0 = ld3(r), e1 = ld3(r + 3), e2 = ld3(r + 6);
-    V3 p = cross(d, e2);
-    float det = dot(e1, p);
-    bool ok = fabsf(det) > 1e-12f;
-    float inv = 1.0f / (ok ? det : 1.0f);
-    V3 t = o - v0;
-    float b1 = dot(t, p) * inv;
-    V3 q = cross(t, e1);
-    float b2 = dot(d, q) * inv;
-    float tt = dot(e2, q) * inv;
-    if (ok && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > kRayEps && tt < best_t) {
+    float tt;
+    if (tri_hit(tb.tri + i * kTriCols, o, d, &tt) && tt < best_t) {
       best_t = tt;
       best = i;
     }
@@ -242,21 +275,12 @@ static __device__ float closest_hit(const Tables& tb, V3 o, V3 d, int* best_id) 
   return best_t;
 }
 
-// Any hit with kRayEps < t < tmax.
+// Any hit with kRayEps < t < tmax (the walk when the tables carry a BVH).
 static __device__ bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
+  if (tb.n_nodes > 0) return bvh_occluded(tb, o, d, tmax);
   for (int i = 0; i < tb.n_tris; ++i) {
-    const float* r = tb.tri + i * kTriCols;
-    V3 v0 = ld3(r), e1 = ld3(r + 3), e2 = ld3(r + 6);
-    V3 p = cross(d, e2);
-    float det = dot(e1, p);
-    bool ok = fabsf(det) > 1e-12f;
-    float inv = 1.0f / (ok ? det : 1.0f);
-    V3 t = o - v0;
-    float b1 = dot(t, p) * inv;
-    V3 q = cross(t, e1);
-    float b2 = dot(d, q) * inv;
-    float tt = dot(e2, q) * inv;
-    if (ok && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > kRayEps && tt < tmax) return true;
+    float tt;
+    if (tri_hit(tb.tri + i * kTriCols, o, d, &tt) && tt < tmax) return true;
   }
   return false;
 }

@@ -56,37 +56,46 @@ __global__ void path_trace_alb_kernel(Tables tb, const float* __restrict__ uT, i
 namespace {
 
 drmlt::Tables tables(const float* tri, int n_tris, const float* mat, int n_mats, const float* em,
-                     int n_ems, const float* cam, int max_depth, int min_depth, int rr_depth,
+                     int n_ems, const float* cam, const float* box, const int* link,
+                     const int* order, int n_nodes, int max_depth, int min_depth, int rr_depth,
                      int use_nee) {
-  return drmlt::Tables{tri, mat, em, cam, n_tris, n_mats, n_ems,
-                       max_depth, min_depth, rr_depth, use_nee};
+  drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
+                   max_depth, min_depth, rr_depth, use_nee};
+  drmlt::set_bvh(tb, box, link, order, n_nodes);
+  return tb;
 }
 
 }  // namespace
 
 extern "C" int path_trace_rad_launch(const float* tri, int n_tris, const float* mat, int n_mats,
-                                     const float* em, int n_ems, const float* cam, int max_depth,
-                                     int min_depth, int rr_depth, int use_nee, const float* uT,
-                                     int R, float* out, void* stream) {
+                                     const float* em, int n_ems, const float* cam,
+                                     const float* box, const int* link, const int* order,
+                                     int n_nodes, int max_depth, int min_depth, int rr_depth,
+                                     int use_nee, const float* uT, int R, float* out,
+                                     void* stream) {
   const int block = 128;
   int grid = (R + block - 1) / block;
   if (grid > 0) {
     drmlt::path_trace_rad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        tables(tri, n_tris, mat, n_mats, em, n_ems, cam, max_depth, min_depth, rr_depth, use_nee),
+        tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order, n_nodes, max_depth,
+               min_depth, rr_depth, use_nee),
         uT, R, out);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int path_trace_alb_launch(const float* tri, int n_tris, const float* mat, int n_mats,
-                                     const float* em, int n_ems, const float* cam, int max_depth,
-                                     int min_depth, int rr_depth, int use_nee, const float* uT,
-                                     int R, float* out, void* stream) {
+                                     const float* em, int n_ems, const float* cam,
+                                     const float* box, const int* link, const int* order,
+                                     int n_nodes, int max_depth, int min_depth, int rr_depth,
+                                     int use_nee, const float* uT, int R, float* out,
+                                     void* stream) {
   const int block = 128;
   int grid = (R + block - 1) / block;
   if (grid > 0) {
     drmlt::path_trace_alb_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        tables(tri, n_tris, mat, n_mats, em, n_ems, cam, max_depth, min_depth, rr_depth, use_nee),
+        tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order, n_nodes, max_depth,
+               min_depth, rr_depth, use_nee),
         uT, R, out);
   }
   return (int)cudaGetLastError();

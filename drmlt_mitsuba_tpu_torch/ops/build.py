@@ -9,10 +9,11 @@ sources and flags; it lives under `build/` at the repository root, which
 git ignores.  ptxas's register / spill / shared-memory report of the build
 is kept beside it.
 
-There is no fallback: a missing nvcc, a failed build or a launch the
-CUDA runtime refuses raises.  `LAUNCHES` counts, per kernel (the chain
-kernel per technique), the launches the wrappers made; a wrapper adds one
-exactly where it launches its kernel.
+`build_host` compiles the host-side BVH builder (csrc/bvh_builder.cpp)
+with g++ the same way.  There is no fallback: a missing nvcc or g++, a
+failed build or a launch the CUDA runtime refuses raises.  `LAUNCHES`
+counts, per kernel (the chain kernel per technique), the launches the
+wrappers made; a wrapper adds one exactly where it launches its kernel.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ NVCC_FLAGS = [
 
 LAUNCHES = {"path_trace": 0, "drmlt_path": 0, "mmlt_trace": 0,
             "drmlt_mmlt": 0, "splat_add": 0, "path_trace_rad": 0,
-            "path_trace_alb": 0}
+            "path_trace_alb": 0, "intersect": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,8 +46,12 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 
 # C signatures of the entry points (csrc/*.cu, extern "C")
-_PATH_TRACE = [
+_SCENE = [
     _P, _I, _P, _I, _P, _I, _P,                # tri, T, mat, M, em, E, cam
+    _P, _P, _P, _I,                            # node box, link, order, N
+]
+_PATH_TRACE = [
+    *_SCENE,
     _I, _I, _I, _I,                            # max/min/rr depth, use_nee
     _P, _I, _P, _P,                            # uT, R, out, stream
 ]
@@ -59,13 +64,13 @@ _SIGNATURES = {
         #                                        N, stream
     ],
     "mmlt_trace_launch": [
-        _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
+        *_SCENE,
         _I, _I, _I,                            # max_depth, light_image,
         #                                        eye_dims
         _P, _I, _P, _P,                        # uT, R, out, stream
     ],
     "drmlt_chain_launch": [
-        _P, _I, _P, _I, _P, _I, _P,            # tri, T, mat, M, em, E, cam
+        *_SCENE,
         _I,                                    # technique (0 path, 1 mmlt)
         _I, _I, _I, _I,                        # max/min/rr depth, use_nee
         _I, _I, _I,                            # light_image, eye_dims,
@@ -80,6 +85,12 @@ _SIGNATURES = {
         #                                        sigma2, dispersion
         _F, _F,                                # u_depth, 1/k (mmlt)
         _P,                                    # stream
+    ],
+    "intersect_launch": [
+        _P, _I, _P, _P, _P, _I,                # tri, T, node box, link,
+        #                                        order, N
+        _P, _P, _P, _I, _I,                    # o, d, tmax, R, any_mode
+        _P, _P, _P,                            # t_out, out, stream
     ],
 }
 
@@ -176,6 +187,36 @@ def check(rc: int, kernel: str):
     """Raise on a non-zero cudaError_t returned by an entry point."""
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA error {rc} at launch")
+
+
+HOST_FLAGS = [
+    "-std=c++17", "-O2", "-shared", "-fPIC",
+    # the same tree on every machine: no -march=native, no contraction
+    "-ffp-contract=off",
+]
+
+
+def build_host(name: str) -> Path:
+    """Compile the host library csrc/<name>.cpp with g++ into
+    build/torch_kernels/lib<name>_<hash>.so unless it exists (no fallback:
+    a missing g++ or a failed build raises)."""
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + src.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: cannot build {src.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed ({res.returncode}) on {src}:\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def reset_launches():

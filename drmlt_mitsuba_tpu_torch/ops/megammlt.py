@@ -38,10 +38,12 @@ from drmlt_mitsuba_tpu_torch.ops.megatrace import (
     INF, closest_hit, count_sweeps, mega_eligible, occluded,
     pack_mega_tables_torch, scene_args,
 )
+from drmlt_mitsuba_tpu_torch.ops.intersect import scene_nodes
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     eval_bsdf, is_delta, sample_bsdf,
 )
 from drmlt_mitsuba_tpu_torch.render.emitter import pick_row
+from drmlt_mitsuba_tpu_torch.scene.bvh import NodeTable
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
 
 _PI = math.pi
@@ -66,6 +68,7 @@ class MmltTables:
     light_image: bool
     eye_dims: int
     light_dims: int
+    nodes: NodeTable | None = None   # the BVH above BVH_MIN_TRIS triangles
 
     technique = "mmlt"
 
@@ -87,7 +90,8 @@ def make_mmlt_tables(scene: Scene, cfg: BDPTConfig, device) -> MmltTables:
     return MmltTables(tri=tri, mat=mat, em=emt,
                       cam=cam.reshape(-1), max_depth=cfg.max_depth,
                       light_image=bool(cfg.light_image),
-                      eye_dims=cfg.eye_dims, light_dims=cfg.light_dims)
+                      eye_dims=cfg.eye_dims, light_dims=cfg.light_dims,
+                      nodes=scene_nodes(scene, device))
 
 
 def check_depth(max_depth: int):
@@ -152,8 +156,8 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
     act = ep["valid"]
     pp, pn = src_p, src_ns
     for v in range(1, n_slots):
-        best_t, best_id = closest_hit(tri, o, d)
-        count_sweeps(work, tri, act)
+        best_t, best_id = closest_hit(tri, o, d, tables.nodes)
+        count_sweeps(work, tri, act, o, d, nodes=tables.nodes)
         hit_valid = best_t < INF
         t_hit = torch.where(hit_valid, best_t, INF)
         active = act & hit_valid
@@ -395,8 +399,8 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
     sh_eps = RAY_EPS * torch.clamp(dist, min=1.0)
     sh_o = Sl["p"] + wl * sh_eps[:, None]
     sh_tmax = torch.where(ok_c, dist * (1.0 - 1e-3), 0.0)
-    count_sweeps(work, tri, ok_c, sh_o, wl, sh_tmax)
-    ok_c = ok_c & ~occluded(tri, sh_o, wl, sh_tmax)
+    count_sweeps(work, tri, ok_c, sh_o, wl, sh_tmax, tables.nodes)
+    ok_c = ok_c & ~occluded(tri, sh_o, wl, sh_tmax, tables.nodes)
 
     # ---- junction pdfs ----------------------------------------------------
     cos_em = torch.clamp(dot(wl, Sl["ng"]), min=0.0)

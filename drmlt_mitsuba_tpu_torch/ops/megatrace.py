@@ -10,8 +10,9 @@ uT (n_dims, R), in the PSS layout of integrators/layout.py, and return the
 path radiance as (3, R).
 
 Semantics follow the reference kernel exactly (which follows
-integrators/path.py:trace_paths): pinhole camera ray, brute closest-hit
-sweep (strict `<`, so the lower triangle index wins a tie), NEE to one
+integrators/path.py:trace_paths): pinhole camera ray, closest hit (a brute
+sweep, or above BVH_MIN_TRIS triangles the walk of the scene's BVH; the
+lower triangle index wins a tie in either), NEE to one
 area-light sample with an immediate shadow sweep, power-heuristic MIS,
 BSDF sampling, Russian roulette after rr_depth.
 
@@ -46,19 +47,21 @@ from drmlt_mitsuba_tpu_torch.integrators.layout import (
     OFF_RR, SENSOR_DIMS, path_splats,
 )
 from drmlt_mitsuba_tpu_torch.ops import build
+from drmlt_mitsuba_tpu_torch.ops.intersect import (
+    FLOP_PER_NODE_TEST, FLOP_PER_TRI_TEST, INF, node_args, pack_tri_table,
+    scene_nodes, sweep_any, sweep_closest, walk_any, walk_closest,
+)
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     SUPPORTED_KINDS, eval_bsdf, is_delta, sample_bsdf,
 )
 from drmlt_mitsuba_tpu_torch.render.emitter import (
     hit_emission, pick_row, sample_direct,
 )
+from drmlt_mitsuba_tpu_torch.scene.bvh import NodeTable
 from drmlt_mitsuba_tpu_torch.scene.convert import replace_leaves
 from drmlt_mitsuba_tpu_torch.scene.types import (
     BSDF_DIFFUSE, BSDF_ROUGH_DIFFUSE, EMITTER_AREA, Scene,
 )
-
-INF = 3.0e38
-MAX_TRIS = 4096   # above this the reference switches to clustered traversal
 
 # packed table column layouts (same as the reference)
 _TRI_COLS = 20   # v0 e1 e2 n0 n1 n2 mat_id erow
@@ -83,13 +86,7 @@ def pack_mega_tables_torch(scene: Scene, device=None):
 
     tris = scene.tris
     T = tris.v0.shape[0]
-    valid = tris.valid.to(device=device, dtype=torch.bool)[:, None]
-    tri = torch.cat([
-        f(tris.v0), torch.where(valid, f(tris.e1), 0.0),
-        torch.where(valid, f(tris.e2), 0.0),
-        f(tris.n0), f(tris.n1), f(tris.n2),
-        f(tris.mat_id)[:, None], f(tris.emitter_id)[:, None],
-    ], 1)
+    tri = pack_tri_table(tris, device)
 
     mats = scene.materials
     mat = torch.cat([
@@ -147,8 +144,6 @@ def mega_eligible(scene: Scene, cfg) -> bool:
     kinds = set(int(k) for k in scene.materials.kind.unique())
     if not kinds.issubset(SUPPORTED_KINDS):
         missing.append(f"BSDF kinds {sorted(kinds - set(SUPPORTED_KINDS))}")
-    if scene.tris.v0.shape[0] > MAX_TRIS:
-        missing.append(f"BVH traversal (> {MAX_TRIS} triangles)")
     if missing:
         raise NotImplementedError(
             "not yet ported to the CUDA path kernel: " + ", ".join(missing))
@@ -157,7 +152,9 @@ def mega_eligible(scene: Scene, cfg) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class TraceTables:
-    """Device-resident packed scene tables plus the static path config."""
+    """Device-resident packed scene tables plus the static path config;
+    `nodes` is the BVH's node table above BVH_MIN_TRIS triangles (the
+    kernels and twins walk it), else None (they sweep every triangle)."""
     tri: torch.Tensor    # (T, 20)
     mat: torch.Tensor    # (M, 18)
     em: torch.Tensor     # (E, 20)
@@ -166,6 +163,7 @@ class TraceTables:
     min_depth: int
     rr_depth: int
     use_nee: bool
+    nodes: NodeTable | None = None
 
     technique = "path"
 
@@ -181,22 +179,24 @@ class TraceTables:
 def make_tables(scene: Scene, cfg, device) -> TraceTables:
     """Check eligibility, pack (pack_mega_tables_torch: the tables carry
     the gradient of any scene leaf that requires one) and move the tables
-    to `device`."""
+    to `device`, with the node table of the scene's BVH above
+    BVH_MIN_TRIS triangles (built here unless prepare_scene attached it)."""
     mega_eligible(scene, cfg)
     tri, mat, emt, cam = (t.contiguous()
                           for t in pack_mega_tables_torch(scene, device))
     return TraceTables(tri=tri, mat=mat, em=emt, cam=cam.reshape(-1),
                        max_depth=cfg.max_depth, min_depth=cfg.min_depth,
-                       rr_depth=cfg.rr_depth, use_nee=bool(cfg.use_nee))
+                       rr_depth=cfg.rr_depth, use_nee=bool(cfg.use_nee),
+                       nodes=scene_nodes(scene, device))
 
 
 def scene_args(tables):
-    """The scene tables (tri, T, mat, M, em, E, cam) as the C entry points
-    take them."""
+    """The scene tables (tri, T, mat, M, em, E, cam, node box, link,
+    order, N) as the C entry points take them; N = 0 without a BVH."""
     return (tables.tri.data_ptr(), tables.tri.shape[0],
             tables.mat.data_ptr(), tables.mat.shape[0],
             tables.em.data_ptr(), tables.em.shape[0],
-            tables.cam.data_ptr())
+            tables.cam.data_ptr(), *node_args(tables.nodes))
 
 
 def table_args(tables: TraceTables):
@@ -206,39 +206,20 @@ def table_args(tables: TraceTables):
 
 
 # ---------------------------------------------------------------- twin
-def _sweep(tri, o, d):
-    """Möller-Trumbore over every triangle: (R, T) hit distance and hit
-    mask (tt > RAY_EPS), in the kernel's evaluation order."""
-    v0, e1, e2 = tri[None, :, 0:3], tri[None, :, 3:6], tri[None, :, 6:9]
-    d = d[:, None, :]
-    p = cross(d, e2)
-    det = dot(e1, p)
-    ok = torch.abs(det) > 1e-12
-    inv = 1.0 / torch.where(ok, det, 1.0)
-    t = o[:, None, :] - v0
-    b1 = dot(t, p) * inv
-    q = cross(t, e1)
-    b2 = dot(d, q) * inv
-    tt = dot(e2, q) * inv
-    hit = (ok & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
-           & (tt > RAY_EPS))
-    return tt, hit
+def closest_hit(tri, o, d, nodes=None):
+    """(best_t (R,), best_id (R,) int64, -1 on a miss): the BVH walk when
+    `nodes` is given, else the sweep of every triangle (ops/intersect.py;
+    the two agree bit for bit).
 
-
-def closest_hit(tri, o, d):
-    """(best_t (R,), best_id (R,) int64, -1 on a miss).
-
-    The sweep runs without autograd; when autograd records (a table, o or
+    The search runs without autograd; when autograd records (a table, o or
     d requires grad), the winner's distance is recomputed from its row by
-    the same expressions, so its value is the sweep's and only (R,)
-    tensors, not (R, T) ones, are kept for the backward."""
+    the same expressions, so its value is the search's and only (R,)
+    tensors are kept for the backward."""
     with torch.no_grad():
-        tt, hit = _sweep(tri, o, d)
-        hit = hit & (tt < INF)
-        t_m = torch.where(hit, tt, INF)
-        best_t = t_m.min(1).values
-        first = (hit & (t_m == best_t[:, None])).to(torch.int8).argmax(1)
-        best_id = torch.where(best_t < INF, first, -1)
+        if nodes is None:
+            best_t, best_id = sweep_closest(tri, o, d)
+        else:
+            best_t, best_id = walk_closest(tri, nodes, o, d)
     if torch.is_grad_enabled() and (tri.requires_grad or o.requires_grad
                                     or d.requires_grad):
         w = tri[torch.clamp(best_id, min=0)]
@@ -251,35 +232,37 @@ def closest_hit(tri, o, d):
 
 
 @torch.no_grad()
-def occluded(tri, o, d, tmax):
-    tt, hit = _sweep(tri, o, d)
-    return (hit & (tt < tmax[:, None])).any(1)
+def occluded(tri, o, d, tmax, nodes=None):
+    """Any hit with RAY_EPS < t < tmax: the walk when `nodes` is given."""
+    if nodes is None:
+        return sweep_any(tri, o, d, tmax)
+    return walk_any(tri, nodes, o, d, tmax)
 
 
-# Work the kernels do, as the twins can count it for a roofline bound:
-# ray-triangle tests (Moller-Trumbore: two crosses, four dots, the
-# reciprocal, the origin shift, the barycentric and t products and the
-# b1 + b2 sum are 46 FP32 operations).  A closest-hit sweep tests every
-# triangle; a shadow ray stops at its first occluder, as the kernels'
-# loops do.
-FLOP_PER_TRI_TEST = 46
-
-
-def count_sweeps(work, tri, mask, o=None, d=None, tmax=None):
-    """Add to work["tri_tests"] the tests the kernels make for the lanes
-    in `mask`: every triangle for a closest-hit sweep (tmax None), up to
-    the first occluder for a shadow ray."""
+@torch.no_grad()
+def count_sweeps(work, tri, mask, o, d, tmax=None, nodes=None):
+    """Add to work["tri_tests"] (and, walking, work["node_tests"]) the
+    tests the kernels make for the lanes in `mask`: a closest-hit search
+    (tmax None) or a shadow ray, which stops at its first occluder."""
     if work is None:
         return
-    T = tri.shape[0]
+    o, d = o[mask], d[mask]
     if tmax is None:
-        n = int(mask.sum()) * T
+        if nodes is None:
+            work["tri_tests"] = work.get("tri_tests", 0) + o.shape[0] \
+                * tri.shape[0]
+        else:
+            walk_closest(tri, nodes, o, d, work)
+    elif nodes is None:
+        sweep_any(tri, o, d, tmax[mask], work)
     else:
-        tt, hit = _sweep(tri, o, d)
-        occ = hit & (tt < tmax[:, None])
-        first = occ.to(torch.int8).argmax(1) + 1
-        n = int(torch.where(occ.any(1), first, T)[mask].sum())
-    work["tri_tests"] = work.get("tri_tests", 0) + n
+        walk_any(tri, nodes, o, d, tmax[mask], work)
+
+
+def work_flop(work) -> int:
+    """FP32 operations of the tests counted in `work`."""
+    return (work.get("tri_tests", 0) * FLOP_PER_TRI_TEST
+            + work.get("node_tests", 0) * FLOP_PER_NODE_TEST)
 
 
 # gradient modes of the twin (the kernels' kGradEmit / kGradAlbedo)
@@ -359,8 +342,8 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
 
     for depth in range(1, max_depth + 1):
         base = SENSOR_DIMS + (depth - 1) * BOUNCE_DIMS
-        best_t, best_id = closest_hit(tri, o, d)
-        count_sweeps(work, tri, active)
+        best_t, best_id = closest_hit(tri, o, d, tables.nodes)
+        count_sweeps(work, tri, active, o, d, nodes=tables.nodes)
         hit_valid = best_t < INF
         # every use of the distance on a miss is masked; 1 keeps hp finite
         t_hit = torch.where(hit_valid, best_t, 1.0)
@@ -431,8 +414,8 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
             eps_sh = RAY_EPS * torch.clamp(t_hit, min=1.0)
             sh_o = hp + ld * eps_sh[:, None]
             sh_tmax = torch.where(nee_ok, dist * (1.0 - 1e-3) - RAY_EPS, 0.0)
-            blocked = occluded(tri, sh_o, ld, sh_tmax)
-            count_sweeps(work, tri, nee_ok, sh_o, ld, sh_tmax)
+            blocked = occluded(tri, sh_o, ld, sh_tmax, tables.nodes)
+            count_sweeps(work, tri, nee_ok, sh_o, ld, sh_tmax, tables.nodes)
             w_nee = mis_power(ds_pdf, f_pdf)
             inv_pdf = torch.where(
                 ds_pdf > 0, w_nee / torch.clamp(ds_pdf, min=1e-20), 0.0)

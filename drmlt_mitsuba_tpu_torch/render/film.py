@@ -40,7 +40,9 @@ def make_film_config(width: int, height: int, filter_name: str = "box",
                       filter=make_filter(filter_name, radius))
 
 
-def new_film(cfg: FilmConfig, device=None):
+def new_film(cfg: FilmConfig, device):
+    """A zero (H, W, 4) film on `device` (no default: a film is never made
+    on the CPU by accident)."""
     return torch.zeros((cfg.height, cfg.width, 4), dtype=torch.float32,
                        device=device)
 

@@ -5,7 +5,9 @@ Slice 1 carries the subset the path technique runs on: a triangle soup, an
 (empty) sphere table, a material table without modifier wrappers, area
 emitters plus a constant environment, and a perspective camera.  Field names
 and enum values are the reference's, so `scene/convert.py` can carry a
-reference scene across leaf for leaf.
+reference scene across leaf for leaf.  Above BVH_MIN_TRIS triangles
+`prepare_scene` attaches a BVH (scene/bvh.py), which every kernel walks
+instead of sweeping all triangles.
 """
 from __future__ import annotations
 
@@ -35,6 +37,11 @@ BSDF_IRAWAN = 15
 EMITTER_AREA = 0
 
 CAMERA_PERSPECTIVE = 0
+
+# Above this many triangles the kernels walk a BVH instead of sweeping every
+# triangle (the reference's megakernels switch to their clustered traversal
+# at the same count, megatrace.py:2111); one constant for every kernel.
+BVH_MIN_TRIS = 4096
 
 
 def _t(a, dtype=None):
@@ -108,12 +115,42 @@ class Camera:
 
 
 @dataclasses.dataclass
+class BVH:
+    """Binned-SAH BVH over the triangles (scene/bvh.py), flattened depth
+    first (the reference's layout, types.py:186-198): an inner node's left
+    child `first` is the next node; a leaf holds the triangles
+    order[first : first + count].  `skip` is the escape pointer of a
+    stackless walk (-1 past the last node)."""
+    nodes_min: torch.Tensor   # (N, 3)
+    nodes_max: torch.Tensor   # (N, 3)
+    first: torch.Tensor       # (N,) int32 first prim (leaf) or left child
+    count: torch.Tensor       # (N,) int32 prim count (0 = inner)
+    skip: torch.Tensor        # (N,) int32
+    order: torch.Tensor       # (T,) int32 triangle ids in leaf order
+
+
+@dataclasses.dataclass
 class Scene:
     tris: TriangleSoA
     spheres: SphereSoA
     materials: MaterialTable
     emitters: EmitterTable
     camera: Camera
+    bvh: BVH | None = None
+
+
+def prepare_scene(scene: Scene) -> Scene:
+    """The scene with a BVH attached when it has more than BVH_MIN_TRIS
+    triangles and none yet (counterpart of the reference's prepare_scene,
+    types.py:303, whose TPU table tiers are not carried over)."""
+    if scene.bvh is not None or scene.tris.v0.shape[0] <= BVH_MIN_TRIS:
+        return scene
+    from drmlt_mitsuba_tpu_torch.scene.bvh import build_bvh
+
+    t = scene.tris
+    bvh = build_bvh(t.v0.detach().cpu().numpy(), t.e1.detach().cpu().numpy(),
+                    t.e2.detach().cpu().numpy())
+    return dataclasses.replace(scene, bvh=bvh)
 
 
 def make_material_table(mats: list[dict]) -> MaterialTable:
@@ -221,6 +258,16 @@ def build_emitters(tris: TriangleSoA, radiance_by_emitter,
         pmf=_t(pmf), cdf=_t(cdf),
         env_radiance=_t(env_radiance, np.float32),
     )
+
+
+def set_emitter_rows(tris: TriangleSoA, emitters: EmitterTable):
+    """Per-triangle emitter ids become emitter-table rows (-1 = not
+    emissive), as the reference's builders and XML loader rewrite them."""
+    area_rows = np.nonzero(emitters.kind.numpy() == EMITTER_AREA)[0]
+    row_of_tri = np.full(tris.v0.shape[0], -1, np.int32)
+    row_of_tri[emitters.tri_idx.numpy()[area_rows]] = area_rows.astype(
+        np.int32)
+    tris.emitter_id = _t(row_of_tri)
 
 
 def make_camera(to_world, fov_x_deg: float, aspect: float,

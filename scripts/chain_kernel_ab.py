@@ -14,7 +14,8 @@ Each is compiled with the port's nvcc flags in one `nvcc -shared` command
 into a library of its own under build/chain_ab/; the checkout's own
 kernels come from ops/build.py.  A build's entry point is
 `drmlt_chain_launch` (the template over the trace body) or
-`drmlt_path_launch` (slice 1's path-only kernel).
+`drmlt_path_launch` (slice 1's path-only kernel); a build from before
+the BVH walk (no bvh.cuh) is called without the node-table arguments.
 
 On cornell_box(256, 256), PathConfig(max_depth=8, rr_depth=100) and
 orbital DRMLT with the sampled splat at 65,536 chains it reports:
@@ -112,12 +113,29 @@ def build_single(src: Path, out: Path):
     return time.perf_counter() - t0, res.stdout + res.stderr
 
 
-def load(path: Path):
+class _NoNodeTable:
+    """A build from before the BVH walk: its drmlt_chain_launch takes no
+    node table (the four arguments after cam), so they are dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def drmlt_chain_launch(self, *args):
+        if args[10]:
+            raise ValueError("this build cannot walk a BVH")
+        return self.lib.drmlt_chain_launch(*args[:7], *args[11:])
+
+
+def load(path: Path, src: Path):
     """(library, entry name) with its argument types set."""
     lib = ctypes.CDLL(str(path))
     if hasattr(lib, "drmlt_chain_launch"):
         entry, sig = "drmlt_chain_launch", build._SIGNATURES[
             "drmlt_chain_launch"]
+        if not (src / "bvh.cuh").exists():
+            lib.drmlt_chain_launch.argtypes = sig[:7] + sig[11:]
+            lib.drmlt_chain_launch.restype = ctypes.c_int
+            return _NoNodeTable(lib), entry
     else:
         entry, sig = "drmlt_path_launch", PATH_LAUNCH_SIG
     fn = getattr(lib, entry)
@@ -141,7 +159,8 @@ def step(lib, entry, tables, cfg, state, film, stats, seed, launch):
     scratch = torch.empty((2 * D, C), dtype=torch.float32,
                           device=state.device)
     rc = lib.drmlt_path_launch(
-        *MT.table_args(tables), state.data_ptr(), scratch.data_ptr(), D, C,
+        *MT.table_args(tables)[:7], *MT.table_args(tables)[11:],
+        state.data_ptr(), scratch.data_ptr(), D, C,
         film.data_ptr(), film.shape[0], film.shape[1], stats.data_ptr(),
         None, MD.n_rand(cfg, D), N_MUT, seed, launch,
         MD._DRTYPE_CODE[cfg.type], int(cfg.splat_mode == "sampled"),
@@ -209,7 +228,7 @@ def main():
         name, d = spec.split("=", 1)
         out = build.BUILD_DIR.parent / "chain_ab" / f"{name}.so"
         _, text = build_single(Path(d), out)
-        libs[name] = load(out)
+        libs[name] = load(out, Path(d))
         report["ptxas"][name] = ptxas(text)
     for name, p in report["ptxas"].items():
         print(f"ptxas {name}: {p}", flush=True)

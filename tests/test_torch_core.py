@@ -144,7 +144,7 @@ def test_box_film_matches_reference(mode):
     fc = film.make_film_config(W, H, "box")
     ref = jfilm.splat(jfc, jfilm.new_film(jfc), jnp.asarray(pos),
                       jnp.asarray(val), weight=jnp.asarray(w), mode=mode)
-    got = film.splat(fc, film.new_film(fc), T(pos), T(val), weight=T(w),
+    got = film.splat(fc, film.new_film(fc, "cpu"), T(pos), T(val), weight=T(w),
                      mode=mode)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)

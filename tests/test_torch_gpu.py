@@ -31,9 +31,12 @@ from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt as MD
 from drmlt_mitsuba_tpu_torch.ops import megammlt as MM
 from drmlt_mitsuba_tpu_torch.ops import megatrace as MT
+from drmlt_mitsuba_tpu_torch.ops import intersect as IX
 from drmlt_mitsuba_tpu_torch.ops import splat as SP
 from drmlt_mitsuba_tpu_torch.render import film as filmlib
 from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box, veach_door
+from drmlt_mitsuba_tpu_torch.scene.types import prepare_scene
+from drmlt_mitsuba_tpu_torch.utils import raybench
 
 pytestmark = pytest.mark.gpu
 
@@ -231,7 +234,7 @@ def test_splat_kernel_matches_twin(cuda):
     filmlib.splat(fc, filmlib.new_film(fc, cuda), pos, v,
                   mode="accum").backward(ct)
     v_cpu = val.cpu().requires_grad_()
-    filmlib.splat(fc, filmlib.new_film(fc), pos.cpu(), v_cpu,
+    filmlib.splat(fc, filmlib.new_film(fc, "cpu"), pos.cpu(), v_cpu,
                   mode="accum").backward(ct.cpu())
     assert torch.equal(v.grad.cpu(), v_cpu.grad)
 
@@ -357,3 +360,109 @@ def test_adjoint_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="on cuda"):
         MT.make_mega_trace_diff(cornell_box(16, 16), PathConfig())(
             {}, torch.rand((8, PathConfig().n_dims)))
+
+
+# ---------------------------------------------------------------- slice 4
+def _large():
+    """cornell_box(64, 64, tessellate=12): 4,898 triangles, over
+    BVH_MIN_TRIS, with its BVH."""
+    return prepare_scene(cornell_box(64, 64, tessellate=12))
+
+
+@pytest.mark.parametrize("mesh", ["sphere-brute", "sphere-bvh", "cornell"])
+def test_intersect_kernel_matches_twin(cuda, mesh):
+    """Both modes of the intersection kernel against the plain sweep / walk
+    on 65,536 rays: t bit-equal, id and any-hit equal on every ray; in BVH
+    mode also the walk against the brute kernel."""
+    scene = (_large() if mesh == "cornell" else prepare_scene(
+        raybench.bumpy_sphere(3000 if mesh == "sphere-brute" else 20000)))
+    tables = IX.make_ray_tables(scene, cuda)
+    assert (tables.nodes is None) == (mesh == "sphere-brute")
+    o, d = raybench.rays(65536, cuda, seed=3)
+    if mesh == "cornell":
+        o = o * 90.0 + 278.0
+    tmax = torch.rand(65536, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(4)) * 600
+    n0 = build.LAUNCHES["intersect"]
+    t, i = IX.closest(tables, o, d)
+    hit = IX.any_hit(tables, o, d, tmax)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["intersect"] == n0 + 2
+    rt, ri = IX.closest_reference(tables, o, d)
+    assert torch.equal(t.view(torch.int32), rt.view(torch.int32))
+    assert torch.equal(i, ri)
+    assert torch.equal(hit, IX.any_reference(tables, o, d, tmax))
+    assert float((i >= 0).float().mean()) > 0.05
+    if tables.nodes is not None:
+        brute = IX.make_ray_tables(scene, cuda, walk=False)
+        bt, bi = IX.closest(brute, o, d)
+        assert torch.equal(bt.view(torch.int32), t.view(torch.int32))
+        assert torch.equal(bi, i)
+        assert torch.equal(IX.any_hit(brute, o, d, tmax), hit)
+
+
+def test_walk_in_trace_kernels_matches_twins(cuda):
+    """The path, MMLT and adjoint kernels walk the BVH of a scene over
+    BVH_MIN_TRIS, at the small-scene thresholds."""
+    scene = _large()
+    cfg = PathConfig(max_depth=6, rr_depth=3)
+    tables = MT.make_tables(scene, cfg, cuda)
+    assert tables.nodes is not None
+    g = torch.Generator(cuda).manual_seed(8)
+    uT = torch.rand((cfg.n_dims, 4096), device=cuda, generator=g)
+    _lanes_agree(MT.path_trace(tables, uT),
+                 MT.path_trace_reference(tables, uT))
+    k = MT.path_trace_rad(tables, uT)
+    t = MT.path_trace_rad_reference(tables, uT)
+    same = (k[:3] == t[:3]).all(0)
+    assert float(same.float().mean()) >= 0.998
+    torch.testing.assert_close(k[3:, same], t[3:, same], rtol=1e-5, atol=0.0)
+    mcfg = BDPTConfig(max_depth=4, light_image=True)
+    mt = MM.make_mmlt_tables(scene, mcfg, cuda)
+    assert mt.nodes is not None
+    uM = torch.rand((mt.n_core, 4096), device=cuda, generator=g)
+    _lanes_agree(MM.mmlt_trace(mt, uM), MM.mmlt_trace_reference(mt, uM),
+                 atol=1e-6, pos_rows=2)
+
+
+@pytest.mark.parametrize("technique", ["path", "mmlt"])
+def test_walk_in_chain_kernel_matches_twin(cuda, technique):
+    C, W = 1024, 64
+    scene = _large()
+    g = torch.Generator(cuda).manual_seed(9)
+    cfg = DRMLTConfig(type="orbital", splat_mode="sampled")
+    if technique == "path":
+        pcfg = PathConfig(max_depth=4, rr_depth=100)
+        tables = MT.make_tables(scene, pcfg, cuda)
+        D = pcfg.n_dims + pcfg.n_dims % 2
+        u = torch.rand((C, D), device=cuda, generator=g)
+        state0 = MD.pack_chain_state(state_from_splats(
+            u, make_path_trace(scene, pcfg, cuda)(u)))
+    else:
+        trace, _, D, tables = make_mmlt_trace_fixed(scene, 3, True, cuda)
+        u = torch.rand((4 * C, D), device=cuda, generator=g)
+        u = u[torch.nonzero(trace(u).lum > 0)[:C, 0]]
+        assert u.shape[0] == C
+        state0 = MD.pack_chain_state(state_from_splats(u, trace(u)))
+    assert tables.nodes is not None
+    out = []
+    for fn in (MD.drmlt_chain_step, MD.drmlt_chain_step_reference):
+        st, film, stats = (state0.clone(),
+                           torch.zeros((W, W, 3), device=cuda),
+                           torch.zeros((6, C), device=cuda))
+        fn(tables, cfg, 2, st, film, stats, 17, 2)
+        out.append((st, film, stats))
+    torch.cuda.synchronize()
+    (sk, fk, tk), (sr, fr, tr) = out
+    agree = ((sk[:D] - sr[:D]).abs().max(0).values <= 2e-5).float().mean()
+    assert float(agree) >= 0.99
+    torch.testing.assert_close(tk.sum(1), tr.sum(1), rtol=1e-2, atol=1.0)
+
+
+@pytest.mark.parametrize("tris", [3000, 20000])
+def test_raybench_runs_in_both_modes(cuda, tris, capsys):
+    assert raybench.main(["--tris", str(tris), "--rays", "65536",
+                          "--iters", "2"]) == 0
+    text = capsys.readouterr().out
+    assert ("mode=bvh" if tris > 4096 else "mode=brute") in text
+    assert "MRays/s" in text

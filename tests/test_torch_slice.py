@@ -126,8 +126,11 @@ def test_cli_cornell_writes_exr(tmp_path, capsys):
     assert img.shape == (256, 256, 3)
     assert np.all(np.isfinite(img)) and img.mean() > 0
     assert "b = " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="XML loader"):
-        cli.main(["scene.xml", "--device", "cpu"])
+    # a scene XML outside the ported subset raises, naming the element
+    xml = tmp_path / "sphere.xml"
+    xml.write_text('<scene version="0.6.0"><shape type="sphere"/></scene>')
+    with pytest.raises(NotImplementedError, match="sphere"):
+        cli.main([str(xml), "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli.main(["cornell", "-D", "nope=1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="technique"):

@@ -45,7 +45,7 @@ def test_film_splat_matches_reference(mode):
     fc = filmlib.make_film_config(W, H, "box")
     jfc = jax_film.make_film_config(W, H, "box")
     for w in (None, weight):
-        got = filmlib.splat(fc, filmlib.new_film(fc), torch.from_numpy(pos),
+        got = filmlib.splat(fc, filmlib.new_film(fc, "cpu"), torch.from_numpy(pos),
                             torch.from_numpy(val),
                             None if w is None else torch.from_numpy(w),
                             mode=mode)
@@ -149,7 +149,7 @@ def test_film_splat_adds_in_place_unless_autograd_records():
     and leaves the film as it was."""
     pos, val, _ = _taps(3, 500)
     fc = filmlib.make_film_config(W, H, "box")
-    film = filmlib.new_film(fc)
+    film = filmlib.new_film(fc, "cpu")
     out = filmlib.splat(fc, film, torch.from_numpy(pos),
                         torch.from_numpy(val), mode="accum")
     assert out is film and float(film.sum()) > 0
@@ -175,7 +175,7 @@ def test_film_splat_adds_in_place_unless_autograd_records():
 
 def _image(fc, sp):
     scale = torch.tensor([fc.width, fc.height], dtype=torch.float32)
-    film = filmlib.splat(fc, filmlib.new_film(fc), sp.pos[:, 0, :] * scale,
+    film = filmlib.splat(fc, filmlib.new_film(fc, "cpu"), sp.pos[:, 0, :] * scale,
                          sp.value[:, 0, :], mode="accum")
     return film[..., :3]
 
