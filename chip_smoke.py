@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's four slices once on one GPU: the DRMLT path
+"""Drive the PyTorch/CUDA port's five slices once on one GPU: the DRMLT path
 render, the depth-grouped DRMLT-over-MMLT render, differentiable
-rendering (inverse rendering through the adjoint and splat kernels) and
+rendering (inverse rendering through the adjoint and splat kernels),
 asset-scale scenes (the XML loader, the BVH walk in every trace kernel,
-the intersection kernel).
+the intersection kernel) and the trace kernels' full scene scope
+(analytic spheres, the conductor / rough-conductor / null kinds, bitmap
+albedo, constant and image environments, the thin lens).
 
     python3 chip_smoke.py
 
@@ -86,7 +88,31 @@ non-zero):
  18. the depth-2 path trace at 65,536 lanes on cornell_box(tessellate =
      1, 2, 4, 8, 11, 13, 24, 44: 36 to 65,826 triangles), walk against
      brute mode (paths/s, bit-equal), a BVH built for the walk's side at
-     or below BVH_MIN_TRIS: where the two cross.
+     or below BVH_MIN_TRIS: where the two cross;
+ 19. slice 5, the full-scope instantiation of the path kernel and of both
+     adjoints vs their twins (65,536 lanes, depth 8; the albedo adjoint
+     where the albedos are constant) on tests/data/cornell.xml and the
+     256x256 configurations of cornell_scope (kinds, const, thinlens, env64,
+     env256), and their times on the const configuration;
+ 20. the MMLT kernel vs its twin at depths 1-6 on each of them but the
+     thin lens;
+ 21. the chain kernel in both modes vs its twin at 4,096 x 2 (uniforms and
+     Philox) on each, and at 65,536 x 64 on const (its time);
+ 22. slice 5's main path, the counters reset before each CLI render and
+     read after it (the MC references and b seeds do not count): both CLI
+     renders of tests/data/cornell.xml (-D spp=4096, orbital,
+     sampled, 65,536 chains) and the 256x256 renders (path depth 8, MMLT
+     depth 6, 65,536 chains, 256 mutations per pixel), each against a
+     Monte-Carlo render_pt (channel means within four standard deviations
+     of b over bootstrap seeds, measured in the run; the 16x16-block shape,
+     each image at unit mean, within 1.5x what the noise of two MC and of
+     two MCMC renders predicts, as phase 9); a plain-MC witness on env64,
+     whose MMLT renders have wide gates: the MMLT technique's 64x64 MC
+     image against the path technique's (z of the means < 4, rms of the
+     4x4-block z-scores < 1.5); the white furnace
+     (every pixel of furnace_sphere within 5 sigma of its analytic value,
+     through the path kernel; the DRMLT render's mean); a profiled warm
+     render of each technique.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -102,6 +128,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -115,7 +142,10 @@ from drmlt_mitsuba_tpu_torch.integrators.drmlt import (  # noqa: E402
 )
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.mcmc import (  # noqa: E402
-    state_from_splats,
+    bootstrap, state_from_splats,
+)
+from drmlt_mitsuba_tpu_torch.integrators.mmlt import (  # noqa: E402
+    make_mmlt_trace, mmlt_n_dims,
 )
 from drmlt_mitsuba_tpu_torch.integrators.mmlt_grouped import (  # noqa: E402
     N_MUT, group_bootstrap, group_starts, make_mmlt_trace_fixed,
@@ -135,7 +165,7 @@ from drmlt_mitsuba_tpu_torch.ops import megammlt as MM  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megatrace as MT  # noqa: E402
 from drmlt_mitsuba_tpu_torch.render import film as filmlib  # noqa: E402
 from drmlt_mitsuba_tpu_torch.scene.builders import (  # noqa: E402
-    cornell_box, veach_door,
+    cornell_box, cornell_scope, furnace_sphere, veach_door,
 )
 from drmlt_mitsuba_tpu_torch.scene.bvh import build_bvh, pack_nodes  # noqa: E402
 from drmlt_mitsuba_tpu_torch.scene.types import prepare_scene  # noqa: E402
@@ -342,7 +372,7 @@ def check_chain(tag, r):
 
 
 def blocks(img):
-    blk = SIZE // 16
+    blk = img.shape[0] // 16
     return img.double().reshape(16, blk, 16, blk, 3).mean((1, 3))
 
 
@@ -1038,6 +1068,518 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
     return out
 
 
+# ---------------------------------------------------------------- slice 5
+CORNELL_XML = os.path.join(ROOT, "tests", "data", "cornell.xml")
+XML_SPP = 4096        # -D spp=4096: the file's sampleCount
+SCOPE_SEEDS = 16      # bootstrap seeds for the spread of b (phase 22)
+MC_SPP = 64           # samples per pixel of the MC references
+FURNACE_PATHS = 1 << 22   # the furnace check's paths (1,024 per pixel)
+FURNACE_SIZE = 64
+# the 256x256 configurations of slice 5 (cornell_scope), and the one the
+# MMLT kernel does not take (the reference's MMLT kernel has no thin lens)
+SCOPE = ("kinds", "const", "thinlens", "env64", "env256")
+NO_MMLT = ("thinlens",)
+# the plain-MC witness of phase 22: the MMLT technique's image against the
+# path technique's on env64 at 64x64, from WITNESS_BATCHES x WITNESS_LANES
+# samples
+# each, in 4x4-pixel blocks; gates on the z-scores of their difference
+WITNESS_BATCHES = 64
+WITNESS_LANES = 1 << 20
+WITNESS_Z_MEAN = 4.0    # |z| of the image means
+WITNESS_Z_RMS = 1.5     # rms of the 256 block z-scores (about 1 unbiased)
+
+
+def scope_scenes():
+    """{name: (scene, settings)} of slice 5: the scene file and the 256x256
+    configurations."""
+    out = {"cornell.xml": cli.load_scene(CORNELL_XML, {"integrator": "drmlt"})}
+    for v in SCOPE:
+        out[v] = (cornell_scope(SIZE, SIZE, v), None)
+    return out
+
+
+def _thin(scene):
+    return float(scene.camera.aperture_radius) > 0
+
+
+def path_states(scene, pcfg, gen, dev, n):
+    """A packed starting state of n chains (every lum > 0) from the path
+    kernel."""
+    trace = make_path_trace(scene, pcfg, dev)
+    D = pcfg.n_dims + pcfg.n_dims % 2
+    cand = torch.rand((8 * n, D), generator=gen, device=dev)
+    u0 = cand[torch.nonzero(trace(cand).lum > 0)[:n, 0]]
+    need(u0.shape[0] == n, "too few valid starting states")
+    return MD.pack_chain_state(state_from_splats(u0, trace(u0)))
+
+
+def furnace_coverage(scene, n, sub=16):
+    """The share of each pixel of an n x n film whose camera rays hit the
+    furnace's unit sphere, from sub x sub rays per pixel (float64)."""
+    cam = scene.camera
+    c2w = cam.to_world.double().numpy()
+    s = (np.arange(n * sub) + 0.5) / (n * sub)
+    X, Y = np.meshgrid(s, s)
+    x = (2.0 * X - 1.0) * float(cam.tan_half_fov_x)
+    y = (1.0 - 2.0 * Y) * float(cam.tan_half_fov_y)
+    d = np.stack([x, y, np.ones_like(x)], -1) @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    c = scene.spheres.center[0].double().numpy() - c2w[:3, 3]
+    tc = d @ c
+    dist2 = (c @ c) - tc * tc
+    hit = (tc > 0) & (dist2 <= float(scene.spheres.radius[0]) ** 2)
+    return hit.reshape(n, sub, n, sub).mean((1, 3))
+
+
+def mc_witness(scene, depth, gen, dev, n):
+    """Plain-MC images of the path and the MMLT technique on an n x n
+    film: {tech: (per-pixel mean luminance, its standard error, the image
+    mean, its standard error)}.  A sample adds n^2 lum to its pixel's
+    estimate; the errors count the samples' spread over pixels too."""
+    pc = PathConfig(max_depth=depth, rr_depth=100)
+    bc = BDPTConfig(max_depth=depth)
+    N = WITNESS_BATCHES * WITNESS_LANES
+    P = n * n
+    out = {}
+    for tech, trace, dims in (
+            ("path", make_path_trace(scene, pc, dev), pc.n_dims),
+            ("mmlt", make_mmlt_trace(scene, bc, dev), mmlt_n_dims(bc))):
+        s1 = torch.zeros(P, dtype=torch.float64, device=dev)
+        s2 = torch.zeros_like(s1)
+        for _ in range(WITNESS_BATCHES):
+            sp = trace(torch.rand((WITNESS_LANES, dims), generator=gen,
+                                  device=dev))
+            p = sp.pos[:, 0, :]
+            pix = (torch.clamp(torch.floor(p[:, 1] * n), 0, n - 1) * n
+                   + torch.clamp(torch.floor(p[:, 0] * n), 0, n - 1)).long()
+            lum = sp.lum.double()
+            s1.index_add_(0, pix, lum)
+            s2.index_add_(0, pix, lum * lum)
+        m = s1 * P / N
+        se = torch.sqrt(torch.clamp(s2 * P * P / N - m * m, min=0) / N)
+        mean = float(s1.sum()) / N
+        se_mean = max(float(s2.sum()) / N - mean * mean, 0.0) ** 0.5 / N ** 0.5
+        out[tech] = (m.reshape(n, n), se.reshape(n, n), mean, se_mean)
+    return out
+
+
+def slice5(name, dev, gen, report):
+    """Phases 19-22: the trace kernels' full scene scope.  Returns the
+    kernels-line figures of the full-scope instantiations."""
+    out = {}
+    scenes = scope_scenes()
+    pcfg = PathConfig(max_depth=DEPTH, rr_depth=100)
+    # ---- 19. path kernel and both adjoints vs twins on each new scene -------
+    report["scope_path_vs_twin"] = {}
+    path_err = 0.0
+    for sname, (sc, _) in scenes.items():
+        cfg = dataclasses.replace(pcfg, thinlens=_thin(sc))
+        tables = MT.make_tables(sc, cfg, dev)
+        need(tables.full, f"{sname}: not the full-scope instantiation")
+        uT = torch.rand((cfg.n_dims, CHAINS), generator=gen, device=dev)
+        k = MT.path_trace(tables, uT)
+        torch.cuda.synchronize()
+        t = MT.path_trace_reference(tables, uT)
+        mx, mean, bad = lane_diff(k, t)
+        m_rel = float(((k.double().mean(1) - t.double().mean(1)).abs()
+                       / t.double().mean(1).abs()).max())
+        row = dict(max_abs=mx, mean_abs=mean, bad_lanes=bad, mean_rel=m_rel)
+        adj = []
+        for mode, fn, twin in (("rad", MT.path_trace_rad,
+                                MT.path_trace_rad_reference),
+                               ("alb", MT.path_trace_alb,
+                                MT.path_trace_alb_reference)):
+            if mode == "alb" and tables.tex_shape is not None:
+                adj.append("alb: n/a (bitmap albedo)")
+                continue
+            kk = fn(tables, uT)
+            torch.cuda.synchronize()
+            tt = twin(tables, uT)
+            same = (kk[:3] == tt[:3]).all(0)
+            rows_ok = ((kk[3:] - tt[3:]).abs()
+                       <= 1e-5 * tt[3:].abs()).all(0) & same
+            row[mode] = dict(rgb_bit_equal=float(same.double().mean()),
+                             rows_rtol_1e5=float(rows_ok.double().mean()),
+                             finite=bool(torch.isfinite(kk).all()))
+            adj.append(f"{mode}: rgb bit-equal "
+                       f"{row[mode]['rgb_bit_equal']:.5f}, rows "
+                       f"{row[mode]['rows_rtol_1e5']:.5f}")
+            need(row[mode]["finite"], f"{sname}/{mode}: non-finite rows")
+            need(row[mode]["rgb_bit_equal"] >= 1.0 - MAX_BAD_LANES
+                 and row[mode]["rows_rtol_1e5"] >= 1.0 - MAX_BAD_LANES,
+                 f"{sname}/{mode}: adjoint differs from its twin")
+        report["scope_path_vs_twin"][sname] = row
+        print(f"[19 path kernel and adjoints vs twins, full scope] {name}: "
+              f"{sname}: {CHAINS} lanes, depth {DEPTH}: lanes differing "
+              f"{bad:.5f}, max |d| {mx:.3e}, channel-mean rel {m_rel:.2e}; "
+              + "; ".join(adj))
+        need(bool(torch.isfinite(k).all()), f"{sname}: non-finite radiance")
+        need(bad <= MAX_BAD_LANES, f"{sname}: {bad:.4f} of lanes differ")
+        need(m_rel <= MEAN_RTOL, f"{sname}: channel means differ {m_rel}")
+        path_err = max(path_err, mx)
+
+    # times at the slice's shapes on the const configuration: the path
+    # kernel (depth 8) and the adjoints (depth 6), against twins and bounds
+    sc = scenes["const"][0]
+    tables = MT.make_tables(sc, pcfg, dev)
+    uT = torch.rand((pcfg.n_dims, CHAINS), generator=gen, device=dev)
+    work = {}
+    MT.path_trace_reference(tables, uT, work)
+    ms = event_ms(lambda: MT.path_trace(tables, uT), runs=20)
+    plain = event_ms(lambda: MT.path_trace_reference(tables, uT), runs=3)
+    ext = nbytes(tables.sph, tables.tri_ext, tables.tex)
+    bnd = bound(nbytes(uT, tables.tri, tables.mat, tables.em, tables.cam)
+                + ext + 3 * CHAINS * 4, work["tri_tests"])
+    out["path"] = dict(err=path_err, ms=ms, plain_ms=plain, bnd=bnd)
+    gcfg = PathConfig(max_depth=GRAD_DEPTH, rr_depth=GRAD_RR)
+    timing = {}
+    for mode, fn, twin, sc_name in (
+            ("rad", MT.path_trace_rad, MT.path_trace_rad_reference, "const"),
+            ("alb", MT.path_trace_alb, MT.path_trace_alb_reference, "kinds")):
+        gt = MT.make_tables(scenes[sc_name][0], gcfg, dev)
+        uG = torch.rand((gcfg.n_dims, CHAINS), generator=gen, device=dev)
+        gwork = {}
+        MT.path_trace_reference(gt, uG, gwork)
+        K = gt.em.shape[0] if mode == "rad" else gt.mat.shape[0]
+        g_ms = event_ms(lambda: fn(gt, uG), runs=20)
+        g_plain = event_ms(lambda: twin(gt, uG), runs=3)
+        g_bnd = bound(nbytes(uG, gt.tri, gt.mat, gt.em, gt.cam, gt.sph)
+                      + (3 + 3 * K) * CHAINS * 4, gwork["tri_tests"])
+        timing[mode] = dict(scene=sc_name, ms=g_ms, plain_ms=g_plain,
+                            bound_ms=g_bnd[0], bound_by=g_bnd[1])
+    report["scope_timing_ms"] = dict(path=dict(
+        scene="const", ms=ms, plain_ms=plain, bound_ms=bnd[0],
+        bound_by=bnd[1], tri_tests=work["tri_tests"]), **timing)
+    print(f"[19 timing, full scope] {name}: path_trace_kernel[full] {ms:.3f} "
+          f"ms vs twin {plain:.3f} ms ({CHAINS} lanes, depth {DEPTH}, const "
+          f"configuration; bound {bnd[0]:.4f} ms by {bnd[1]}); "
+          + "; ".join(f"path_trace_{m}_kernel[full] {r['ms']:.3f} ms vs twin "
+                      f"{r['plain_ms']:.3f} ms ({r['scene']}, depth "
+                      f"{GRAD_DEPTH}; bound {r['bound_ms']:.4f} ms)"
+                      for m, r in timing.items()))
+
+    # ---- 20. the MMLT kernel vs its twin at depths 1-6 ----------------------
+    report["scope_mmlt_vs_twin"] = {}
+    mmlt_err = 0.0
+    for sname, (sc, _) in scenes.items():
+        if sname in NO_MMLT:
+            continue
+        row = []
+        for depth in range(1, MMLT_DEPTH + 1):
+            mt = MM.make_mmlt_tables(sc, BDPTConfig(max_depth=depth), dev)
+            uM = torch.rand((mt.n_core, CHAINS), generator=gen, device=dev)
+            k = MM.mmlt_trace(mt, uM)
+            torch.cuda.synchronize()
+            t = MM.mmlt_trace_reference(mt, uM)
+            mx, _, bad = lane_diff(k, t, pos_rows=2)
+            report["scope_mmlt_vs_twin"][f"{sname}/{depth}"] = dict(
+                max_abs=mx, bad_lanes=bad)
+            row.append(f"d{depth} {1 - bad:.5f}")
+            need(bool(torch.isfinite(k).all()), f"{sname}/{depth}: non-finite")
+            need(bad <= MAX_BAD_LANES_MMLT,
+                 f"MMLT {sname}/{depth}: {bad:.4f} of lanes differ")
+            mmlt_err = max(mmlt_err, mx)
+        print(f"[20 MMLT kernel vs twin, full scope] {name}: {sname}, "
+              f"{CHAINS} lanes (depth, lanes agreeing): " + ", ".join(row))
+    mt6 = MM.make_mmlt_tables(scenes["const"][0],
+                              BDPTConfig(max_depth=MMLT_DEPTH), dev)
+    uM = torch.rand((mt6.n_core, CHAINS), generator=gen, device=dev)
+    mwork = {}
+    MM.mmlt_trace_reference(mt6, uM, mwork)
+    m_ms = event_ms(lambda: MM.mmlt_trace(mt6, uM), runs=20)
+    m_plain = event_ms(lambda: MM.mmlt_trace_reference(mt6, uM), runs=3)
+    m_bnd = bound(nbytes(uM, mt6.tri, mt6.mat, mt6.em, mt6.cam, mt6.sph,
+                         mt6.tri_ext, mt6.tex) + 5 * CHAINS * 4,
+                  mwork["tri_tests"])
+    out["mmlt"] = dict(err=mmlt_err, ms=m_ms, plain_ms=m_plain, bnd=m_bnd)
+    report["scope_timing_ms"]["mmlt"] = dict(
+        scene="const", ms=m_ms, plain_ms=m_plain, bound_ms=m_bnd[0],
+        bound_by=m_bnd[1])
+    print(f"[20 timing, full scope] {name}: mmlt_trace_kernel[full] "
+          f"{m_ms:.3f} ms vs twin {m_plain:.3f} ms ({CHAINS} lanes, depth "
+          f"{MMLT_DEPTH}; bound {m_bnd[0]:.4f} ms by {m_bnd[1]})")
+
+    # ---- 21. the chain kernel, both modes, vs its twin ----------------------
+    report["scope_chain_vs_twin"] = {}
+    cfg_c = DRMLTConfig(type="orbital", n_chains=CHAINS, n_bootstrap=100_000,
+                        p_large=0.3, splat_mode="sampled")
+    chain_err = {"path": 0.0, "mmlt": 0.0}
+    starts = {}
+    for sname, (sc, _) in scenes.items():
+        pc = dataclasses.replace(pcfg, thinlens=_thin(sc))
+        modes = [("path", MT.make_tables(sc, pc, dev),
+                  path_states(sc, pc, gen, dev, CHAINS))]
+        if sname not in NO_MMLT:
+            mtab, mst, _ = slice2_starts(sc, MMLT_DEPTH, gen, dev)
+            modes.append(("mmlt", mtab, mst))
+        rows = []
+        for tech, tab, st0 in modes:
+            starts[(sname, tech)] = (tab, st0)
+            s4 = st0[:, :C4].contiguous()
+            D = s4.shape[0] - 6
+            for drtype, mode, given in (("orbital", "sampled", True),
+                                        ("mira", "three", False)):
+                ccfg = DRMLTConfig(type=drtype, splat_mode=mode, n_chains=C4,
+                                   fix_emitter_path=drtype == "mira")
+                uni = (torch.rand((2 * MD.n_rand(ccfg, D), C4), generator=gen,
+                                  device=dev) if given else None)
+                r = compare_chain(tab, ccfg, 2, s4, SIZE, 51, 1, uni)
+                tag = (f"{sname}/{tech}/{drtype}/{mode}/"
+                       f"{'uniforms' if given else 'philox'}")
+                report["scope_chain_vs_twin"][tag] = r
+                rows.append(f"{tech} {drtype}/{mode}/"
+                            f"{'uniforms' if given else 'philox'} "
+                            f"{r['lane_agreement']:.5f}")
+                check_chain(tag, r)
+                chain_err[tech] = max(chain_err[tech], r["state_max_abs"])
+        print(f"[21 chain kernel vs twin, full scope] {name}: {sname}, {C4} "
+              f"chains x 2 mutations (lanes agreeing): " + ", ".join(rows))
+    # the slice's shape on the const configuration: 65,536 chains x 64
+    # mutations, the kernel timed and the twin once (its wall is plain_ms)
+    for tech in ("path", "mmlt"):
+        tab, st0 = starts[("const", tech)]
+        cwork = {}
+        r = compare_chain(tab, cfg_c, 64, st0, SIZE, 5, 0, None)
+        check_chain(f"const/{tech}/65536x64", r)
+        stc = st0.clone()
+        film = torch.zeros((SIZE, SIZE, 3), device=dev)
+        stats = torch.zeros((6, CHAINS), device=dev)
+        c_ms = event_ms(lambda: MD.drmlt_chain_step(tab, cfg_c, 64, stc, film,
+                                                    stats, 5, 0), runs=3)
+        # the ray-triangle tests of 2 mutations per chain (the twin's count
+        # on 4,096 chains), scaled to 64 mutations of every chain
+        MD.drmlt_chain_step_reference(
+            tab, dataclasses.replace(cfg_c, n_chains=C4), 2,
+            st0[:, :C4].contiguous(), torch.zeros((SIZE, SIZE, 3),
+                                                  device=dev),
+            torch.zeros((6, C4), device=dev), 5, 0, work=cwork)
+        tests = cwork["tri_tests"] * (64 // 2) * (CHAINS // C4)
+        c_bnd = bound(2 * nbytes(stc) + nbytes(film) + 2 * nbytes(stats),
+                      tests)
+        out[f"chain_{tech}"] = dict(err=max(chain_err[tech],
+                                            r["state_max_abs"]), ms=c_ms,
+                                    plain_ms=r["twin_s"] * 1e3, bnd=c_bnd)
+        report["scope_chain_vs_twin"][f"const/{tech}/65536x64"] = r
+        report["scope_timing_ms"][f"chain_{tech}"] = dict(
+            scene="const", ms=c_ms, plain_ms=r["twin_s"] * 1e3,
+            bound_ms=c_bnd[0], bound_by=c_bnd[1], tri_tests=tests)
+        print(f"[21 chain kernel ({tech}), full scope, {CHAINS} chains x 64 "
+              f"mutations] {name}: const: lanes agreeing "
+              f"{r['lane_agreement']:.5f}, film rel L1 "
+              f"{r['film_rel_l1']:.2e}; kernel {c_ms:.2f} ms vs twin "
+              f"{r['twin_s'] * 1e3:.0f} ms per launch; bound {c_bnd[0]:.4f} "
+              f"ms by {c_bnd[1]}")
+
+    # ---- 22. slice 5's main path: the CLI renders ---------------------------
+    report["slice5"] = {}
+    # the launches of the CLI renders only: reset before each render, read
+    # after it (the MC references and the b seeds launch the path and MMLT
+    # kernels too)
+    launches5 = dict.fromkeys(build.LAUNCHES, 0)
+    renders = []
+    for tech in ("path", "mmlt"):
+        (sc, xs), load_s = sync_time(lambda: cli.load_scene(
+            CORNELL_XML, {"integrator": "drmlt", "technique": tech,
+                          "type": "orbital", "spp": str(XML_SPP)}))
+        renders.append(("cornell.xml", tech, sc, xs, load_s))
+    for v in SCOPE[1:]:
+        for tech in ("path", "mmlt"):
+            if v in NO_MMLT and tech == "mmlt":
+                continue
+            xs = cli.RenderSettings(integrator=dict(
+                type="drmlt", technique=tech, variant="orbital",
+                splatMode="sampled",
+                maxDepth=DEPTH if tech == "path" else MMLT_DEPTH),
+                width=SIZE, height=SIZE, filter_name="box", spp=256)
+            renders.append((v, tech, scenes[v][0], xs, 0.0))
+    for sname, tech, sc, xs, load_s in renders:
+        # a first call, then the warm call whose wall is the metric; the
+        # two images (other seeds) measure the MCMC noise of the shape
+        args = argparse.Namespace(chains=CHAINS, spp=None, seed=3)
+        build.reset_launches()
+        (img0, _), first_wall = sync_time(lambda: cli.render(args, sc, xs,
+                                                             dev))
+        args.seed = 4
+        (img, aux), wall = sync_time(lambda: cli.render(args, sc, xs, dev))
+        for k, c in build.LAUNCHES.items():
+            launches5[k] += c
+        if tech == "mmlt":
+            muts = sum(CHAINS * s for s in aux["steps_eff"].values())
+        else:
+            muts = CHAINS * aux["steps"]
+        depth = int(xs.integrator["maxDepth"])
+        W, H = xs.width, xs.height
+        fc_s = filmlib.make_film_config(W, H, "box")
+        rcfg = PathConfig(max_depth=depth, rr_depth=100, thinlens=_thin(sc))
+        refs = []
+        for seed in (50, 51):
+            gen.manual_seed(seed)
+            refs.append(filmlib.develop(fc_s, render_pt(
+                sc, rcfg, gen, max(W * H * MC_SPP, 1 << 22), fc_s,
+                mode="accum"), mode="accum"))
+        ref = refs[0]
+        mean_rel, block_l1 = mc_compare(img, ref)
+        # where the light lands, whatever the scale b (whose own noise the
+        # mean's gate covers), against what the noise of two MC and of two
+        # MCMC renders predicts for one of each (phase 9's shape check)
+        shape = shape_l1(img, ref)
+        noise_mc = shape_l1(refs[1], ref)
+        noise_mcmc = shape_l1(img0, img)
+        shape_expected = ((noise_mc ** 2 + noise_mcmc ** 2) / 2) ** 0.5
+        # the gate: about four relative standard deviations of b over
+        # bootstrap seeds, measured here
+        bs = []
+        for s in range(SCOPE_SEEDS):
+            gen.manual_seed(2000 + s)
+            if tech == "mmlt":
+                bcfg = BDPTConfig(max_depth=depth)
+                bs.append(float(render_drmlt_mmlt_grouped(
+                    sc, bcfg, DRMLTConfig(type="orbital", n_chains=CHAINS),
+                    fc_s, gen, 0)[1]["b"]))
+            else:
+                trace = make_path_trace(sc, rcfg, dev)
+                bs.append(float(bootstrap(trace, gen, rcfg.n_dims
+                                          + rcfg.n_dims % 2, 100_000,
+                                          CHAINS)[1]))
+        bs_t = torch.tensor(bs, dtype=torch.float64)
+        b_rel_std = float(bs_t.std() / bs_t.mean())
+        gate = max(4.0 * b_rel_std, 0.01)
+        key = f"{sname}/{tech}"
+        report["slice5"][key] = dict(
+            wall_s=wall, first_wall_s=first_wall, load_s=load_s,
+            mutations=muts,
+            mutations_per_s=muts / wall, b=float(aux["b"]),
+            b_rel_std=b_rel_std, gate=gate, mean_rel_err=mean_rel,
+            block_rel_l1=block_l1, shape_l1=shape, shape_noise_mc=noise_mc,
+            shape_noise_mcmc=noise_mcmc, shape_expected=shape_expected,
+            size=[W, H], depth=depth,
+            image_mean=img.double().mean((0, 1)).tolist(),
+            ref_mean=ref.double().mean((0, 1)).tolist())
+        print(f"[22 slice 5, {tech} render of {sname}] {name}: {W}x{H}, "
+              f"depth {depth}, {muts} mutations, warm {wall:.3f} s "
+              f"({muts / wall:.4e} mutations/s, bootstrap included; first "
+              f"call {first_wall:.3f} s); b {float(aux['b']):.6f} (rel std "
+              f"over {SCOPE_SEEDS} seeds {b_rel_std:.4f}); vs MC mean rel "
+              f"{mean_rel:.4f} (gate {gate:.4f}), 16x16-block rel L1 "
+              f"{block_l1:.4f}; shape L1 {shape:.4f} against "
+              f"{shape_expected:.4f} from the noise of two MC "
+              f"({noise_mc:.4f}) and two MCMC ({noise_mcmc:.4f}) renders")
+        need(bool(torch.isfinite(img).all()), f"{key}: image not finite")
+        need(mean_rel < gate, f"{key}: differs from MC by {mean_rel}")
+        need(shape < SHAPE_GATE * shape_expected,
+             f"{key}: the light lands elsewhere than in MC ({shape}, the "
+             f"noise predicts {shape_expected})")
+    report["slice5_launches"] = launches5
+    print(f"[22 slice 5 launches, the CLI renders] {name}: {launches5}")
+    for k in ("path_trace[full]", "drmlt_path[full]", "mmlt_trace[full]",
+              "drmlt_mmlt[full]"):
+        need(launches5[k] > 0, f"{k} did not launch on slice 5's path")
+    out["launches"] = launches5
+
+    # the plain-MC witness: on env64 the MMLT technique's MCMC noise is high
+    # (no light-side strategy for the environment), so its render's gates
+    # above are wide; here its unbiasedness is held in plain MC, against the
+    # path technique's image
+    n = 64
+    gen.manual_seed(60)
+    w = mc_witness(cornell_scope(n, n, "env64"), MMLT_DEPTH, gen, dev, n)
+    (mp, sp_, ap, ep), (mm, sm, am, em) = w["path"], w["mmlt"]
+    z_mean = (am - ap) / (ep * ep + em * em) ** 0.5
+    blk = lambda x: x.reshape(n // 4, 4, n // 4, 4).sum((1, 3))  # noqa: E731
+    z = (blk(mm) - blk(mp)) / torch.sqrt(blk(sp_ ** 2) + blk(sm ** 2))
+    z_rms = float(z.pow(2).mean().sqrt())
+    report["mc_witness"] = dict(
+        scene="env64", size=n, depth=MMLT_DEPTH,
+        samples=WITNESS_BATCHES * WITNESS_LANES, mean_path=ap, mean_mmlt=am,
+        z_mean=z_mean, block_z_rms=z_rms,
+        block_z_max=float(z.abs().max()))
+    print(f"[22 plain-MC witness] {name}: env64, {n}x{n}, depth "
+          f"{MMLT_DEPTH}, {WITNESS_BATCHES * WITNESS_LANES} samples per "
+          f"technique: "
+          f"mean luminance path {ap:.5f}, mmlt {am:.5f} (z {z_mean:.3f}, "
+          f"gate {WITNESS_Z_MEAN}); "
+          f"4x4-block z rms {z_rms:.3f} (gate {WITNESS_Z_RMS}), max |z| "
+          f"{float(z.abs().max()):.3f}")
+    need(abs(z_mean) < WITNESS_Z_MEAN,
+         f"plain MC: the MMLT technique's mean is off by z = {z_mean}")
+    need(z_rms < WITNESS_Z_RMS,
+         f"plain MC: the MMLT technique's image differs (block z rms {z_rms})")
+
+    # the white furnace: a diffuse sphere (albedo 0.8) in a unit constant
+    # environment; each pixel converges to 1 - 0.2 x its sphere coverage
+    fsc = furnace_sphere(albedo=0.8, env=1.0)
+    n = FURNACE_SIZE
+    trace = make_path_trace(fsc, pcfg, dev)
+    acc = torch.zeros((3, n * n), dtype=torch.float64, device=dev)
+    for _ in range(16):
+        u = torch.rand((FURNACE_PATHS // 16, pcfg.n_dims), generator=gen,
+                       device=dev)
+        v = trace(u).value[:, 0, 0].double()
+        pix = (torch.floor(u[:, 1] * n) * n + torch.floor(u[:, 0] * n)).long()
+        for i, x in enumerate((torch.ones_like(v), v, v * v)):
+            acc[i].index_add_(0, pix, x)
+    mean = acc[1] / acc[0]
+    # a pixel's value is 1 or 0.8 per sample: its MC noise is 0.2 x the
+    # binomial spread of its coverage; 1e-3 more for the coverage's own
+    # estimate from 32 x 32 rays per pixel
+    cov = torch.tensor(furnace_coverage(fsc, n, sub=32).reshape(-1),
+                       device=dev)
+    want = 1.0 - 0.2 * cov
+    sigma = 0.2 * torch.sqrt(cov * (1.0 - cov) / acc[0])
+    dev_pix = (mean - want).abs()
+    furnace_ok = bool((dev_pix <= 5.0 * sigma + 1e-3).all())
+    fsettings = cli.RenderSettings(integrator=dict(
+        type="drmlt", technique="path", variant="orbital",
+        splatMode="sampled", maxDepth=DEPTH), width=n, height=n,
+        filter_name="box", spp=1024)
+    fimg, _ = cli.render(argparse.Namespace(chains=CHAINS, spp=None, seed=4),
+                         fsc, fsettings, dev)
+    f_rel = float((fimg.double().mean() - want.mean()).abs() / want.mean())
+    report["furnace"] = dict(max_abs_dev=float(dev_pix.max()),
+                             max_sigma=float(sigma.max()),
+                             within_5_sigma=furnace_ok,
+                             samples_per_pixel=FURNACE_PATHS / (n * n),
+                             drmlt_mean_rel=f_rel)
+    print(f"[22 white furnace] {name}: {n}x{n}, {FURNACE_PATHS // (n * n)} "
+          f"paths per pixel through the path kernel: every pixel within 5 "
+          f"sigma (+1e-3) of 1 - 0.2 coverage: {furnace_ok} (largest |d| "
+          f"{float(dev_pix.max()):.2e}, largest sigma "
+          f"{float(sigma.max()):.2e}); the DRMLT render's mean rel "
+          f"{f_rel:.4f}")
+    need(furnace_ok, "the furnace's pixels miss the analytic value")
+    need(f_rel < 0.02, f"the furnace's DRMLT mean is off by {f_rel}")
+
+    # a profiled warm render of each technique on the const configuration
+    report["slice5_profile"] = {}
+    for tech in ("path", "mmlt"):
+        xs = cli.RenderSettings(integrator=dict(
+            type="drmlt", technique=tech, variant="orbital",
+            splatMode="sampled",
+            maxDepth=DEPTH if tech == "path" else MMLT_DEPTH),
+            width=SIZE, height=SIZE, filter_name="box", spp=256)
+        args = argparse.Namespace(chains=CHAINS, spp=None, seed=5)
+        sc = scenes["const"][0]
+        (_, auxw), warm = sync_time(lambda: cli.render(args, sc, xs, dev))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (_, auxp), prof_wall = sync_time(lambda: cli.render(args, sc, xs,
+                                                                dev))
+        busy, per = device_profile(prof.events(), prof_wall)
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])
+        muts = (sum(CHAINS * s for s in auxw["steps_eff"].values())
+                if tech == "mmlt" else CHAINS * auxw["steps"])
+        report["slice5_profile"][tech] = dict(
+            warm_s=warm, mutations=muts, mutations_per_s=muts / warm,
+            profile_wall_s=prof_wall, busy_share=busy,
+            kernels_ms=[[k, t, c] for k, (t, c) in top])
+        print(f"[22 slice 5 profile, {tech}] {name}: const, warm "
+              f"{warm:.3f} s ({muts / warm:.4e} mutations/s); device busy "
+              f"{busy:.4f} of a {prof_wall:.3f} s render; " + "; ".join(
+                  f"{k.split('(')[0][:60]} {t:.3f} ms x{c}"
+                  for k, (t, c) in top[:4]))
+        need(busy > 0, "the profiler saw no device activity")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1062,10 +1604,16 @@ def main():
     regs = ptxas_report(build.build_info["ptxas"])
     report["build"] = dict(seconds=build.build_info["seconds"],
                            cached=build.build_info["cached"], ptxas=regs)
-    for k in ("path_trace_kernel", "mmlt_trace_kernel",
-              "drmlt_chain_kernelINS_9PathTrace",
-              "drmlt_chain_kernelINS_9MmltTrace", "splat_add_kernel",
-              "path_trace_rad_kernel", "path_trace_alb_kernel",
+    # each trace kernel in its two scene-scope instantiations (ILb0E: the
+    # subset of slices 1-4, ILb1E: the full scope)
+    for k in ("path_trace_kernelILb0E", "path_trace_kernelILb1E",
+              "mmlt_trace_kernelILb0E", "mmlt_trace_kernelILb1E",
+              "drmlt_chain_kernelINS_9PathTraceILb0EEE",
+              "drmlt_chain_kernelINS_9PathTraceILb1EEE",
+              "drmlt_chain_kernelINS_9MmltTraceILb0EEE",
+              "drmlt_chain_kernelINS_9MmltTraceILb1EEE", "splat_add_kernel",
+              "path_trace_rad_kernelILb0E", "path_trace_rad_kernelILb1E",
+              "path_trace_alb_kernelILb0E", "path_trace_alb_kernelILb1E",
               "intersect_kernel"):
         need(any(k in n for n in regs), f"ptxas reported no {k}")
     print(f"[2 build] {name}: nvcc {build.build_info['seconds']:.1f} s "
@@ -1527,6 +2075,9 @@ def main():
     s4 = slice4(name, dev, gen, fc, report, b,
                 report["slice2"]["cornell"]["b"])
 
+    # ---- 19-22. slice 5 -----------------------------------------------------
+    s5 = slice5(name, dev, gen, report)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -1576,6 +2127,20 @@ def main():
               "cluster_sweep.py:327", s4["walk_launches"], s4["walk"]["err"],
               s4["walk"]["ms"], s4["walk"]["plain_ms"],
               (s4["walk"]["bound_ms"], s4["walk"]["bound_by"])),
+        # slice 5: the full-scope instantiations on the const configuration
+        # (phases 19-21), launched by slice 5's renders (phase 22)
+        *(entry(f"{kn}[full]", src_f, rep, s5["launches"][lk + "[full]"],
+                s5[key]["err"], s5[key]["ms"], s5[key]["plain_ms"],
+                s5[key]["bnd"])
+          for kn, src_f, rep, lk, key in (
+              ("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
+               "path_trace", "path"),
+              ("drmlt_chain_kernel[path]", "drmlt_chain.cu",
+               "megadrmlt.py:105", "drmlt_path", "chain_path"),
+              ("mmlt_trace_kernel", "mmlt_trace.cu", "megammlt.py:214",
+               "mmlt_trace", "mmlt"),
+              ("drmlt_chain_kernel[mmlt]", "drmlt_chain.cu",
+               "megadrmlt.py:105", "drmlt_mmlt", "chain_mmlt"))),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

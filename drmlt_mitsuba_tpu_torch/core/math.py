@@ -18,6 +18,13 @@ def safe_sqrt(x):
     return torch.where(ok, torch.sqrt(torch.where(ok, x, 1.0)), 0.0)
 
 
+def cdiv(x, c: float):
+    """x / c as a true division on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, which rounds
+    differently from the kernels' x / c."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def safe_div(a, b, default=0.0):
     """a / b where b may be 0; returns `default` there."""
     ok = torch.abs(b) > 0

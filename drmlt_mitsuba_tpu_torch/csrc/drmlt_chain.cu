@@ -8,7 +8,11 @@
 // Replaces the reference's Pallas kernel
 // drmlt_mitsuba_tpu/ops/pallas/megadrmlt.py:_mega_drmlt_kernel (:105,
 // built by make_mega_drmlt :504) with technique="path" and
-// technique="mmlt"; its pssmlt mode is not ported yet.  Plain twin:
+// technique="mmlt"; its pssmlt mode is not ported yet.  Each trace body
+// has the two scene-scope instantiations of path_trace.cu (slices 1-4,
+// and the full scope), so four kernels in all; the path mode also takes an
+// image environment, which the reference's path mode leaves to XLA
+// (megadrmlt.py:474).  Plain twin:
 // ops/megadrmlt.py:drmlt_chain_step_reference, which also documents the
 // uniform order, the state / film / stats layouts and the acceptance rules
 // (megadrmlt.py:264-435).
@@ -138,20 +142,23 @@ __device__ __forceinline__ Traced finish(V3 L, float px, float py) {
   return {l, L.x * li, L.y * li, L.z * li, px, py};
 }
 
-// The path technique: the film position is PSS dims 0-1.
+// The path technique: the film position is PSS dims 0-1.  X: the full
+// scene scope (path_trace.cuh).
+template <bool X>
 struct PathTrace {
   static constexpr bool kMmlt = false;
-  Tables tb;
+  TabT<X> tb;
   __device__ Traced operator()(const PssView& v) const {
-    return finish(trace_path(tb, v), v(0), v(1));
+    return finish(trace_path<X>(tb, v), v(0), v(1));
   }
 };
 
 // A depth-k MMLT group: the pinned depth dim precedes the chain's dims,
 // and 1/k undoes the kernel's uniform depth pmf.
+template <bool X>
 struct MmltTrace {
   static constexpr bool kMmlt = true;   // chain dim 0 is the strategy
-  Tables tb;
+  TabT<X> tb;
   MmltCfg mc;
   float u_depth, inv_k;
 
@@ -162,7 +169,7 @@ struct MmltTrace {
   };
 
   __device__ Traced operator()(const PssView& v) const {
-    const MmltOut r = trace_mmlt(tb, mc, Shifted{v, u_depth});
+    const MmltOut r = trace_mmlt<X>(tb, mc, Shifted{v, u_depth});
     return finish(r.value * inv_k, r.px, r.py);
   }
 };
@@ -375,7 +382,8 @@ static int launch_chain(const Trace& trace, const ChainArgs& a, const float* uni
 // its BDPTConfig).
 extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                   const float* em, int n_ems, const float* cam, const float* box,
-                                  const int* link, const int* order, int n_nodes, int technique,
+                                  const int* link, const int* order, int n_nodes,
+                                  DRMLT_EXT_PARAMS, int technique,
                                   int max_depth, int min_depth, int rr_depth, int use_nee,
                                   int light_image, int eye_dims, int light_dims, float* state,
                                   float* scratch, int D, int C, float* film, int H, int W,
@@ -396,9 +404,18 @@ extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat
                      (mmlt && fix_emitter_path) ? 1 : 0, em_lo,
                      em_lo + light_dims, max_depth, p_large, s1, s2, log_ratio, sig2, disp};
   cudaStream_t st = (cudaStream_t)stream;
-  if (mmlt) {
-    drmlt::MmltTrace tr{tb, drmlt::MmltCfg{max_depth, light_image, eye_dims}, u_depth, inv_k};
-    return drmlt::launch_chain(tr, a, uniforms, n_rand, seed, launch, st);
+  const drmlt::MmltCfg mc{max_depth, light_image, eye_dims};
+  if (full) {
+    const drmlt::TablesX tx = drmlt::with_ext(tb, DRMLT_EXT_ARGS);
+    if (mmlt) {
+      return drmlt::launch_chain(drmlt::MmltTrace<true>{tx, mc, u_depth, inv_k}, a, uniforms,
+                                 n_rand, seed, launch, st);
+    }
+    return drmlt::launch_chain(drmlt::PathTrace<true>{tx}, a, uniforms, n_rand, seed, launch, st);
   }
-  return drmlt::launch_chain(drmlt::PathTrace{tb}, a, uniforms, n_rand, seed, launch, st);
+  if (mmlt) {
+    return drmlt::launch_chain(drmlt::MmltTrace<false>{tb, mc, u_depth, inv_k}, a, uniforms,
+                               n_rand, seed, launch, st);
+  }
+  return drmlt::launch_chain(drmlt::PathTrace<false>{tb}, a, uniforms, n_rand, seed, launch, st);
 }

@@ -4,10 +4,12 @@
 //
 // Port of the reference's Pallas trace body
 // drmlt_mitsuba_tpu/ops/pallas/megammlt.py:mmlt_trace_tile (:242) on the
-// port's scene subset (path_trace.cuh: triangles, area emitters, pinhole
-// camera, the four BSDF kinds).  The plain-PyTorch twin is
+// reference kernel's scene subset (path_trace.cuh's, less the thin lens,
+// which mega_mmlt_eligible excludes there too).  The plain-PyTorch twin is
 // ops/megammlt.py:mmlt_trace_reference; the expressions keep its
-// evaluation order.
+// evaluation order.  trace_mmlt<X> and walk<X>: X = false is the body of
+// slices 1-4, X = true the full scope (spheres, bitmap albedo, the seven
+// BSDF kinds; the environment seen by an escaped s = 0 eye walk).
 //
 // Built from the semantics, not from the TPU tile:
 //   * each walk keeps its per-slot pdf_fwd / pdf_rev / delta in small
@@ -40,6 +42,26 @@ struct Vertex {
   bool valid;
 };
 
+// The full scope's vertex: its texture coordinates, and whether the walk
+// left the scene at its slot (then wi is the escape direction reversed and
+// beta the throughput carried out).
+struct VertexX : Vertex {
+  float tu, tv;
+  bool esc;
+};
+
+template <bool X>
+using VtxT = typename std::conditional<X, VertexX, Vertex>::type;
+
+template <bool X>
+__device__ __forceinline__ VtxT<X> vtx(const Vertex& v, float tu = 0.0f, float tv = 0.0f) {
+  if constexpr (X) {
+    return VertexX{v, tu, tv, false};
+  } else {
+    return v;
+  }
+}
+
 struct WalkSlots {
   float pdf_fwd[kMaxMmltDepth + 1];
   float pdf_rev[kMaxMmltDepth + 1];
@@ -66,32 +88,75 @@ __device__ __forceinline__ float mis_ratio(float p_num, float p_den) {
 // slots 1..n_slots-1 are surface hits.  u(j) reads PSS dim j; the bounce
 // at slot v reads dims ubase + 3 (v - 1) + {0, 1, 2} (the last slot
 // samples no direction and reads zeros).  Captures slot sel_a into *va
-// (with its emitter row) and slot sel_b into *vb.  (megammlt.py:287-516)
-template <class U>
-static __device__ __noinline__ void walk(const Tables& tb, const U& u, V3 o, V3 d, V3 beta,
+// (with its emitter row) and slot sel_b into *vb; in the full scope an
+// escape at slot sel_a is marked on *va.  (megammlt.py:287-516)
+template <bool X, class U>
+static __device__ __noinline__ void walk(const TabT<X>& tb, const U& u, V3 o, V3 d, V3 beta,
                                          float pdf_sa, V3 pp, V3 pn, int n_slots, int ubase,
                                          bool importance, bool act, int sel_a, int sel_b,
-                                         Vertex* va, int* erow_a, Vertex* vb, WalkSlots* w) {
+                                         VtxT<X>* va, int* erow_a, VtxT<X>* vb, WalkSlots* w) {
   for (int v = 1; v < n_slots && act; ++v) {
     int id;
-    const float best_t = closest_hit(tb, o, d, &id);
-    if (id < 0) break;   // escaped: no environment on this subset
-    const float t_hit = best_t;
-    const float* av = tb.tri + id * kTriCols;
-    V3 e1 = ld3(av + 3), e2 = ld3(av + 6);
+    float t_hit = closest_hit(tb, o, d, &id);
+    int sph = -1;
+    if constexpr (X) {
+      if (tb.x.n_sphs) t_hit = sphere_closest(tb.x.sph, tb.x.n_sphs, o, d, t_hit, &sph);
+    }
+    if (id < 0 && sph < 0) {   // escaped
+      if constexpr (X) {
+        if (v == sel_a) {
+          va->esc = true;
+          va->wi = -d;
+          va->beta = beta;
+        }
+      }
+      break;
+    }
     V3 hp = o + t_hit * d;
-    V3 p = cross(d, e2);
-    float det = dot(e1, p);
-    float inv = 1.0f / (fabsf(det) > 1e-12f ? det : 1.0f);
-    V3 t = o - ld3(av);
-    float b1 = clamp01(dot(t, p) * inv);
-    float b2 = clamp01(dot(d, cross(t, e1)) * inv);
-    float w0 = 1.0f - b1 - b2;
-    V3 ng = normalize(cross(e1, e2));
-    V3 ns = normalize(w0 * ld3(av + 9) + b1 * ld3(av + 12) + b2 * ld3(av + 15));
-    const int mat_id = (int)__ldg(av + 18);
+    V3 ng, ns;
+    int mat_id;
+    const float* erow_src;   // the hit row's emitter-row column
+    float tu = 0.0f, tv = 0.0f;
+    bool on_sphere = false;
+    if constexpr (X) on_sphere = sph >= 0;
+    if (on_sphere) {
+      if constexpr (X) {
+        const float* sr = tb.x.sph + sph * kSphCols;
+        ng = (hp - ld3(sr)) * (1.0f / fmaxf(__ldg(sr + 3), 1e-20f));
+        ns = ng;
+        mat_id = (int)__ldg(sr + 4);
+        erow_src = sr + 5;
+        if (tb.x.tex_pages) {
+          tu = acosf(fminf(fmaxf(ng.z, -1.0f), 1.0f)) / kPi;
+          tv = atan2f(ng.y, ng.x) / kTwoPi + 0.5f;
+        }
+      }
+    } else {
+      const float* av = tb.tri + id * kTriCols;
+      V3 e1 = ld3(av + 3), e2 = ld3(av + 6);
+      V3 p = cross(d, e2);
+      float det = dot(e1, p);
+      float inv = 1.0f / (fabsf(det) > 1e-12f ? det : 1.0f);
+      V3 t = o - ld3(av);
+      float b1 = clamp01(dot(t, p) * inv);
+      float b2 = clamp01(dot(d, cross(t, e1)) * inv);
+      float w0 = 1.0f - b1 - b2;
+      ng = normalize(cross(e1, e2));
+      ns = normalize(w0 * ld3(av + 9) + b1 * ld3(av + 12) + b2 * ld3(av + 15));
+      mat_id = (int)__ldg(av + 18);
+      erow_src = av + 19;
+      if constexpr (X) {
+        if (tb.x.tex_pages) {
+          const float* ex = tb.x.tri_ext + id * kTriExtCols;
+          tu = w0 * __ldg(ex + 20) + b1 * __ldg(ex + 22) + b2 * __ldg(ex + 24);
+          tv = w0 * __ldg(ex + 21) + b1 * __ldg(ex + 23) + b2 * __ldg(ex + 25);
+        }
+      }
+    }
     const float* mr = tb.mat + mat_id * kMatCols;
     const int kind = (int)__ldg(mr);
+    V3 alb = v3(0.0f, 0.0f, 0.0f);
+    if constexpr (X) alb = albedo_x(tb, mr, tu, tv);
 
     // pdf_fwd: the previous direction pdf -> area measure here
     V3 seg = hp - pp;
@@ -99,14 +164,14 @@ static __device__ __noinline__ void walk(const Tables& tb, const U& u, V3 o, V3 
     V3 wseg = seg * (1.0f / sqrtf(d2));
     float cos_to = fabsf(dot(wseg, ng));
     w->pdf_fwd[v] = pdf_sa * cos_to / d2;
-    w->delta[v] = is_delta(kind);
+    w->delta[v] = is_delta<X>(kind);
 
     const V3 wiw = -d;
     if (v == sel_a) {
-      *va = Vertex{hp, ns, ng, wiw, beta, mat_id, true};
-      *erow_a = (int)__ldg(av + 19);
+      *va = vtx<X>(Vertex{hp, ns, ng, wiw, beta, mat_id, true}, tu, tv);
+      *erow_a = (int)__ldg(erow_src);
     }
-    if (v == sel_b) *vb = Vertex{hp, ns, ng, wiw, beta, mat_id, true};
+    if (v == sel_b) *vb = vtx<X>(Vertex{hp, ns, ng, wiw, beta, mat_id, true}, tu, tv);
 
     // BSDF sample, and the reverse pdf of slot v - 1
     const Frame fr = make_frame(ns);
@@ -118,10 +183,10 @@ static __device__ __noinline__ void walk(const Tables& tb, const U& u, V3 o, V3 
       ub1 = u(b + 1);
       ub2 = u(b + 2);
     }
-    const BsdfSample bs = sample_bsdf(kind, mr, wi, ub0, ub1, ub2);
+    const BsdfSample bs = sample_bsdf<X>(kind, mr, alb, wi, ub0, ub1, ub2);
     const V3 wow = to_world(fr, bs.wo);
     float rev_sa;
-    eval_bsdf(kind, mr, bs.wo, wi, &rev_sa);
+    eval_bsdf<X>(kind, mr, alb, bs.wo, wi, &rev_sa);
     float cos_prev = fabsf(dot(wseg, pn));
     if (bs.delta) rev_sa = 1.0f;
     w->pdf_rev[v - 1] = rev_sa * cos_prev / d2;
@@ -144,10 +209,20 @@ static __device__ __noinline__ void walk(const Tables& tb, const U& u, V3 o, V3 
   }
 }
 
+// The BSDF of a connection endpoint, with the vertex's albedo in the full
+// scope.
+template <bool X>
+__device__ __forceinline__ V3 eval_at(const TabT<X>& tb, const VtxT<X>& v, int kind,
+                                      const float* mr, V3 wi, V3 wo, float* pdf) {
+  V3 alb = v3(0.0f, 0.0f, 0.0f);
+  if constexpr (X) alb = albedo_x(tb, mr, v.tu, v.tv);
+  return eval_bsdf<X>(kind, mr, alb, wi, wo, pdf);
+}
+
 // The whole selected-strategy trace of one lane: u(0) depth, u(1)
 // strategy, then the eye and light walk dims (megammlt.py:262-929).
-template <class U>
-static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCfg& mc,
+template <bool X, class U>
+static __device__ __noinline__ MmltOut trace_mmlt(const TabT<X>& tb, const MmltCfg& mc,
                                                   const U& u) {
   const int K = mc.max_depth;
   const int n_eye = K + 1, n_light = K;
@@ -184,14 +259,14 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
     we.delta[i] = wl.delta[i] = false;
   }
   const V3 zero3 = v3(0.0f, 0.0f, 0.0f), one3 = v3(1.0f, 1.0f, 1.0f);
-  const Vertex none{zero3, zero3, zero3, zero3, zero3, 0, false};
-  const Vertex cam_vtx{cam_o, cam_f, cam_f, -cam_f, one3, 0, true};
-  Vertex se = ev == 0 ? cam_vtx : none, se0 = ev0 == 0 ? cam_vtx : none;
+  const VtxT<X> none = vtx<X>(Vertex{zero3, zero3, zero3, zero3, zero3, 0, false});
+  const VtxT<X> cam_vtx = vtx<X>(Vertex{cam_o, cam_f, cam_f, -cam_f, one3, 0, true});
+  VtxT<X> se = ev == 0 ? cam_vtx : none, se0 = ev0 == 0 ? cam_vtx : none;
   int erow_ev = -1;
   we.pdf_fwd[0] = 1.0f;
   we.delta[0] = true;
-  walk(tb, u, cam_o, ed, one3, pdf0, cam_o, cam_f, n_eye, 4, true, true, ev, ev0, &se, &erow_ev,
-       &se0, &we);
+  walk<X>(tb, u, cam_o, ed, one3, pdf0, cam_o, cam_f, n_eye, 4, true, true, ev, ev0, &se,
+          &erow_ev, &se0, &we);
   we.pdf_rev[0] = 0.0f;
 
   // ---- light walk from an area emitter (pick by power, uniform point,
@@ -218,12 +293,12 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
   const float bscale = cos_l0 / fmaxf(pdf_pos * pdf_dir, 1e-30f);
   const V3 lbeta = valid0 ? l_rad * bscale : zero3;
   const V3 l_end_b = valid0 ? l_rad / fmaxf(pdf_pos, 1e-20f) : zero3;
-  const Vertex light_vtx{p0, lng, lng, lng, l_end_b, 0, valid0};
-  Vertex sl = lv == 0 ? light_vtx : none, sl0 = lv0 == 0 ? light_vtx : none;
+  const VtxT<X> light_vtx = vtx<X>(Vertex{p0, lng, lng, lng, l_end_b, 0, valid0});
+  VtxT<X> sl = lv == 0 ? light_vtx : none, sl0 = lv0 == 0 ? light_vtx : none;
   int erow_unused = -1;
   wl.pdf_fwd[0] = pdf_pos;
-  walk(tb, u, p0 + ldir * 1e-3f, ldir, lbeta, pdf_dir, p0, lng, n_light, lbase + 5, false,
-       valid0, lv, lv0, &sl, &erow_unused, &sl0, &wl);
+  walk<X>(tb, u, p0 + ldir * 1e-3f, ldir, lbeta, pdf_dir, p0, lng, n_light, lbase + 5, false,
+          valid0, lv, lv0, &sl, &erow_unused, &sl0, &wl);
 
   // ---- s = 0: the selected eye vertex is on an emitter
   V3 he_rad = zero3;
@@ -252,7 +327,7 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
   const Frame frl = make_frame(sl.ns);
   const V3 wl_loc = to_local(frl, wdir), wi_l_loc = to_local(frl, sl.wi);
   float pdf_l_fwd;
-  V3 fl = eval_bsdf(kind_l, mrl, wi_l_loc, wl_loc, &pdf_l_fwd) *
+  V3 fl = eval_at<X>(tb, sl, kind_l, mrl, wi_l_loc, wl_loc, &pdf_l_fwd) *
           (1.0f / fmaxf(fabsf(wl_loc.z), 1e-9f));
   if (is_s1) fl = front ? one3 : zero3;   // the emitter's own lobe
 
@@ -261,7 +336,7 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
   const Frame fre = make_frame(se.ns);
   const V3 we_loc = to_local(fre, -wdir), wi_e_loc = to_local(fre, se.wi);
   float pdf_e_fwd;
-  V3 fe = eval_bsdf(kind_e, mre, wi_e_loc, we_loc, &pdf_e_fwd) *
+  V3 fe = eval_at<X>(tb, se, kind_e, mre, wi_e_loc, we_loc, &pdf_e_fwd) *
           (1.0f / fmaxf(fabsf(we_loc.z), 1e-9f));
   // pinhole sensor importance toward -wdir, and its film position
   const float cosv = -dot(wdir, cam_f);
@@ -290,6 +365,11 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
   if (ok_c) {
     const float sh_eps = kRayEps * fmaxf(dist, 1.0f);
     ok_c = !occluded(tb, sl.p + wdir * sh_eps, wdir, dist * 0.999f);
+    if constexpr (X) {
+      if (ok_c && tb.x.n_sphs) {
+        ok_c = !sphere_blocked(tb.x.sph, tb.x.n_sphs, sl.p + wdir * sh_eps, wdir, dist * 0.999f);
+      }
+    }
   }
 
   V3 val = zero3;
@@ -312,7 +392,7 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
         pl_s1 = sa_to_area(cos_hit_l / kPi, se.p, se0.p, se0.ng);
       } else {
         float pdf_e_rev;
-        eval_bsdf(kind_e, mre, we_loc, wi_e_loc, &pdf_e_rev);
+        eval_at<X>(tb, se, kind_e, mre, we_loc, wi_e_loc, &pdf_e_rev);
         pl_s1 = sa_to_area(pdf_e_rev, se.p, se0.p, se0.ng);
       }
     }
@@ -326,7 +406,7 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
     float pe_t1 = 0.0f;
     if (s >= 2) {
       float pdf_l_rev;
-      eval_bsdf(kind_l, mrl, wl_loc, wi_l_loc, &pdf_l_rev);
+      eval_at<X>(tb, sl, kind_l, mrl, wl_loc, wi_l_loc, &pdf_l_rev);
       pe_t1 = sa_to_area(pdf_l_rev, sl.p, sl0.p, sl0.ng);
     }
 
@@ -349,6 +429,22 @@ static __device__ __noinline__ MmltOut trace_mmlt(const Tables& tb, const MmltCf
     const float w_mis = 1.0f / (1.0f + sum_ri);
     if (ok_hit) val = se.beta * he_rad * w_mis;
     if (ok_c) val = val + cc * w_mis;
+  }
+  if constexpr (X) {
+    // the environment seen by an s = 0 eye walk that escaped, at MIS
+    // weight 1 (megammlt.py:883-930)
+    const SceneExt& x = tb.x;
+    if (x.env_mode && case_hit && se.esc) {
+      V3 e;
+      if (x.env_mode == kEnvConstant) {
+        e = ld3(cam + 16);
+      } else {
+        float eu, ev_u;
+        env_dir_uv(-se.wi, &eu, &ev_u);
+        e = env_bilinear(x.env_tab, x.env_h, x.env_w, eu, ev_u);
+      }
+      val = val + se.beta * e;
+    }
   }
   return {val * (n_strats * (float)K), case_lt ? fu : ux, case_lt ? fv : uy};
 }

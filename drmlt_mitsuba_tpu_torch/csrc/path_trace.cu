@@ -18,17 +18,20 @@
 // (uT is (n_dims, R), so neighbouring threads read neighbouring floats),
 // tables indexed directly from global memory through the read-only cache,
 // and a lane leaves the bounce loop as soon as its path ends.  Output rgb
-// is (3, R), coalesced.
+// is (3, R), coalesced.  Two instantiations: the scene subset of slices 1-4
+// (X = false) and the full scene scope (X = true: spheres, bitmap albedo,
+// the environment, the thin lens, the conductor and null kinds).
 #include "path_trace.cuh"
 
 namespace drmlt {
 
-__global__ void path_trace_kernel(Tables tb, const float* __restrict__ uT, int R,
+template <bool X>
+__global__ void path_trace_kernel(TabT<X> tb, const float* __restrict__ uT, int R,
                                   float* __restrict__ out) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= R) return;
   PssView u{uT + lane, nullptr, nullptr, (long)R, 0};
-  V3 L = trace_path(tb, u);
+  V3 L = trace_path<X>(tb, u);
   out[lane] = L.x;
   out[R + lane] = L.y;
   out[2 * (long)R + lane] = L.z;
@@ -38,16 +41,20 @@ __global__ void path_trace_kernel(Tables tb, const float* __restrict__ uT, int R
 
 extern "C" int path_trace_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                  const float* em, int n_ems, const float* cam, const float* box,
-                                 const int* link, const int* order, int n_nodes, int max_depth,
-                                 int min_depth, int rr_depth, int use_nee, const float* uT,
-                                 int R, float* out, void* stream) {
+                                 const int* link, const int* order, int n_nodes,
+                                 DRMLT_EXT_PARAMS, int max_depth, int min_depth, int rr_depth,
+                                 int use_nee, const float* uT, int R, float* out, void* stream) {
   drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
                    max_depth, min_depth, rr_depth, use_nee};
   drmlt::set_bvh(tb, box, link, order, n_nodes);
   const int block = 128;
   int grid = (R + block - 1) / block;
-  if (grid > 0) {
-    drmlt::path_trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(tb, uT, R, out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (grid > 0 && full) {
+    drmlt::path_trace_kernel<true>
+        <<<grid, block, 0, st>>>(drmlt::with_ext(tb, DRMLT_EXT_ARGS), uT, R, out);
+  } else if (grid > 0) {
+    drmlt::path_trace_kernel<false><<<grid, block, 0, st>>>(tb, uT, R, out);
   }
   return (int)cudaGetLastError();
 }

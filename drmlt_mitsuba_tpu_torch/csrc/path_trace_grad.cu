@@ -15,7 +15,8 @@
 // lane's own rows per contribution (K emitters or materials; a path has
 // at most two contributions per bounce).
 //
-// Design: the trace body of path_trace.cuh in its gradient mode, inlined.
+// Design: the trace body of path_trace.cuh in its gradient mode, inlined,
+// in the two scene-scope instantiations of path_trace.cu.
 // Every lane owns one column of the (3 + 3K, R) output (rgb, then its
 // rows), dim-major, so a warp's adds are coalesced and need no atomics;
 // K is a run-time value, so the rows live there and not in registers.
@@ -26,29 +27,31 @@
 
 namespace drmlt {
 
-template <int G>
-__device__ __forceinline__ void grad_lane(const Tables& tb, const float* __restrict__ uT, int R,
+template <int G, bool X>
+__device__ __forceinline__ void grad_lane(const TabT<X>& tb, const float* __restrict__ uT, int R,
                                           int n_rows, float* __restrict__ out) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= R) return;
   for (int k = 0; k < n_rows; ++k) out[(3 + (long)k) * R + lane] = 0.0f;
   PssView u{uT + lane, nullptr, nullptr, (long)R, 0};
-  V3 L = trace_body<G>(tb, u, GradRows{out + 3 * (long)R + lane, (long)R});
+  V3 L = trace_body<G, X>(tb, u, GradRows{out + 3 * (long)R + lane, (long)R});
   out[lane] = L.x;
   out[R + lane] = L.y;
   out[2 * (long)R + lane] = L.z;
 }
 
 // out (3 + 3E, R): rgb, then d rgb / d radiance[e, c] in row 3 + 3e + c
-__global__ void path_trace_rad_kernel(Tables tb, const float* __restrict__ uT, int R,
+template <bool X>
+__global__ void path_trace_rad_kernel(TabT<X> tb, const float* __restrict__ uT, int R,
                                       float* __restrict__ out) {
-  grad_lane<kGradEmit>(tb, uT, R, 3 * tb.n_ems, out);
+  grad_lane<kGradEmit, X>(tb, uT, R, 3 * tb.n_ems, out);
 }
 
 // out (3 + 3M, R): rgb, then d rgb / d albedo[m, c] in row 3 + 3m + c
-__global__ void path_trace_alb_kernel(Tables tb, const float* __restrict__ uT, int R,
+template <bool X>
+__global__ void path_trace_alb_kernel(TabT<X> tb, const float* __restrict__ uT, int R,
                                       float* __restrict__ out) {
-  grad_lane<kGradAlbedo>(tb, uT, R, 3 * tb.n_mats, out);
+  grad_lane<kGradAlbedo, X>(tb, uT, R, 3 * tb.n_mats, out);
 }
 
 }  // namespace drmlt
@@ -67,19 +70,24 @@ drmlt::Tables tables(const float* tri, int n_tris, const float* mat, int n_mats,
 
 }  // namespace
 
+// Each entry point launches the full-scope instantiation when `full`, else
+// that of slices 1-4.
 extern "C" int path_trace_rad_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                      const float* em, int n_ems, const float* cam,
                                      const float* box, const int* link, const int* order,
-                                     int n_nodes, int max_depth, int min_depth, int rr_depth,
-                                     int use_nee, const float* uT, int R, float* out,
-                                     void* stream) {
+                                     int n_nodes, DRMLT_EXT_PARAMS, int max_depth, int min_depth,
+                                     int rr_depth, int use_nee, const float* uT, int R,
+                                     float* out, void* stream) {
+  const drmlt::Tables tb = tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order,
+                                  n_nodes, max_depth, min_depth, rr_depth, use_nee);
   const int block = 128;
   int grid = (R + block - 1) / block;
-  if (grid > 0) {
-    drmlt::path_trace_rad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order, n_nodes, max_depth,
-               min_depth, rr_depth, use_nee),
-        uT, R, out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (grid > 0 && full) {
+    drmlt::path_trace_rad_kernel<true>
+        <<<grid, block, 0, st>>>(drmlt::with_ext(tb, DRMLT_EXT_ARGS), uT, R, out);
+  } else if (grid > 0) {
+    drmlt::path_trace_rad_kernel<false><<<grid, block, 0, st>>>(tb, uT, R, out);
   }
   return (int)cudaGetLastError();
 }
@@ -87,16 +95,19 @@ extern "C" int path_trace_rad_launch(const float* tri, int n_tris, const float* 
 extern "C" int path_trace_alb_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                      const float* em, int n_ems, const float* cam,
                                      const float* box, const int* link, const int* order,
-                                     int n_nodes, int max_depth, int min_depth, int rr_depth,
-                                     int use_nee, const float* uT, int R, float* out,
-                                     void* stream) {
+                                     int n_nodes, DRMLT_EXT_PARAMS, int max_depth, int min_depth,
+                                     int rr_depth, int use_nee, const float* uT, int R,
+                                     float* out, void* stream) {
+  const drmlt::Tables tb = tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order,
+                                  n_nodes, max_depth, min_depth, rr_depth, use_nee);
   const int block = 128;
   int grid = (R + block - 1) / block;
-  if (grid > 0) {
-    drmlt::path_trace_alb_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order, n_nodes, max_depth,
-               min_depth, rr_depth, use_nee),
-        uT, R, out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (grid > 0 && full) {
+    drmlt::path_trace_alb_kernel<true>
+        <<<grid, block, 0, st>>>(drmlt::with_ext(tb, DRMLT_EXT_ARGS), uT, R, out);
+  } else if (grid > 0) {
+    drmlt::path_trace_alb_kernel<false><<<grid, block, 0, st>>>(tb, uT, R, out);
   }
   return (int)cudaGetLastError();
 }

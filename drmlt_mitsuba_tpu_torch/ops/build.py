@@ -12,7 +12,8 @@ is kept beside it.
 `build_host` compiles the host-side BVH builder (csrc/bvh_builder.cpp)
 with g++ the same way.  There is no fallback: a missing nvcc or g++, a
 failed build or a launch the CUDA runtime refuses raises.  `LAUNCHES`
-counts, per kernel (the chain kernel per technique), the launches the
+counts, per kernel (the chain kernel per technique, the trace kernels'
+full-scope instantiations under "<name>[full]"), the launches the
 wrappers made; a wrapper adds one exactly where it launches its kernel.
 """
 from __future__ import annotations
@@ -36,9 +37,22 @@ NVCC_FLAGS = [
     "--fmad=false",
 ]
 
+FULL = "[full]"   # the key suffix of a full-scope instantiation's count
+
+
+def scope_key(name: str, tables) -> str:
+    """The LAUNCHES key of kernel `name` launched on `tables`."""
+    return name + (FULL if tables.full else "")
+
+
 LAUNCHES = {"path_trace": 0, "drmlt_path": 0, "mmlt_trace": 0,
             "drmlt_mmlt": 0, "splat_add": 0, "path_trace_rad": 0,
             "path_trace_alb": 0, "intersect": 0}
+# the full-scope instantiations of the trace kernels count apart
+# (ops/megatrace.py:scope_fields)
+LAUNCHES.update({k + FULL: 0 for k in ("path_trace", "drmlt_path",
+                                       "mmlt_trace", "drmlt_mmlt",
+                                       "path_trace_rad", "path_trace_alb")})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +63,12 @@ _F = ctypes.c_float
 _SCENE = [
     _P, _I, _P, _I, _P, _I, _P,                # tri, T, mat, M, em, E, cam
     _P, _P, _P, _I,                            # node box, link, order, N
+    _P, _I, _P,                                # sph, S, tri_ext
+    _P, _I, _I, _I,                            # tex, pages, height, width
+    _P, _P, _P, _I, _I,                        # env_tab, env_col, env_row,
+    #                                            He, We
+    _I, _F, _I, _I,                            # env_mode, env_row_pick,
+    #                                            thinlens, full
 ]
 _PATH_TRACE = [
     *_SCENE,

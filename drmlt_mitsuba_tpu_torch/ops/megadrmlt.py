@@ -351,5 +351,5 @@ def drmlt_chain_step(tables, cfg, n_mut: int, state, film, stats, seed: int,
         kel.s1, kel.s2, kel.log_ratio, cfg.scale_second * cfg.sigma,
         kernels.WrappedCauchy(cfg.rho).dispersion, u_depth, inv_k, stream)
     build.check(rc, "drmlt_chain_kernel")
-    build.LAUNCHES["drmlt_" + tables.technique] += 1
+    build.LAUNCHES[build.scope_key("drmlt_" + tables.technique, tables)] += 1
     return state, film, stats

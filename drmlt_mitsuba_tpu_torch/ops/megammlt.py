@@ -14,9 +14,13 @@ Per lane (megammlt.py:262-929): depth and strategy (s, t) from dims 0-1;
 the eye walk from the pinhole camera and the light walk from an area
 emitter, each keeping per-slot pdf_fwd / pdf_rev / delta / valid and the
 two vertices the strategy selects (ev, ev0 on the eye side, lv, lv0 on the
-light side); the s = 0 emitter hit, or the selected connection with one
+light side); the s = 0 emitter hit (or, with an environment, the s = 0 eye
+walk that escaped, at MIS weight 1), or the selected connection with one
 shadow ray (t = 1: the light-image projection onto the film); the
-balance-heuristic MIS weight by the ratio recursion over the slots.
+balance-heuristic MIS weight by the ratio recursion over the slots.  The
+walks hit analytic spheres and read bitmap albedos as the path trace does
+(ops/megatrace.py); a thin-lens camera is not in this kernel's scope, as
+in the reference (megammlt.py:45-55).
 """
 from __future__ import annotations
 
@@ -35,14 +39,17 @@ from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
 from drmlt_mitsuba_tpu_torch.integrators.layout import Splats
 from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.ops.megatrace import (
-    INF, closest_hit, count_sweeps, mega_eligible, occluded,
-    pack_mega_tables_torch, scene_args,
+    ENV_CONSTANT, ENV_NONE, INF, closest_hit, count_sweeps, mega_eligible,
+    materials_at, occluded, pack_mega_tables_torch, scene_args,
+    scope_fields, sphere_blocked, sphere_closest, sphere_uv,
 )
 from drmlt_mitsuba_tpu_torch.ops.intersect import scene_nodes
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     eval_bsdf, is_delta, sample_bsdf,
 )
-from drmlt_mitsuba_tpu_torch.render.emitter import pick_row
+from drmlt_mitsuba_tpu_torch.render.emitter import (
+    env_bilinear, env_dir_to_uv, pick_row,
+)
 from drmlt_mitsuba_tpu_torch.scene.bvh import NodeTable
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
 
@@ -52,14 +59,19 @@ MAX_DEPTH = 16   # the kernels' per-thread slot arrays (mmlt_trace.cuh)
 
 def mega_mmlt_eligible(scene: Scene, cfg: BDPTConfig) -> bool:
     """True when the MMLT kernel covers this scene (the path kernel's scene
-    subset); otherwise raises NotImplementedError naming what is missing.
-    BDPTConfig itself refuses thin lens and media."""
+    subset less the thin lens); otherwise raises NotImplementedError naming
+    what is missing.  BDPTConfig itself refuses thin lens and media."""
+    if float(scene.camera.aperture_radius) > 0:
+        raise NotImplementedError(
+            "not yet ported to the CUDA MMLT kernel: a thin-lens camera "
+            "(the reference's MMLT kernel excludes it too)")
     return mega_eligible(scene, cfg)
 
 
 @dataclasses.dataclass(frozen=True)
 class MmltTables:
-    """Device-resident packed scene tables plus the static MMLT config."""
+    """Device-resident packed scene tables plus the static MMLT config;
+    the scene-scope fields as in megatrace.TraceTables."""
     tri: torch.Tensor    # (T, 20)
     mat: torch.Tensor    # (M, 18)
     em: torch.Tensor     # (E, 20)
@@ -69,6 +81,19 @@ class MmltTables:
     eye_dims: int
     light_dims: int
     nodes: NodeTable | None = None   # the BVH above BVH_MIN_TRIS triangles
+    sph: torch.Tensor | None = None
+    tri_ext: torch.Tensor | None = None
+    tex: torch.Tensor | None = None
+    env_tab: torch.Tensor | None = None
+    env_col: torch.Tensor | None = None
+    env_row: torch.Tensor | None = None
+    n_sphs: int = 0
+    tex_shape: tuple | None = None
+    env_shape: tuple | None = None
+    env_mode: int = ENV_NONE
+    env_row_pick: float = 0.0
+    thinlens: bool = False
+    full: bool = False
 
     technique = "mmlt"
 
@@ -85,13 +110,14 @@ class MmltTables:
 def make_mmlt_tables(scene: Scene, cfg: BDPTConfig, device) -> MmltTables:
     """Check eligibility, pack and move the tables to `device`."""
     mega_mmlt_eligible(scene, cfg)
-    tri, mat, emt, cam = (t.contiguous()
-                          for t in pack_mega_tables_torch(scene, device))
+    tabs = pack_mega_tables_torch(scene, device)
+    tri, mat, emt, cam = (t.contiguous() for t in tabs[:4])
     return MmltTables(tri=tri, mat=mat, em=emt,
                       cam=cam.reshape(-1), max_depth=cfg.max_depth,
                       light_image=bool(cfg.light_image),
                       eye_dims=cfg.eye_dims, light_dims=cfg.light_dims,
-                      nodes=scene_nodes(scene, device))
+                      nodes=scene_nodes(scene, device),
+                      **scope_fields(scene, tabs, False))
 
 
 def check_depth(max_depth: int):
@@ -109,7 +135,7 @@ def table_args(tables: MmltTables):
 
 
 # ---------------------------------------------------------------- twin
-_VTX = ("p", "ns", "ng", "wi", "beta", "mat", "valid")
+_VTX = ("p", "ns", "ng", "wi", "beta", "mat", "valid", "esc", "tu", "tv")
 
 
 def _copy(dst, m, src):
@@ -122,20 +148,15 @@ def _copy(dst, m, src):
     return out
 
 
-def _mat_rows(mat, mat_id):
-    m = mat[mat_id.to(torch.int64)]
-    return dict(kind=m[:, 0].to(torch.int64), albedo=m[:, 1:4],
-                eta=m[:, 4:7], rough=m[:, 10], spec_refl=m[:, 11:14],
-                spec_trans=m[:, 14:17])
-
-
 def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
           importance, sel, ep, work):
     """One subpath walk (megammlt.py:287-516).  sel: slot indices (R,)
     whose vertices to capture; ep: the endpoint (slot 0) record.  Returns
     (pdf_fwd, pdf_rev, delta, valid) per slot, the captured vertices and
-    the emitter row of the first captured one."""
-    tri, mat = tables.tri, tables.mat
+    the emitter row of the first captured one.  A walk that leaves the
+    scene marks the vertex of that slot escaped (its wi the escape
+    direction reversed, its beta the throughput)."""
+    tri = tables.tri
     R = o.shape[0]
     dev = o.device
     zero = torch.zeros(R, device=dev)
@@ -150,7 +171,7 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
                 ng=torch.zeros((R, 3), device=dev),
                 wi=torch.zeros((R, 3), device=dev),
                 beta=torch.zeros((R, 3), device=dev), mat=zero,
-                valid=fbool)
+                valid=fbool, esc=fbool, tu=zero, tv=zero)
     caps = [_copy(init, idx == 0, ep["vertex"]) for idx in sel]
     erow0 = torch.full((R,), -1.0, device=dev)
     act = ep["valid"]
@@ -158,6 +179,10 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
     for v in range(1, n_slots):
         best_t, best_id = closest_hit(tri, o, d, tables.nodes)
         count_sweeps(work, tri, act, o, d, nodes=tables.nodes)
+        if tables.n_sphs:
+            best_t, s_id = sphere_closest(tables.sph, tables.n_sphs, o, d,
+                                          best_t)
+            use_sph = s_id >= 0
         hit_valid = best_t < INF
         t_hit = torch.where(hit_valid, best_t, INF)
         active = act & hit_valid
@@ -176,6 +201,24 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
         ng = normalize(cross(e1, e2))
         ns = normalize(w0[:, None] * av[:, 9:12] + b1[:, None] * av[:, 12:15]
                        + b2[:, None] * av[:, 15:18])
+        mat_id = av[:, 18]
+        if tables.n_sphs:
+            srow = tables.sph[torch.clamp(s_id, min=0)]
+            sng = (hp - srow[:, 0:3]) * (
+                1.0 / torch.clamp(srow[:, 3], min=1e-20))[:, None]
+            ng = torch.where(use_sph[:, None], sng, ng)
+            ns = torch.where(use_sph[:, None], sng, ns)
+            mat_id = torch.where(use_sph, srow[:, 4], mat_id)
+            erow = torch.where(use_sph, srow[:, 5], erow)
+        tu = tv = zero
+        if tables.tex_shape is not None:
+            ext = tables.tri_ext[torch.clamp(best_id, min=0)]
+            tu = w0 * ext[:, 20] + b1 * ext[:, 22] + b2 * ext[:, 24]
+            tv = w0 * ext[:, 21] + b1 * ext[:, 23] + b2 * ext[:, 25]
+            if tables.n_sphs:
+                su, sv = sphere_uv(ng)
+                tu = torch.where(use_sph, su, tu)
+                tv = torch.where(use_sph, sv, tv)
 
         # pdf_fwd: the previous direction pdf -> area measure here
         seg = hp - pp
@@ -184,13 +227,13 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
         cos_to = torch.abs(dot(w, ng))
         pdf_fwd[v] = torch.where(active, pdf_sa * cos_to / d2, 0.0)
         valid[v] = active
-        mt = _mat_rows(mat, av[:, 18])
+        mt = materials_at(tables, mat_id, tu, tv)
         delta[v] = is_delta(mt["kind"]) & active
 
         wiw = -d
         vtx = dict(p=hp, ns=ns, ng=ng, wi=wiw,
-                   beta=torch.where(act[:, None], beta, 0.0), mat=av[:, 18],
-                   valid=active)
+                   beta=torch.where(act[:, None], beta, 0.0), mat=mat_id,
+                   valid=active, esc=act & ~hit_valid, tu=tu, tv=tv)
         for i, idx in enumerate(sel):
             caps[i] = _copy(caps[i], idx == v, vtx)
         erow0 = torch.where(sel[0] == v, erow, erow0)
@@ -203,12 +246,9 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
             ub = [zero, zero, zero]
         else:
             ub = [u(ubase + (v - 1) * 3 + j) for j in range(3)]
-        bs = sample_bsdf(mt["kind"], mt["albedo"], mt["rough"], mt["eta"],
-                         mt["spec_refl"], mt["spec_trans"], wi, ub[0],
-                         torch.stack([ub[1], ub[2]], -1))
+        bs = sample_bsdf(mt, wi, ub[0], torch.stack([ub[1], ub[2]], -1))
         wow = to_world(ns, bs.wo)
-        _, rev_sa = eval_bsdf(mt["kind"], mt["albedo"], mt["rough"], bs.wo,
-                              wi)
+        _, rev_sa = eval_bsdf(mt, bs.wo, wi)
         cos_prev = torch.abs(dot(w, pn))
         rev_sa = torch.where(bs.delta, 1.0, rev_sa)
         pdf_rev[v - 1] = torch.where(active, rev_sa * cos_prev / d2, 0.0)
@@ -293,9 +333,10 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
     c0 = torch.clamp(cos0, min=1e-6)
     pdf0 = torch.where(cos0 > 1e-6, 1.0 / (film_area * (c0 * (c0 * c0))),
                        0.0)
+    fbool = torch.zeros_like(tbool)
     cam_vtx = dict(p=cam_o, ns=cam_f, ng=cam_f, wi=-cam_f,
                    beta=torch.ones((R, 3), device=dev), mat=zero,
-                   valid=tbool)
+                   valid=tbool, esc=fbool, tu=zero, tv=zero)
     E_fwd, E_rev, E_delta, _, (Se, Se0), erow_ev = _walk(
         tables, u, cam_o, ed, torch.ones((R, 3), device=dev), pdf0, cam_o,
         cam_f, n_eye, 4, True, (ev, ev0),
@@ -324,7 +365,7 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
         valid0[:, None], l_rad / torch.clamp(pdf_pos, min=1e-20)[:, None],
         0.0)
     light_vtx = dict(p=p0, ns=lng, ng=lng, wi=lng, beta=l_end_b, mat=zero,
-                     valid=valid0)
+                     valid=valid0, esc=fbool, tu=zero, tv=zero)
     o0 = p0 + ldir * (RAY_EPS * 10.0)
     L_fwd, L_rev, L_delta, _, (Sl, Sl0), _ = _walk(
         tables, u, o0, ldir, lb, pdf_dir, p0, lng, n_light, lbase + 5,
@@ -353,21 +394,19 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
 
     is_s1 = s_pick == 1
     front = dot(wl, Sl["ng"]) > 0
-    mtl = _mat_rows(mat, Sl["mat"])
+    mtl = materials_at(tables, Sl["mat"], Sl["tu"], Sl["tv"])
     wl_loc = to_local(Sl["ns"], wl)
     wi_l_loc = to_local(Sl["ns"], Sl["wi"])
-    fl_c, pdf_l_fwd = eval_bsdf(mtl["kind"], mtl["albedo"], mtl["rough"],
-                                wi_l_loc, wl_loc)
+    fl_c, pdf_l_fwd = eval_bsdf(mtl, wi_l_loc, wl_loc)
     fl = fl_c * (1.0 / torch.clamp(torch.abs(wl_loc[:, 2]),
                                    min=1e-9))[:, None]
     fl = torch.where(is_s1[:, None],
                      torch.where(front, 1.0, 0.0)[:, None].expand(R, 3), fl)
 
-    mte = _mat_rows(mat, Se["mat"])
+    mte = materials_at(tables, Se["mat"], Se["tu"], Se["tv"])
     we_loc = to_local(Se["ns"], -wl)
     wi_e_loc = to_local(Se["ns"], Se["wi"])
-    fe_c, pdf_e_fwd = eval_bsdf(mte["kind"], mte["albedo"], mte["rough"],
-                                wi_e_loc, we_loc)
+    fe_c, pdf_e_fwd = eval_bsdf(mte, wi_e_loc, we_loc)
     fe = fe_c * (1.0 / torch.clamp(torch.abs(we_loc[:, 2]),
                                    min=1e-9))[:, None]
     # sensor importance toward -wl (pinhole)
@@ -400,7 +439,11 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
     sh_o = Sl["p"] + wl * sh_eps[:, None]
     sh_tmax = torch.where(ok_c, dist * (1.0 - 1e-3), 0.0)
     count_sweeps(work, tri, ok_c, sh_o, wl, sh_tmax, tables.nodes)
-    ok_c = ok_c & ~occluded(tri, sh_o, wl, sh_tmax, tables.nodes)
+    blocked = occluded(tri, sh_o, wl, sh_tmax, tables.nodes)
+    if tables.n_sphs:
+        blocked = blocked | sphere_blocked(tables.sph, tables.n_sphs, sh_o,
+                                           wl, sh_tmax)
+    ok_c = ok_c & ~blocked
 
     # ---- junction pdfs ----------------------------------------------------
     cos_em = torch.clamp(dot(wl, Sl["ng"]), min=0.0)
@@ -410,8 +453,7 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
                           0.0)
     pL_s = torch.where(case_hit, pLs_hit,
                        torch.where(is_s1, pLs_em, pLs_bsdf))
-    _, pdf_e_rev = eval_bsdf(mte["kind"], mte["albedo"], mte["rough"],
-                             we_loc, wi_e_loc)
+    _, pdf_e_rev = eval_bsdf(mte, we_loc, wi_e_loc)
     pLs1_bsdf = _sa_to_area(pdf_e_rev, Se["p"], Se0["p"], Se0["ng"])
     hw = Se0["p"] - Se["p"]
     hd2 = torch.clamp(dot(hw, hw), min=1e-20)
@@ -425,8 +467,7 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
         Se["p"], Sl["p"], Sl["ng"])
     pEt_bsdf = _sa_to_area(pdf_e_fwd, Se["p"], Sl["p"], Sl["ng"])
     pE_t = torch.where(case_lt, pEt_sens, pEt_bsdf)
-    _, pdf_l_rev = eval_bsdf(mtl["kind"], mtl["albedo"], mtl["rough"],
-                             wl_loc, wi_l_loc)
+    _, pdf_l_rev = eval_bsdf(mtl, wl_loc, wi_l_loc)
     pE_t1 = torch.where(
         s_pick >= 2, _sa_to_area(pdf_l_rev, Sl["p"], Sl0["p"], Sl0["ng"]),
         0.0)
@@ -457,6 +498,16 @@ def mmlt_trace_reference(tables: MmltTables, uT, work=None):
 
     # ---- combine ----------------------------------------------------------
     val = torch.where(ok_hit[:, None], ch * w_mis[:, None], 0.0)
+    if tables.env_mode:
+        # the environment seen by an s = 0 eye walk that escaped, at MIS
+        # weight 1 (megammlt.py:883-930)
+        if tables.env_mode == ENV_CONSTANT:
+            env = cam[16:19].expand(R, 3)
+        else:
+            eu, ev_ = env_dir_to_uv(-Se["wi"])
+            env = env_bilinear(tables.env_tab, tables.env_shape, eu, ev_)
+        ok_env = case_hit & Se["esc"]
+        val = val + torch.where(ok_env[:, None], Se["beta"] * env, 0.0)
     val = val + torch.where(ok_c[:, None], cc * w_mis[:, None], 0.0)
     val = val * (n_strats * float(K))[:, None]
     return torch.cat([val.T, torch.where(case_lt, fu, ux)[None],
@@ -494,7 +545,7 @@ def mmlt_trace(tables: MmltTables, uT):
     rc = lib.mmlt_trace_launch(*table_args(tables), uT.data_ptr(), R,
                                out.data_ptr(), stream)
     build.check(rc, "mmlt_trace_kernel")
-    build.LAUNCHES["mmlt_trace"] += 1
+    build.LAUNCHES[build.scope_key("mmlt_trace", tables)] += 1
     return out
 
 

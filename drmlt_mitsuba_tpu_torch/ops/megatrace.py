@@ -34,11 +34,12 @@ under autograd backward, for any float scene leaf.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from drmlt_mitsuba_tpu_torch.core.math import (
-    RAY_EPS, cross, dot, mis_power, normalize,
+    RAY_EPS, cdiv, cross, dot, mis_power, normalize, safe_sqrt,
 )
 from drmlt_mitsuba_tpu_torch.core.frame import to_local, to_world
 from drmlt_mitsuba_tpu_torch.core.spectrum import luminance
@@ -52,15 +53,20 @@ from drmlt_mitsuba_tpu_torch.ops.intersect import (
     scene_nodes, sweep_any, sweep_closest, walk_any, walk_closest,
 )
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
-    SUPPORTED_KINDS, eval_bsdf, is_delta, sample_bsdf,
+    EXTRA_KINDS, SUPPORTED_KINDS, eval_bsdf, is_delta, material_rows,
+    sample_bsdf,
 )
 from drmlt_mitsuba_tpu_torch.render.emitter import (
+    DIR_DIST, env_bilinear, env_dir_to_uv, env_pdf_sa, env_sample,
     hit_emission, pick_row, sample_direct,
 )
+from drmlt_mitsuba_tpu_torch.render.sensor import camera_rays
+from drmlt_mitsuba_tpu_torch.render.texture import tex_albedo
 from drmlt_mitsuba_tpu_torch.scene.bvh import NodeTable
 from drmlt_mitsuba_tpu_torch.scene.convert import replace_leaves
 from drmlt_mitsuba_tpu_torch.scene.types import (
-    BSDF_DIFFUSE, BSDF_ROUGH_DIFFUSE, EMITTER_AREA, Scene,
+    BSDF_DIFFUSE, BSDF_ROUGH_DIFFUSE, CAMERA_PERSPECTIVE, EMITTER_AREA,
+    EMITTER_ENV, Scene,
 )
 
 # packed table column layouts (same as the reference)
@@ -68,32 +74,35 @@ _TRI_COLS = 20   # v0 e1 e2 n0 n1 n2 mat_id erow
 _MAT_COLS = 18   # kind albedo eta k rough spec_refl spec_trans tex_id
 _EM_COLS = 20    # rad area pmf cdf v0 e1 e2 ng kind
 _CAM_COLS = 24   # R00..R22 t0..t2 thx thy aperture focus env_rgb pad
+_SPH_COLS = 8    # center radius mat_id emitter_id valid pad
+_TRI_EXT_COLS = 28   # _TRI_COLS, uv0 uv1 uv2, pad
+_TEX_COLS = 4    # rgb pad (texels); rgb pmf (environment pixels)
+
+# environment modes of the kernels (csrc/path_trace.cuh: SceneExt)
+ENV_NONE, ENV_CONSTANT, ENV_IMAGE = 0, 1, 2
 
 
 # ---------------------------------------------------------------- packing
 def pack_mega_tables_torch(scene: Scene, device=None):
-    """The tri, mat, em and cam tables of the reference's pack_mega_tables
-    (megatrace.py:280), built with torch ops on the live scene leaves
-    (counterpart of its pack_mega_tables_jnp, :390) on `device` (default:
-    the CPU): equal to the reference's tables byte for byte, and
-    differentiable in the float leaves (tris.v0 / e1 / e2 / n0-n2,
-    materials.*, emitters.radiance / area / pmf / cdf, camera.to_world and
-    the camera scalars), wherever those live.  The reference's other six
-    tables (spheres, triangle attributes, textures, environment) hold
-    nothing the port's kernels read."""
+    """The ten tables of the reference's pack_mega_tables (megatrace.py:280):
+    tri, mat, em, cam, sph, tri_ext, tex, env_tab, env_col, env_row, built
+    with torch ops on the live scene leaves (counterpart of its
+    pack_mega_tables_jnp, :390) on `device` (default: the CPU), equal to
+    the reference's byte for byte and differentiable in the float leaves
+    (tris.v0 / e1 / e2 / n0-n2 / uv0-uv2, materials.*, emitters.radiance /
+    area / pmf / cdf, the sphere, texture and environment leaves,
+    camera.to_world and the camera scalars), wherever those live.  tri_ext
+    has one row per triangle: the reference pads it to a multiple of 512
+    rows for its chunked sweeps, which the port does not have."""
     def f(x):
         return x.to(device=device, dtype=torch.float32)
 
     tris = scene.tris
     T = tris.v0.shape[0]
     tri = pack_tri_table(tris, device)
+    dev = tri.device
 
-    mats = scene.materials
-    mat = torch.cat([
-        f(mats.kind)[:, None], f(mats.albedo), f(mats.eta), f(mats.k),
-        torch.clamp(f(mats.roughness), min=1e-3)[:, None],
-        f(mats.spec_refl), f(mats.spec_trans), f(mats.tex_id)[:, None],
-    ], 1)
+    mat = pack_mat_table(scene.materials, device)
 
     em = scene.emitters
     ti = torch.clamp(em.tri_idx.to(device=device, dtype=torch.int64), 0,
@@ -108,8 +117,7 @@ def pack_mega_tables_torch(scene: Scene, device=None):
     emt = torch.cat([
         f(em.radiance), f(em.area)[:, None], f(em.pmf)[:, None],
         f(em.cdf)[:, None], v0e, e1e, e2e, ng, f(em.kind)[:, None],
-        torch.zeros((E, _EM_COLS - 19), dtype=torch.float32,
-                    device=ti.device),
+        torch.zeros((E, _EM_COLS - 19), dtype=torch.float32, device=dev),
     ], 1)
 
     cam_ = scene.camera
@@ -121,40 +129,131 @@ def pack_mega_tables_torch(scene: Scene, device=None):
         f(cam_.focus_distance).reshape(1), f(em.env_radiance).reshape(3),
         torch.zeros(_CAM_COLS - 19, dtype=torch.float32, device=c2w.device),
     ]).reshape(1, _CAM_COLS)
-    return tri, mat, emt, cam
+
+    sp = scene.spheres
+    S = sp.valid.shape[0]
+    if S:
+        sph = torch.cat([
+            f(sp.center), f(sp.radius)[:, None], f(sp.mat_id)[:, None],
+            f(sp.emitter_id)[:, None], f(sp.valid)[:, None],
+            torch.zeros((S, _SPH_COLS - 7), dtype=torch.float32, device=dev),
+        ], 1)
+    else:
+        sph = torch.zeros((1, _SPH_COLS), dtype=torch.float32, device=dev)
+
+    tri_ext = torch.cat([
+        tri, f(tris.uv0), f(tris.uv1), f(tris.uv2),
+        torch.zeros((T, _TRI_EXT_COLS - _TRI_COLS - 6), dtype=torch.float32,
+                    device=dev)], 1)
+
+    if scene.textures is not None:
+        flat = f(scene.textures.data).reshape(-1, 3)
+        tex = torch.cat([flat, torch.zeros((flat.shape[0], _TEX_COLS - 3),
+                                           dtype=torch.float32, device=dev)],
+                        1)
+    else:
+        tex = torch.zeros((1, _TEX_COLS), dtype=torch.float32, device=dev)
+
+    if em.env_image is not None:
+        env_tab = torch.cat([f(em.env_image).reshape(-1, 3),
+                             f(em.env_pmf).reshape(-1, 1)], 1)
+        env_col = f(em.env_col_cdf)
+        env_row = f(em.env_row_cdf)[:, None]
+    else:
+        env_tab = torch.zeros((1, _TEX_COLS), dtype=torch.float32, device=dev)
+        env_col = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+        env_row = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+    return tri, mat, emt, cam, sph, tri_ext, tex, env_tab, env_col, env_row
+
+
+def pack_mat_table(mats, device=None):
+    """The (M, 18) material table: kind albedo eta k roughness (at least
+    1e-3) spec_refl spec_trans tex_id, float32."""
+    def f(x):
+        return x.to(device=device, dtype=torch.float32)
+
+    return torch.cat([
+        f(mats.kind)[:, None], f(mats.albedo), f(mats.eta), f(mats.k),
+        torch.clamp(f(mats.roughness), min=1e-3)[:, None],
+        f(mats.spec_refl), f(mats.spec_trans), f(mats.tex_id)[:, None],
+    ], 1)
 
 
 def mega_eligible(scene: Scene, cfg) -> bool:
-    """True when the port's path kernel covers this scene and PathConfig;
-    otherwise raises NotImplementedError naming what is not yet ported."""
+    """True when the port's trace kernels cover this scene and config (the
+    reference megakernels' subset, megatrace.py:502-566, without its
+    table-size caps); otherwise raises NotImplementedError naming what is
+    not yet ported."""
     missing = []
     if getattr(cfg, "motion", False):
         missing.append("motion blur")
-    if getattr(cfg, "thinlens", False) or float(
-            scene.camera.aperture_radius) > 0:
-        missing.append("thin-lens camera")
-    if float(torch.abs(scene.emitters.env_radiance).sum()) > 0:
-        missing.append("environment emitter")
-    if bool((scene.emitters.kind != EMITTER_AREA).any()):
-        missing.append("non-area emitters")
-    if bool(scene.spheres.valid.any()):
-        missing.append("analytic spheres")
-    if bool((scene.materials.tex_id >= 0).any()):
-        missing.append("bitmap textures")
+    if scene.camera.kind != CAMERA_PERSPECTIVE:
+        missing.append(f"camera kind {scene.camera.kind}")
+    if (float(scene.camera.aperture_radius) > 0
+            and not getattr(cfg, "thinlens", False)):
+        missing.append("a lens aperture without PathConfig(thinlens=True)")
+    sp = scene.spheres
+    if bool((sp.valid & (sp.emitter_id >= 0)).any()):
+        missing.append("emissive analytic spheres")
+    ekinds = set(int(k) for k in scene.emitters.kind.unique())
+    if not ekinds <= {EMITTER_AREA, EMITTER_ENV}:
+        missing.append(f"emitter kinds {sorted(ekinds - {0, 4})} (point, "
+                       f"spot, directional)")
+    if (EMITTER_ENV in ekinds) != (scene.emitters.env_image is not None):
+        missing.append("an environment row without its image")
+    tex_ids = scene.materials.tex_id
+    if bool((tex_ids >= 0).any()) and (
+            scene.textures is None
+            or int(tex_ids.max()) >= scene.textures.data.shape[0]):
+        missing.append("texture ids outside the texture atlas")
+    if bool((tex_ids < -1).any()):
+        missing.append("per-vertex colors")
     kinds = set(int(k) for k in scene.materials.kind.unique())
     if not kinds.issubset(SUPPORTED_KINDS):
         missing.append(f"BSDF kinds {sorted(kinds - set(SUPPORTED_KINDS))}")
     if missing:
         raise NotImplementedError(
-            "not yet ported to the CUDA path kernel: " + ", ".join(missing))
+            "not yet ported to the CUDA trace kernels: " + ", ".join(missing))
     return True
+
+
+def scope_fields(scene: Scene, tables, thinlens: bool) -> dict:
+    """The scene-scope fields of TraceTables / MmltTables from the packed
+    tables (pack_mega_tables_torch): the six extra tables, their static
+    shapes and modes, and `full`, which picks the kernels' full-scope
+    instantiation: spheres, bitmap albedo, an environment, a thin lens or
+    a BSDF kind beyond slices 1-4 (conductor, rough conductor, null).
+    A scene without any of them runs the instantiation of slices 1-4."""
+    sph, tri_ext, tex, env_tab, env_col, env_row = (
+        t.contiguous() for t in tables[4:])
+    em = scene.emitters
+    n_sphs = sph.shape[0] if bool(scene.spheres.valid.any()) else 0
+    tex_shape = (tuple(scene.textures.data.shape[:3])
+                 if scene.textures is not None
+                 and bool((scene.materials.tex_id >= 0).any()) else None)
+    if em.env_image is not None:
+        env_mode, env_shape = ENV_IMAGE, tuple(em.env_image.shape[:2])
+        env_row_pick = float(em.pmf[em.kind == EMITTER_ENV].sum())
+    else:
+        env_mode = (ENV_CONSTANT if float(torch.abs(em.env_radiance).sum())
+                    > 0 else ENV_NONE)
+        env_shape, env_row_pick = None, 0.0
+    kinds = set(int(k) for k in scene.materials.kind.unique())
+    full = bool(n_sphs or tex_shape or env_mode or thinlens
+                or kinds & set(EXTRA_KINDS))
+    return dict(sph=sph, tri_ext=tri_ext, tex=tex, env_tab=env_tab,
+                env_col=env_col, env_row=env_row.reshape(-1), n_sphs=n_sphs,
+                tex_shape=tex_shape, env_shape=env_shape, env_mode=env_mode,
+                env_row_pick=env_row_pick, thinlens=bool(thinlens), full=full)
 
 
 @dataclasses.dataclass(frozen=True)
 class TraceTables:
     """Device-resident packed scene tables plus the static path config;
     `nodes` is the BVH's node table above BVH_MIN_TRIS triangles (the
-    kernels and twins walk it), else None (they sweep every triangle)."""
+    kernels and twins walk it), else None (they sweep every triangle).
+    The scene-scope fields (scope_fields) carry spheres, the texture
+    atlas, the environment and the thin lens."""
     tri: torch.Tensor    # (T, 20)
     mat: torch.Tensor    # (M, 18)
     em: torch.Tensor     # (E, 20)
@@ -164,6 +263,19 @@ class TraceTables:
     rr_depth: int
     use_nee: bool
     nodes: NodeTable | None = None
+    sph: torch.Tensor | None = None       # (S, 8)
+    tri_ext: torch.Tensor | None = None   # (T, 28)
+    tex: torch.Tensor | None = None       # (N * H * W, 4)
+    env_tab: torch.Tensor | None = None   # (He * We, 4)
+    env_col: torch.Tensor | None = None   # (He, We)
+    env_row: torch.Tensor | None = None   # (He,)
+    n_sphs: int = 0
+    tex_shape: tuple | None = None        # (N, H, W)
+    env_shape: tuple | None = None        # (He, We)
+    env_mode: int = ENV_NONE
+    env_row_pick: float = 0.0
+    thinlens: bool = False
+    full: bool = False
 
     technique = "path"
 
@@ -176,27 +288,44 @@ class TraceTables:
         return self.tri.device
 
 
+# the tensors of TraceTables / MmltTables, in the order the packer makes them
+TABLE_FIELDS = ("tri", "mat", "em", "cam", "sph", "tri_ext", "tex", "env_tab",
+                "env_col", "env_row")
+
+
 def make_tables(scene: Scene, cfg, device) -> TraceTables:
     """Check eligibility, pack (pack_mega_tables_torch: the tables carry
     the gradient of any scene leaf that requires one) and move the tables
     to `device`, with the node table of the scene's BVH above
     BVH_MIN_TRIS triangles (built here unless prepare_scene attached it)."""
     mega_eligible(scene, cfg)
-    tri, mat, emt, cam = (t.contiguous()
-                          for t in pack_mega_tables_torch(scene, device))
+    tabs = pack_mega_tables_torch(scene, device)
+    tri, mat, emt, cam = (t.contiguous() for t in tabs[:4])
     return TraceTables(tri=tri, mat=mat, em=emt, cam=cam.reshape(-1),
                        max_depth=cfg.max_depth, min_depth=cfg.min_depth,
                        rr_depth=cfg.rr_depth, use_nee=bool(cfg.use_nee),
-                       nodes=scene_nodes(scene, device))
+                       nodes=scene_nodes(scene, device),
+                       **scope_fields(scene, tabs,
+                                      getattr(cfg, "thinlens", False)))
 
 
 def scene_args(tables):
-    """The scene tables (tri, T, mat, M, em, E, cam, node box, link,
-    order, N) as the C entry points take them; N = 0 without a BVH."""
+    """The scene tables as the C entry points take them: tri, T, mat, M,
+    em, E, cam, the node table (box, link, order, N; N = 0 without a BVH),
+    then the scene scope (sph, S, tri_ext, tex, pages, height, width,
+    env_tab, env_col, env_row, He, We, env_mode, env_row_pick, thinlens,
+    full; S = 0 without spheres, pages = 0 without bitmap albedo)."""
+    pages, th, tw = tables.tex_shape or (0, 0, 0)
+    he, we = tables.env_shape or (0, 0)
     return (tables.tri.data_ptr(), tables.tri.shape[0],
             tables.mat.data_ptr(), tables.mat.shape[0],
             tables.em.data_ptr(), tables.em.shape[0],
-            tables.cam.data_ptr(), *node_args(tables.nodes))
+            tables.cam.data_ptr(), *node_args(tables.nodes),
+            tables.sph.data_ptr(), tables.n_sphs, tables.tri_ext.data_ptr(),
+            tables.tex.data_ptr(), pages, th, tw, tables.env_tab.data_ptr(),
+            tables.env_col.data_ptr(), tables.env_row.data_ptr(), he, we,
+            tables.env_mode, tables.env_row_pick, int(tables.thinlens),
+            int(tables.full))
 
 
 def table_args(tables: TraceTables):
@@ -301,6 +430,64 @@ def path_trace_alb_reference(tables: TraceTables, uT):
     return torch.cat([L.T, rows.permute(1, 2, 0).reshape(-1, L.shape[0])])
 
 
+def sphere_closest(sph, n_sphs, o, d, best_t):
+    """(t, sphere index, -1 where no sphere is closer than best_t) of the
+    analytic spheres, in the kernels' order (megatrace.py:1058)."""
+    idx = torch.full_like(best_t, -1, dtype=torch.int64)
+    bt = best_t
+    for si in range(n_sphs):
+        t, ok = _sphere_t(sph[si], o, d)
+        hit = ok & (t < bt)
+        bt = torch.where(hit, t, bt)
+        idx = torch.where(hit, si, idx)
+    return bt, idx
+
+
+def sphere_blocked(sph, n_sphs, o, d, tmax):
+    """Any analytic sphere with RAY_EPS < t < tmax (megatrace.py:1089)."""
+    blocked = torch.zeros_like(tmax, dtype=torch.bool)
+    for si in range(n_sphs):
+        t, ok = _sphere_t(sph[si], o, d)
+        blocked = blocked | (ok & (t < tmax))
+    return blocked
+
+
+def _sphere_t(row, o, d):
+    """Hit distance of rays against one sphere row (center, radius, mat,
+    emitter, valid): the near root above RAY_EPS, else the far one."""
+    oc = o - row[0:3]
+    bq = dot(oc, d)
+    cq = dot(oc, oc) - row[3] * row[3]
+    disc = bq * bq - cq
+    sq = safe_sqrt(disc)
+    t0 = -bq - sq
+    t1 = -bq + sq
+    t = torch.where(t0 > RAY_EPS, t0, t1)
+    return t, (disc >= 0.0) & (row[6] > 0.5) & (t > RAY_EPS)
+
+
+def sphere_uv(n):
+    """Lat-long texture coordinates of unit sphere normals (R, 3)
+    (ops/intersect.py:uv_sph): (acos(n.z) / pi, atan2(n.y, n.x) / 2pi +
+    1/2)."""
+    return (cdiv(torch.arccos(torch.clamp(n[:, 2], -1.0, 1.0)), math.pi),
+            cdiv(torch.arctan2(n[:, 1], n[:, 0]), 2.0 * math.pi) + 0.5)
+
+
+def materials_at(tables, mat_id, tu, tv):
+    """Per-lane material rows (render/bsdf.py:material_rows), the albedo
+    from the texture atlas at (tu, tv) where the material has a page."""
+    if tables.tex_shape is None:
+        return material_rows(tables.mat, mat_id)
+    mid = mat_id.to(torch.int64)
+    tid = tables.mat[mid, 17]
+    albedo = torch.where(
+        (tid >= 0)[:, None],
+        tex_albedo(tables.tex, tables.tex_shape, tid, tu, tv),
+        tables.mat[mid, 1:4])
+    return material_rows(tables.mat, mat_id, albedo)
+
+
 def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
     """The path trace of every lane, in the kernels' evaluation order:
     (L (R, 3), Jacobian rows (R, K, 3) in a gradient mode, else None).
@@ -308,21 +495,18 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
     Lanes that have left the path (a miss, a dead throughput) keep being
     evaluated under masks; every value they feed is finite (a miss
     distance of 1, guarded divisions and square roots), so the backward
-    through the masks multiplies zeros by finite numbers only."""
+    through the masks multiplies zeros by finite numbers only.  The
+    scene-scope features (spheres, bitmap albedo, the environment, the
+    thin lens) are evaluated only for tables that carry them."""
     tri, mat, em, cam = tables.tri, tables.mat, tables.em, tables.cam
     R = uT.shape[1]
     dev = uT.device
     max_depth, min_depth = tables.max_depth, tables.min_depth
 
-    # ---- camera ray (pinhole perspective) ------------------------------
-    x = (2.0 * uT[0] - 1.0) * cam[12]
-    y = (1.0 - 2.0 * uT[1]) * cam[13]
+    # ---- camera ray (pinhole, or thin lens on dims 2-3) -----------------
     one = torch.ones(R, device=dev)
-    dc = torch.stack([x, y, one], -1)
-    d = normalize(torch.stack([dot(cam[0:3].expand(R, 3), dc),
-                               dot(cam[3:6].expand(R, 3), dc),
-                               dot(cam[6:9].expand(R, 3), dc)], -1))
-    o = cam[9:12].expand(R, 3)
+    o, d = camera_rays(cam, uT[0], uT[1], torch.stack([uT[2], uT[3]], -1)
+                       if tables.thinlens else None)
 
     tp = torch.ones((R, 3), device=dev)
     L = torch.zeros((R, 3), device=dev)
@@ -344,6 +528,10 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
         base = SENSOR_DIMS + (depth - 1) * BOUNCE_DIMS
         best_t, best_id = closest_hit(tri, o, d, tables.nodes)
         count_sweeps(work, tri, active, o, d, nodes=tables.nodes)
+        if tables.n_sphs:
+            best_t, s_id = sphere_closest(tables.sph, tables.n_sphs, o, d,
+                                          best_t)
+            use_sph = s_id >= 0
         hit_valid = best_t < INF
         # every use of the distance on a miss is masked; 1 keeps hp finite
         t_hit = torch.where(hit_valid, best_t, 1.0)
@@ -364,12 +552,28 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
         ng = normalize(cross(e1, e2))
         ns = normalize(w0[:, None] * av[:, 9:12] + b1[:, None] * av[:, 12:15]
                        + b2[:, None] * av[:, 15:18])
-
         mat_id = av[:, 18].to(torch.int64)
-        m = mat[mat_id]
-        kind = m[:, 0].to(torch.int64)
-        albedo, eta, rough = m[:, 1:4], m[:, 4:7], m[:, 10]
-        spec_refl, spec_trans = m[:, 11:14], m[:, 14:17]
+        if tables.n_sphs:
+            # an analytic sphere: ng = ns = (hp - center) / radius
+            srow = tables.sph[torch.clamp(s_id, min=0)]
+            sng = (hp - srow[:, 0:3]) * (
+                1.0 / torch.clamp(srow[:, 3], min=1e-20))[:, None]
+            ng = torch.where(use_sph[:, None], sng, ng)
+            ns = torch.where(use_sph[:, None], sng, ns)
+            mat_id = torch.where(use_sph, srow[:, 4].to(torch.int64), mat_id)
+            erow = torch.where(use_sph, srow[:, 5].to(torch.int64), erow)
+        if tables.tex_shape is not None:
+            ext = tables.tri_ext[torch.clamp(best_id, min=0)]
+            tu = w0 * ext[:, 20] + b1 * ext[:, 22] + b2 * ext[:, 24]
+            tv = w0 * ext[:, 21] + b1 * ext[:, 23] + b2 * ext[:, 25]
+            if tables.n_sphs:
+                su, sv = sphere_uv(ng)
+                tu = torch.where(use_sph, su, tu)
+                tv = torch.where(use_sph, sv, tv)
+        else:
+            tu = tv = None
+        m = materials_at(tables, mat_id, tu, tv)
+        kind = m["kind"]
 
         # ---- emission at the hit, MIS'd against NEE at the previous vertex
         e_rad, front, nee_pdf_hit = hit_emission(em, erow, d, ng, t_hit)
@@ -389,10 +593,28 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
         elif grad == GRAD_ALBEDO:
             rows = rows + _albedo_rows(al, pw, hit_emitter,
                                        tp * e_rad * w_bsdf[:, None])
+
+        # ---- the environment on escape (constant: no NEE row, weight 1)
+        if tables.env_mode:
+            escaped = active & ~hit_valid & (depth >= min_depth)
+            if tables.env_mode == ENV_CONSTANT:
+                c = tp * cam[16:19]
+            else:
+                eu, ev = env_dir_to_uv(d)
+                w_env = one
+                if tables.use_nee:
+                    e_pdf = env_pdf_sa(tables.env_tab, tables.env_shape, eu,
+                                       ev, d[:, 1]) * tables.env_row_pick
+                    w_env = torch.where(prev_delta, 1.0,
+                                        mis_power(prev_pdf, e_pdf))
+                c = tp * env_bilinear(tables.env_tab, tables.env_shape, eu,
+                                      ev) * w_env[:, None]
+            L = L + torch.where(escaped[:, None], c, 0.0)
+            if grad == GRAD_ALBEDO:
+                rows = rows + _albedo_rows(al, pw, escaped, c)
         active = active & hit_valid
 
         wi = to_local(ns, -d)
-        delta_m = is_delta(kind)
         if grad == GRAD_ALBEDO:
             # this vertex's albedo enters its NEE term and every later one
             dlike = ((kind == BSDF_DIFFUSE) | (kind == BSDF_ROUGH_DIFFUSE)) \
@@ -403,11 +625,24 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
         # ---- NEE with an immediate shadow sweep ---------------------------
         if tables.use_nee:
             u_pick = uT[base + OFF_LIGHT_PICK]
-            ld, dist, ds_pdf, l_rad = sample_direct(
-                em, hp, u_pick, uT[base + OFF_LIGHT_U],
-                uT[base + OFF_LIGHT_U + 1])
-            f, f_pdf = eval_bsdf(kind, albedo, rough, wi,
-                                 to_local(ns, ld))
+            u_l1, u_l2 = uT[base + OFF_LIGHT_U], uT[base + OFF_LIGHT_U + 1]
+            ld, dist, ds_pdf, l_rad = sample_direct(em, hp, u_pick, u_l1,
+                                                    u_l2)
+            row = pick_row(em, u_pick)
+            area_row = None
+            if tables.env_mode == ENV_IMAGE:
+                # the environment row: the image's importance sampling
+                is_env = em[row, 18] == EMITTER_ENV
+                area_row = ~is_env
+                ed, epdf, erad = env_sample(tables.env_tab, tables.env_col,
+                                            tables.env_row, tables.env_shape,
+                                            u_l1, u_l2)
+                ld = torch.where(is_env[:, None], ed, ld)
+                dist = torch.where(is_env, DIR_DIST, dist)
+                ds_pdf = torch.where(is_env, em[row, 4] * epdf, ds_pdf)
+                l_rad = torch.where(is_env[:, None], erad, l_rad)
+            f, f_pdf = eval_bsdf(m, wi, to_local(ns, ld))
+            delta_m = is_delta(kind)
             nee_ok = active & ~delta_m & (ds_pdf > 0) & (luminance(f) > 0)
             if not (min_depth <= depth + 1 <= max_depth):
                 nee_ok = torch.zeros_like(nee_ok)
@@ -416,6 +651,9 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
             sh_tmax = torch.where(nee_ok, dist * (1.0 - 1e-3) - RAY_EPS, 0.0)
             blocked = occluded(tri, sh_o, ld, sh_tmax, tables.nodes)
             count_sweeps(work, tri, nee_ok, sh_o, ld, sh_tmax, tables.nodes)
+            if tables.n_sphs:
+                blocked = blocked | sphere_blocked(tables.sph, tables.n_sphs,
+                                                   sh_o, ld, sh_tmax)
             w_nee = mis_power(ds_pdf, f_pdf)
             inv_pdf = torch.where(
                 ds_pdf > 0, w_nee / torch.clamp(ds_pdf, min=1e-20), 0.0)
@@ -423,7 +661,11 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
             L = L + torch.where(add[:, None],
                                 tp * f * l_rad * inv_pdf[:, None], 0.0)
             if grad == GRAD_EMIT:
-                m_e = add[:, None] & (pick_row(em, u_pick)[:, None] == e_ids)
+                # an environment row's radiance is the image's, not its
+                # radiance column: no row for it
+                m_e = add[:, None] & (row[:, None] == e_ids)
+                if area_row is not None:
+                    m_e = m_e & area_row[:, None]
                 rows = rows + torch.where(
                     m_e[:, :, None], (tp * f * inv_pdf[:, None])[:, None, :],
                     0.0)
@@ -432,8 +674,7 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
                                            tp * f * l_rad * inv_pdf[:, None])
 
         # ---- BSDF sampling --------------------------------------------------
-        bs = sample_bsdf(kind, albedo, rough, eta, spec_refl, spec_trans, wi,
-                         uT[base + OFF_BSDF_CMP],
+        bs = sample_bsdf(m, wi, uT[base + OFF_BSDF_CMP],
                          torch.stack([uT[base + OFF_BSDF_U],
                                       uT[base + OFF_BSDF_U + 1]], -1))
         wo = to_world(ns, bs.wo)
@@ -491,7 +732,7 @@ def path_trace(tables: TraceTables, uT):
     rc = lib.path_trace_launch(*table_args(tables), uT.data_ptr(), R,
                                out.data_ptr(), stream)
     build.check(rc, "path_trace_kernel")
-    build.LAUNCHES["path_trace"] += 1
+    build.LAUNCHES[build.scope_key("path_trace", tables)] += 1
     return out
 
 
@@ -510,7 +751,7 @@ def _grad_launch(tables: TraceTables, uT, n_rows, entry, kernel):
     rc = getattr(lib, entry)(*table_args(tables), uT.data_ptr(), R,
                              out.data_ptr(), stream)
     build.check(rc, kernel)
-    build.LAUNCHES[kernel.removesuffix("_kernel")] += 1
+    build.LAUNCHES[build.scope_key(kernel.removesuffix("_kernel"), tables)] += 1
     return out
 
 
@@ -532,6 +773,8 @@ def path_trace_alb(tables: TraceTables, uT):
     each material's albedo.  A CUDA tensor launches path_trace_alb_kernel;
     a CPU tensor runs path_trace_alb_reference."""
     _check_u(tables, uT)
+    if tables.tex_shape is not None:
+        raise ValueError("the albedo adjoint takes constant albedos only")
     if tables.max_depth > MAX_GRAD_DEPTH:
         raise ValueError(f"max_depth {tables.max_depth}: the albedo kernel "
                          f"keeps at most {MAX_GRAD_DEPTH} bounces")
@@ -603,9 +846,9 @@ def make_mega_trace_alb(scene: Scene, cfg, device="cuda"):
     in the forward.  Exact for al > 1e-12 (a black channel's derivative is
     lost) and with Russian-roulette survival detached, so equal to the
     derivative of trace_paths only when rr_depth > max_depth."""
-    if bool((scene.materials.tex_id >= 0).any()):
-        raise ValueError("the albedo adjoint takes constant albedos only")
     tables = make_tables(scene, cfg, device)
+    if tables.tex_shape is not None:
+        raise ValueError("the albedo adjoint takes constant albedos only")
 
     def trace(albedo, u):
         return path_splats(u, _AdjointTrace.apply(albedo, u, tables, "mat",
@@ -655,7 +898,7 @@ class _ReplayTrace(torch.autograd.Function):
             # the chunks differentiate with respect to the tables; one
             # backward through the packer then takes the summed table
             # gradients to the leaves
-            fields = [f for f in ("tri", "mat", "em", "cam")
+            fields = [f for f in TABLE_FIELDS
                       if getattr(tables, f).requires_grad]
             packed = [getattr(tables, f) for f in fields]
             inputs = [t.detach().requires_grad_() for t in packed]

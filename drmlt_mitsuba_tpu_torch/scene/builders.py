@@ -1,12 +1,17 @@
 """Procedural test scenes (counterpart of drmlt_mitsuba_tpu/scene/builders.py).
 
-`cornell_box` and `veach_door` build the same arrays as the reference
-builders, leaf for leaf (the Cornell box for the tall-box materials the
-port renders).
+`cornell_box`, `veach_door` and `furnace_sphere` build the same arrays as
+the reference builders, leaf for leaf (the Cornell box for the tall-box and
+sphere materials the port renders).  `cornell_scope` dresses the Cornell
+box in the features of the trace kernels' full scene scope (textures, an
+environment, a thin lens, the conductor and null kinds).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from drmlt_mitsuba_tpu_torch.core import transform
 from drmlt_mitsuba_tpu_torch.scene import types as st
@@ -63,22 +68,31 @@ TALL_BOX_MATERIALS = {
     "diffuse": dict(kind=st.BSDF_DIFFUSE, albedo=(0.725, 0.71, 0.68)),
     "mirror": dict(kind=st.BSDF_MIRROR, albedo=(0.9, 0.9, 0.9)),
     "glass": dict(kind=st.BSDF_DIELECTRIC, eta=(1.5, 1.5, 1.5)),
+    "roughconductor": dict(kind=st.BSDF_ROUGH_CONDUCTOR, roughness=0.15,
+                           eta=(0.2, 0.92, 1.1), k=(3.9, 2.45, 2.14)),
+    "orennayar": dict(kind=st.BSDF_ROUGH_DIFFUSE,
+                      albedo=(0.725, 0.71, 0.68), roughness=0.4),
 }
 
 
 def cornell_box(width: int = 128, height: int = 128,
                 light_radiance=(18.4, 15.6, 8.0),
                 tall_box_material: str = "diffuse",
+                sphere_material: str | None = None,
                 tessellate: int = 1) -> st.Scene:
     """The classic Cornell box (556-unit box, camera on -z looking in):
     36 triangles, 5 materials, one area light of two triangles.
-    tall_box_material: "diffuse" | "mirror" | "glass".  tessellate = n cuts
-    every non-emissive triangle into n^2 (34 n^2 + 2 triangles; 13, 24 and
-    44 give the reference benchmark's 5,748, 19,586 and 65,826)."""
-    if tall_box_material not in TALL_BOX_MATERIALS:
-        raise NotImplementedError(
-            f"tall-box material {tall_box_material!r} not yet ported "
-            f"(have {sorted(TALL_BOX_MATERIALS)})")
+    tall_box_material: "diffuse" | "mirror" | "glass" | "roughconductor" |
+    "orennayar".  sphere_material (the same choices) adds the analytic
+    sphere of tests/data/cornell.xml (center (400, 90, 300), radius 90)
+    with a sixth material.  tessellate = n cuts every non-emissive triangle
+    into n^2 (34 n^2 + 2 triangles; 13, 24 and 44 give the reference
+    benchmark's 5,748, 19,586 and 65,826)."""
+    for m in (tall_box_material, sphere_material):
+        if m is not None and m not in TALL_BOX_MATERIALS:
+            raise NotImplementedError(
+                f"Cornell-box material {m!r} not yet ported (have "
+                f"{sorted(TALL_BOX_MATERIALS)})")
     verts: list = []
     faces: list = []
     mat_ids: list = []
@@ -125,6 +139,11 @@ def cornell_box(width: int = 128, height: int = 128,
         dict(kind=st.BSDF_DIFFUSE, albedo=(0.78, 0.78, 0.78)),    # light
         TALL_BOX_MATERIALS[tall_box_material],                     # tall box
     ]
+    spheres = st.empty_spheres()
+    if sphere_material is not None:
+        mats.append(TALL_BOX_MATERIALS[sphere_material])          # sphere
+        spheres = st.make_spheres([[400.0, 90.0, 300.0]], [90.0],
+                                  [len(mats) - 1])
     tris = st.build_triangles(
         np.asarray(verts, np.float32), np.asarray(faces, np.int32),
         np.asarray(mat_ids, np.int32), np.asarray(emit_ids, np.int32))
@@ -135,8 +154,31 @@ def cornell_box(width: int = 128, height: int = 128,
     cam = st.make_camera(
         transform.look_at([278, 273, -800], [278, 273, 0], [0, 1, 0]),
         fov_x_deg=39.3077, aspect=width / height)
-    return st.Scene(tris=tris, spheres=st.empty_spheres(),
+    return st.Scene(tris=tris, spheres=spheres,
                     materials=st.make_material_table(mats),
+                    emitters=emitters, camera=cam)
+
+
+def furnace_sphere(albedo=0.8, env=1.0) -> st.Scene:
+    """A diffuse unit sphere in a constant environment, the analytic
+    'white furnace' oracle: a pixel converges to env where it sees past the
+    sphere and to albedo * env where it sees the sphere (one convex
+    diffuse bounce, then escape).  One invalid, degenerate triangle keeps
+    the triangle table non-empty."""
+    tris = st.build_triangles(
+        np.zeros((3, 3), np.float32)
+        + np.array([[0, 0, 0], [1e-5, 0, 0], [0, 1e-5, 0]]),
+        np.array([[0, 1, 2]], np.int32), np.zeros(1, np.int32),
+        np.full(1, -1, np.int32))
+    tris.valid = torch.zeros(1, dtype=torch.bool)
+    spheres = st.make_spheres([[0.0, 0.0, 3.0]], [1.0], [0])
+    emitters = st.build_emitters(tris, np.zeros((1, 3), np.float32),
+                                 env_radiance=(env, env, env))
+    mats = st.make_material_table(
+        [dict(kind=st.BSDF_DIFFUSE, albedo=(albedo, albedo, albedo))])
+    cam = st.make_camera(
+        transform.look_at([0, 0, 0], [0, 0, 1], [0, 1, 0]), 60.0, 1.0)
+    return st.Scene(tris=tris, spheres=spheres, materials=mats,
                     emitters=emitters, camera=cam)
 
 
@@ -221,3 +263,82 @@ def veach_door(width: int = 128, height: int = 128,
     return st.Scene(tris=tris, spheres=st.empty_spheres(),
                     materials=st.make_material_table(mats),
                     emitters=emitters, camera=cam)
+
+
+def sky_image(he: int, we: int) -> np.ndarray:
+    """A lat-long sky (he, we, 3), Y up: a blue gradient above, a dim
+    ground below, and a small warm sun in front of the Cornell box's
+    opening (toward its camera, -z) that shines in; a little noise from a
+    seed."""
+    rng = np.random.default_rng(he * 1000 + we)
+    th = (np.arange(he) + 0.5) / he * np.pi
+    ph = ((np.arange(we) + 0.5) / we * 2.0 - 1.0) * np.pi
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    d = np.stack([np.sin(T) * np.sin(P), np.cos(T), -np.sin(T) * np.cos(P)],
+                 -1)
+    up = d[..., 1:2]
+    img = np.where(up > 0, np.array([0.3, 0.45, 0.8]) * (0.4 + 0.6 * up),
+                   np.array([0.15, 0.12, 0.1]))
+    sun = np.array([0.25, 0.35, -0.9])
+    sun = sun / np.linalg.norm(sun)
+    img = img + (d @ sun > 0.995)[..., None] * np.array([60.0, 52.0, 40.0])
+    return (img * (1.0 + 0.05 * rng.random((he, we, 1)))).astype(np.float32)
+
+
+def _append_material(mt, **kw):
+    """The material table with one more row (make_material_table's
+    defaults for what kw leaves out)."""
+    row = st.make_material_table([kw])
+    return dataclasses.replace(mt, **{
+        f.name: torch.cat([getattr(mt, f.name), getattr(row, f.name)])
+        for f in dataclasses.fields(mt)})
+
+
+SCOPE_ENV = (0.4, 0.5, 0.7)
+
+
+def cornell_scope(width: int, height: int, variant: str) -> st.Scene:
+    """The Cornell box on the trace kernels' full scene scope: a rough
+    conductor tall box and the rough-conductor sphere of
+    tests/data/cornell.xml, the back wall a 256x256 checkerboard page
+    (uvs from its world x, y), lit by the ceiling light and
+      const   : a constant environment SCOPE_ENV the open box lets in;
+      thinlens: the same through a thin lens (aperture 25, focus 800);
+      env64 / env256: a 64x128 / 256x512 lat-long image environment
+                (sky_image) instead;
+      kinds   : no texture and no environment, the tall box a gold
+                conductor and the short box null (rays pass through it)."""
+    sc = cornell_box(width, height, tall_box_material="roughconductor",
+                     sphere_material="roughconductor")
+    t, mt = sc.tris, sc.materials
+    if variant == "kinds":
+        mt.kind[4] = st.BSDF_CONDUCTOR
+        mt.eta[4] = torch.tensor([0.143, 0.375, 1.442])
+        mt.k[4] = torch.tensor([3.983, 2.386, 1.603])
+        mt = _append_material(mt, kind=st.BSDF_NULL)
+        t.mat_id[12:24] = mt.kind.shape[0] - 1      # the short box
+        return dataclasses.replace(sc, materials=mt)
+    yy, xx = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    page = np.where((((xx * 16 // 256) + (yy * 16 // 256)) % 2)[..., None]
+                    == 0, (0.75, 0.72, 0.65), (0.2, 0.25, 0.55))
+    mt = _append_material(mt, kind=st.BSDF_DIFFUSE, tex_id=0)
+    t.mat_id[4:6] = mt.kind.shape[0] - 1            # the back wall
+    for k, p in (("uv0", t.v0), ("uv1", t.v0 + t.e1), ("uv2", t.v0 + t.e2)):
+        getattr(t, k)[4:6] = p[4:6, 0:2] / 556.0
+    sc = dataclasses.replace(sc, materials=mt, textures=st.TextureAtlas(
+        data=torch.tensor(page, dtype=torch.float32)[None]))
+    if variant in ("env64", "env256"):
+        he = 64 if variant == "env64" else 256
+        em = st.build_emitters(t, sc.emitters.radiance.numpy(),
+                               env_image=sky_image(he, 2 * he))
+        st.set_emitter_rows(t, em)
+        return dataclasses.replace(sc, emitters=em)
+    sc = dataclasses.replace(sc, emitters=dataclasses.replace(
+        sc.emitters, env_radiance=torch.tensor(SCOPE_ENV)))
+    if variant == "thinlens":
+        sc = dataclasses.replace(sc, camera=dataclasses.replace(
+            sc.camera, aperture_radius=torch.tensor(25.0),
+            focus_distance=torch.tensor(800.0)))
+    elif variant != "const":
+        raise ValueError(f"no Cornell scope variant {variant!r}")
+    return sc

@@ -20,15 +20,24 @@ _GROUPS = {
     "materials": st.MaterialTable,
     "emitters": st.EmitterTable,
     "camera": st.Camera,
+    "textures": st.TextureAtlas,
 }
+# groups and fields a scene may leave out (None)
+_OPTIONAL = {"textures"}
+
+
+def _optional(cls, name) -> bool:
+    f = {x.name: x for x in dataclasses.fields(cls)}[name]
+    return f.default is None
 
 
 def scene_from_arrays(arrays: dict[str, np.ndarray]) -> st.Scene:
     """Build a port Scene from {"group.field": ndarray}.
 
-    Keys outside slice 1's subset (textures, media, env maps, modifier
-    tables, ...) raise NotImplementedError naming them; missing keys of the
-    subset raise KeyError."""
+    Keys outside the port's subset (media, modifier tables, per-vertex
+    colors, ...) raise NotImplementedError naming them; missing keys of
+    the subset raise KeyError, except the optional ones (the texture atlas,
+    an image environment's tables), which may be absent or None."""
     known = {f"{g}.{f.name}" for g, cls in _GROUPS.items()
              for f in dataclasses.fields(cls)}
     extra = sorted(k for k, v in arrays.items()
@@ -40,11 +49,19 @@ def scene_from_arrays(arrays: dict[str, np.ndarray]) -> st.Scene:
         raise NotImplementedError(f"camera kind {kind} not yet ported")
     parts = {}
     for g, cls in _GROUPS.items():
+        if g in _OPTIONAL and all(arrays.get(f"{g}.{f.name}") is None
+                                  for f in dataclasses.fields(cls)):
+            parts[g] = None
+            continue
         kw = {}
         for f in dataclasses.fields(cls):
             if g == "camera" and f.name == "kind":
                 continue
-            kw[f.name] = st._t(arrays[f"{g}.{f.name}"])
+            key = f"{g}.{f.name}"
+            if _optional(cls, f.name) and arrays.get(key) is None:
+                kw[f.name] = None
+            else:
+                kw[f.name] = st._t(arrays[key])
         parts[g] = cls(**kw)
     return st.Scene(**parts)
 
@@ -57,8 +74,8 @@ def replace_leaves(scene: st.Scene, leaves: dict) -> st.Scene:
     groups: dict[str, dict] = {}
     for key, value in leaves.items():
         g, _, f = key.partition(".")
-        if g not in _GROUPS or f not in {x.name for x in
-                                         dataclasses.fields(_GROUPS[g])}:
+        if (g not in _GROUPS or getattr(scene, g) is None
+                or f not in {x.name for x in dataclasses.fields(_GROUPS[g])}):
             raise KeyError(f"no scene leaf {key!r}")
         groups.setdefault(g, {})[f] = value
     return dataclasses.replace(scene, **{

@@ -1,9 +1,11 @@
 """Flat SoA scene representation (counterpart of
 drmlt_mitsuba_tpu/scene/types.py), as dataclasses of torch tensors.
 
-Slice 1 carries the subset the path technique runs on: a triangle soup, an
-(empty) sphere table, a material table without modifier wrappers, area
-emitters plus a constant environment, and a perspective camera.  Field names
+The port carries the reference megakernels' scene subset: a triangle soup,
+analytic spheres, a material table without modifier wrappers (its albedo
+constant or from a bitmap page of the texture atlas), area emitters plus a
+constant or lat-long image environment, and a perspective camera (pinhole
+or thin lens).  Field names
 and enum values are the reference's, so `scene/convert.py` can carry a
 reference scene across leaf for leaf.  Above BVH_MIN_TRIS triangles
 `prepare_scene` attaches a BVH (scene/bvh.py), which every kernel walks
@@ -35,6 +37,7 @@ BSDF_HK = 14
 BSDF_IRAWAN = 15
 
 EMITTER_AREA = 0
+EMITTER_ENV = 4          # lat-long image environment
 
 CAMERA_PERSPECTIVE = 0
 
@@ -90,9 +93,17 @@ class MaterialTable:
 
 
 @dataclasses.dataclass
+class TextureAtlas:
+    """Bitmap albedo pages, (N, H, W, 3) float32; a material's tex_id
+    names its page (-1: constant albedo)."""
+    data: torch.Tensor
+
+
+@dataclasses.dataclass
 class EmitterTable:
-    """Power-weighted emitter rows (area triangles) plus a constant
-    environment radiance."""
+    """Power-weighted emitter rows (area triangles, and one row for an
+    image environment) plus a constant environment radiance; an image
+    environment carries its lat-long image and sampling tables."""
     kind: torch.Tensor        # (E,) int32
     tri_idx: torch.Tensor     # (E,) int32
     radiance: torch.Tensor    # (E, 3)
@@ -102,6 +113,10 @@ class EmitterTable:
     pmf: torch.Tensor         # (E,)
     cdf: torch.Tensor         # (E,) inclusive
     env_radiance: torch.Tensor  # (3,)
+    env_image: torch.Tensor | None = None    # (He, We, 3)
+    env_row_cdf: torch.Tensor | None = None  # (He,) marginal row cdf
+    env_col_cdf: torch.Tensor | None = None  # (He, We) per-row column cdf
+    env_pmf: torch.Tensor | None = None      # (He, We) pixel pmf
 
 
 @dataclasses.dataclass
@@ -137,6 +152,7 @@ class Scene:
     emitters: EmitterTable
     camera: Camera
     bvh: BVH | None = None
+    textures: TextureAtlas | None = None
 
 
 def prepare_scene(scene: Scene) -> Scene:
@@ -227,9 +243,12 @@ _LUM_W = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
 
 def build_emitters(tris: TriangleSoA, radiance_by_emitter,
-                   env_radiance=(0.0, 0.0, 0.0)) -> EmitterTable:
+                   env_radiance=(0.0, 0.0, 0.0), env_image=None,
+                   scene_radius: float = 1000.0) -> EmitterTable:
     """One power-weighted area row per emissive triangle (pick ∝ power,
-    then uniform barycentric), as in the reference's build_emitters."""
+    then uniform barycentric), and for a lat-long `env_image` (He, We, 3)
+    one environment row with its sampling tables (pixel pmf ∝ luminance x
+    sin theta), as in the reference's build_emitters (types.py:480)."""
     kinds, tri_rows, rads, areas, power = [], [], [], [], []
     eid = tris.emitter_id.numpy()
     e1s, e2s = tris.e1.numpy(), tris.e2.numpy()
@@ -242,6 +261,14 @@ def build_emitters(tris: TriangleSoA, radiance_by_emitter,
         rads.append(rad)
         areas.append(area)
         power.append(max(float(rad @ _LUM_W) * area * np.pi, 1e-12))
+    if env_image is not None:
+        img = np.asarray(env_image, np.float32)
+        kinds.append(EMITTER_ENV)
+        tri_rows.append(0)
+        rads.append(img.mean(axis=(0, 1)))
+        areas.append(0.0)
+        mean_lum = float((img @ _LUM_W).mean())
+        power.append(max(mean_lum * np.pi * scene_radius ** 2, 1e-12))
     if not kinds:   # keep shapes static: one dummy zero-power area row
         kinds, tri_rows, areas, power = [EMITTER_AREA], [0], [0.0], [1.0]
         rads = [np.zeros(3, np.float32)]
@@ -250,14 +277,39 @@ def build_emitters(tris: TriangleSoA, radiance_by_emitter,
     pmf = power / power.sum()
     cdf = np.cumsum(pmf).astype(np.float32)
     cdf[-1] = 1.0
+    env = {}
+    if env_image is not None:
+        he, we = img.shape[:2]
+        theta = (np.arange(he) + 0.5) / he * np.pi
+        w = np.maximum((img @ _LUM_W) * np.sin(theta)[:, None], 1e-12)
+        px = w / w.sum()
+        row_p = px.sum(axis=1)
+        row_cdf = np.cumsum(row_p)
+        row_cdf[-1] = 1.0
+        col_cdf = np.cumsum(px / row_p[:, None], axis=1)
+        col_cdf[:, -1] = 1.0
+        env = dict(env_image=_t(img), env_row_cdf=_t(row_cdf, np.float32),
+                   env_col_cdf=_t(col_cdf, np.float32),
+                   env_pmf=_t(px, np.float32))
     return EmitterTable(
         kind=_t(kinds, np.int32), tri_idx=_t(tri_rows, np.int32),
         radiance=_t(np.stack(rads)), area=_t(areas, np.float32),
         pos=torch.zeros((E, 3), dtype=torch.float32),
         aux=torch.zeros((E, 4), dtype=torch.float32),
         pmf=_t(pmf), cdf=_t(cdf),
-        env_radiance=_t(env_radiance, np.float32),
+        env_radiance=_t(env_radiance, np.float32), **env,
     )
+
+
+def make_spheres(centers, radii, mat_ids) -> SphereSoA:
+    """Valid, non-emissive analytic spheres (emissive spheres are
+    tessellated into triangles, as in the reference's loader)."""
+    n = len(radii)
+    return SphereSoA(
+        center=_t(np.asarray(centers, np.float32).reshape(n, 3)),
+        radius=_t(radii, np.float32), mat_id=_t(mat_ids, np.int32),
+        emitter_id=torch.full((n,), -1, dtype=torch.int32),
+        valid=torch.ones((n,), dtype=torch.bool))
 
 
 def set_emitter_rows(tris: TriangleSoA, emitters: EmitterTable):
@@ -267,6 +319,8 @@ def set_emitter_rows(tris: TriangleSoA, emitters: EmitterTable):
     row_of_tri = np.full(tris.v0.shape[0], -1, np.int32)
     row_of_tri[emitters.tri_idx.numpy()[area_rows]] = area_rows.astype(
         np.int32)
+    # a scene without emissive triangles keeps its dummy row unhit
+    row_of_tri[tris.emitter_id.numpy() < 0] = -1
     tris.emitter_id = _t(row_of_tri)
 
 

@@ -7,16 +7,25 @@ key=value`), into the port's `Scene` and a `RenderSettings` record with
 the integrator, sampler and film configuration.  It reads what the ported
 kernels render:
 
-  top level : <default>, <integrator>, <sensor type="perspective">
-              (fov, fovAxis, toWorld; <sampler> sampleCount; <film
-              type="hdrfilm"> width, height, <rfilter>), <bsdf>, <shape>
-  bsdfs     : diffuse, roughdiffuse, dielectric, and the twosided wrapper;
-              shapes may <ref> a bsdf by id
-  shapes    : obj, rectangle, cube, each with an optional <emitter
+  top level : <default>, <integrator>, <sensor type="perspective"> or
+              "thinlens" (fov, fovAxis, apertureRadius, focusDistance,
+              toWorld; <sampler> sampleCount; <film type="hdrfilm">
+              width, height, <rfilter>), <bsdf>, <shape>, <emitter>
+  bsdfs     : diffuse, roughdiffuse, dielectric, conductor, roughconductor
+              (eta / k or a `material` preset), null, and the twosided
+              wrapper; shapes may <ref> a bsdf by id; a <texture> child
+              (checkerboard, gridtexture) becomes a 256x256 page of the
+              texture atlas
+  shapes    : obj, rectangle, cube, sphere (analytic; tessellated when it
+              carries an area emitter), each with an optional <emitter
               type="area">, and a <transform> of translate / rotate /
               scale / matrix / lookat
+  emitters  : constant, envmap (an EXR file; a missing file warns and
+              becomes a constant unit environment, as in the reference)
 
-Any other element raises NotImplementedError naming its tag and type.
+Any other element raises NotImplementedError naming its tag and type; so
+do bitmap textures and non-EXR environment maps, which the reference
+decodes and resizes with PIL.
 Every array equals the reference loader's on the same file, leaf for
 leaf: the same float64 transform products rounded once, the same vertex
 welding and emitter rows.
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -32,6 +42,19 @@ import numpy as np
 from drmlt_mitsuba_tpu_torch.core import transform as tf
 from drmlt_mitsuba_tpu_torch.scene import types as st
 from drmlt_mitsuba_tpu_torch.scene.mesh_io import load_mesh_ex
+from drmlt_mitsuba_tpu_torch.utils.exr import read_exr
+
+# conductor IOR presets (eta, k) as RGB (the reference loader's, from the
+# reference's data/ior/*.spd tables collapsed to sRGB primaries)
+CONDUCTORS = {
+    "cu": ((0.200, 0.924, 1.102), (3.912, 2.448, 2.138)),
+    "au": ((0.143, 0.375, 1.442), (3.983, 2.386, 1.603)),
+    "ag": ((0.155, 0.116, 0.138), (4.818, 3.122, 2.146)),
+    "al": ((1.345, 0.965, 0.617), (7.475, 6.400, 5.303)),
+    "cr": ((4.361, 2.910, 1.651), (5.196, 4.222, 3.746)),
+    "ni": ((2.361, 1.663, 1.468), (4.498, 3.051, 2.344)),
+    "none": ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),
+}
 
 # dielectric IOR presets (the reference's src/bsdfs/ior.h)
 IORS = {
@@ -47,7 +70,11 @@ _FILTERS = {"box": "box", "tent": "tent", "gaussian": "gaussian",
             "lanczos": "lanczos", "lanczossinc": "lanczos"}
 _BSDF_KINDS = {"diffuse": st.BSDF_DIFFUSE,
                "roughdiffuse": st.BSDF_ROUGH_DIFFUSE,
-               "dielectric": st.BSDF_DIELECTRIC}
+               "dielectric": st.BSDF_DIELECTRIC,
+               "conductor": st.BSDF_CONDUCTOR,
+               "roughconductor": st.BSDF_ROUGH_CONDUCTOR,
+               "null": st.BSDF_NULL}
+TEX_SIZE = 256   # atlas page width and height
 _PROPERTY_TAGS = ("integer", "float", "boolean", "string", "rgb", "srgb",
                   "spectrum", "point", "vector")
 
@@ -165,14 +192,52 @@ def _check_children(node, allowed, where):
             _unported(c, where)
 
 
-def _parse_bsdf(node, defaults, materials):
+def _parse_texture(node, defaults, textures):
+    """Bake a <texture> into a TEX_SIZE x TEX_SIZE atlas page (the
+    reference loader's pages, xml.py:188-240); returns its index."""
+    ttype = _subst(node.get("type"), defaults)
+    props = _props(node, defaults)
+    size = TEX_SIZE
+    c0 = props.get("color0", np.full(3, 0.4, np.float32))
+    c1 = props.get("color1", np.full(3, 0.2, np.float32))
+    if ttype == "checkerboard":
+        us = max(1, int(round(float(props.get("uscale", 1.0)))))
+        vs = max(1, int(round(float(props.get("vscale", 1.0)))))
+        yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        cell = ((xx * 2 * us // size) + (yy * 2 * vs // size)) % 2
+        page = np.where(cell[..., None] == 0, c0, c1).astype(np.float32)
+    elif ttype == "gridtexture":
+        lw = float(props.get("lineWidth", 0.01))
+        us = max(1e-6, float(props.get("uscale", 1.0)))
+        vs = max(1e-6, float(props.get("vscale", 1.0)))
+        uu = (np.arange(size) + 0.5) / size * us % 1.0
+        vv = (np.arange(size) + 0.5) / size * vs % 1.0
+        on_u = (uu < lw) | (uu > 1.0 - lw)
+        on_v = (vv < lw) | (vv > 1.0 - lw)
+        line = on_u[None, :] | on_v[:, None]
+        page = np.where(line[..., None], c1, c0).astype(np.float32)
+    elif ttype == "bitmap":
+        raise NotImplementedError(
+            "scene XML <texture type='bitmap'> is not ported: the reference "
+            "decodes and resizes it with PIL, which the port does not use")
+    else:
+        _unported(node)
+    textures.append(page)
+    return len(textures) - 1
+
+
+def _parse_bsdf(node, defaults, materials, textures):
     """Append a <bsdf>'s material row; returns its index."""
     btype = _subst(node.get("type"), defaults)
     props = {}
+    tex_id = -1
     while True:
-        _check_children(node, _PROPERTY_TAGS + ("bsdf",),
+        _check_children(node, _PROPERTY_TAGS + ("bsdf", "texture"),
                         f" in <bsdf type={btype!r}>")
         props.update(_props(node, defaults))
+        tex = node.find("texture")
+        if tex is not None and tex_id < 0:
+            tex_id = _parse_texture(tex, defaults, textures)
         if btype != "twosided":
             break
         inner = node.find("bsdf")
@@ -183,7 +248,7 @@ def _parse_bsdf(node, defaults, materials):
     kind = _BSDF_KINDS.get(btype)
     if kind is None:
         _unported(node)
-    mat = dict(kind=kind, two_sided=True, tex_id=-1)
+    mat = dict(kind=kind, two_sided=True, tex_id=tex_id)
     refl = props.get("reflectance", props.get("diffuseReflectance"))
     if refl is not None:
         mat["albedo"] = refl
@@ -191,6 +256,11 @@ def _parse_bsdf(node, defaults, materials):
         mat["spec_refl"] = props["specularReflectance"]
     if "specularTransmittance" in props:
         mat["spec_trans"] = props["specularTransmittance"]
+    if kind in (st.BSDF_CONDUCTOR, st.BSDF_ROUGH_CONDUCTOR):
+        eta, k = CONDUCTORS.get(str(props.get("material", "cu")).lower(),
+                                CONDUCTORS["cu"])
+        mat["eta"] = props.get("eta", np.asarray(eta, np.float32))
+        mat["k"] = props.get("k", np.asarray(k, np.float32))
     if kind == st.BSDF_DIELECTRIC:
         int_ior = _resolve_ior(props.get("intIOR", 1.5046))
         ext_ior = _resolve_ior(props.get("extIOR", 1.000277))
@@ -233,16 +303,18 @@ def _apply_transform(m, v, n):
 
 
 def _parse_sensor(sensor, defaults, settings):
-    """(to_world, horizontal fov in degrees) of a perspective sensor; the
+    """(to_world, horizontal fov in degrees, aperture radius, focus
+    distance) of a perspective or thin-lens sensor (a perspective sensor
+    with an apertureRadius is a thin lens, as in the reference loader); the
     film and sampler fill `settings`."""
     stype = _subst(sensor.get("type"), defaults)
-    if stype != "perspective":
+    if stype not in ("perspective", "thinlens"):
         _unported(sensor)
     _check_children(sensor, _PROPERTY_TAGS + ("transform", "film",
                                               "sampler"), " in <sensor>")
     sprops = _props(sensor, defaults)
-    if float(sprops.get("apertureRadius", 0.0)) > 0:
-        raise NotImplementedError("a thin-lens aperture is not yet ported")
+    aperture = float(sprops.get("apertureRadius", 0.0))
+    focus = float(sprops.get("focusDistance", 1.0))
     fov = float(sprops.get("fov", 39.3077))
     fov_axis = sprops.get("fovAxis", "x")
     to_world = np.eye(4, dtype=np.float32)
@@ -267,13 +339,40 @@ def _parse_sensor(sensor, defaults, settings):
     if fov_axis == "y":
         aspect0 = settings.width / settings.height
         fov = np.rad2deg(2 * np.arctan(np.tan(np.deg2rad(fov) / 2) * aspect0))
-    return to_world, fov
+    return to_world, fov, aperture, focus
 
 
-def _parse_shape(sh, defaults, base, materials, mat_by_id):
-    """(v, f, n, uv, material row, area radiance or None) of a <shape>."""
+def _unit_sphere_mesh(n_theta=12, n_phi=24):
+    """UV-sphere triangulation (unit radius, origin center) with smooth
+    per-vertex normals: an emissive sphere becomes triangles, because the
+    emitter table holds triangle rows only (the reference loader's
+    xml.py:510)."""
+    th = np.linspace(0.0, np.pi, n_theta + 1)
+    ph = np.linspace(0.0, 2.0 * np.pi, n_phi, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    v = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp),
+                  np.cos(tt)], -1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange((n_theta + 1) * n_phi).reshape(n_theta + 1, n_phi)
+    faces = []
+    for i in range(n_theta):
+        a, b = idx[i], idx[i + 1]
+        an, bn = np.roll(a, -1), np.roll(b, -1)
+        if i > 0:                       # skip the degenerate pole strip
+            faces.append(np.stack([a, b, an], -1))
+        if i < n_theta - 1:
+            faces.append(np.stack([an, b, bn], -1))
+    f = np.concatenate(faces).astype(np.int32)
+    uv = np.stack([pp / (2.0 * np.pi), 1.0 - tt / np.pi], -1).reshape(-1, 2)
+    return v, f, v.copy(), uv.astype(np.float32)
+
+
+def _parse_shape(sh, defaults, base, materials, mat_by_id, textures,
+                 spheres):
+    """(v, f, n, uv, material row, area radiance or None) of a <shape>; an
+    analytic sphere goes to `spheres` as (center, radius, material row)
+    and returns None."""
     stype = _subst(sh.get("type"), defaults)
-    if stype not in ("obj", "rectangle", "cube"):
+    if stype not in ("obj", "rectangle", "cube", "sphere"):
         _unported(sh)
     _check_children(sh, _PROPERTY_TAGS + ("transform", "ref", "bsdf",
                                           "emitter"),
@@ -286,7 +385,8 @@ def _parse_shape(sh, defaults, base, materials, mat_by_id):
     if ref is not None and ref.get("id") in mat_by_id:
         mat_idx = mat_by_id[ref.get("id")]
     elif sh.find("bsdf") is not None:
-        mat_idx = _parse_bsdf(sh.find("bsdf"), defaults, materials)
+        mat_idx = _parse_bsdf(sh.find("bsdf"), defaults, materials,
+                              textures)
     else:
         materials.append(dict(kind=st.BSDF_DIFFUSE))
         mat_idx = len(materials) - 1
@@ -303,12 +403,53 @@ def _parse_shape(sh, defaults, base, materials, mat_by_id):
         v, f, n, uv, _ = load_mesh_ex(fpath, props.get("shapeIndex", 0))
         if props.get("faceNormals"):
             n = None
+    elif stype == "sphere":
+        center = props.get("center", np.zeros(3, np.float32))
+        radius = float(props.get("radius", 1.0))
+        center = (m[:3, :3] @ center + m[:3, 3]).astype(np.float32)
+        radius = radius * float(np.linalg.norm(m[:3, 0]))
+        if radiance is None:
+            spheres.append((center, radius, mat_idx))
+            return None
+        v, f, n, uv = _unit_sphere_mesh()
+        return ((v * radius + center).astype(np.float32), f, n, uv, mat_idx,
+                radiance)
     elif stype == "rectangle":
         v, f, n, uv = _unit_rect()
     else:
         v, f, n, uv = _unit_cube()
     v, n = _apply_transform(m, v, n)
     return v, f, n, uv, mat_idx, radiance
+
+
+def _parse_emitter(em, defaults, base, env):
+    """A top-level <emitter>: a constant or an image (EXR) environment,
+    into env = {"radiance": (3,), "image": (He, We, 3) or None}."""
+    etype = _subst(em.get("type"), defaults)
+    _check_children(em, _PROPERTY_TAGS + ("transform",),
+                    f" in <emitter type={etype!r}>")
+    props = _props(em, defaults)
+    if etype == "constant":
+        env["radiance"] = props.get("radiance", np.ones(3, np.float32))
+    elif etype == "envmap":
+        fname = props.get("filename")
+        fpath = fname if os.path.isabs(fname) else os.path.join(base, fname)
+        if not os.path.exists(fpath):
+            warnings.warn(f"envmap {fname!r} not found; using a constant "
+                          "unit environment")
+            env["radiance"] = np.maximum(
+                env["radiance"],
+                np.full(3, float(props.get("scale", 1.0)), np.float32))
+            return
+        if not fname.lower().endswith(".exr"):
+            raise NotImplementedError(
+                f"scene XML <emitter type='envmap'> {fname!r} is not ported: "
+                "the reference decodes a non-EXR map with PIL, which the "
+                "port does not use")
+        env["image"] = (read_exr(fpath)[..., :3]
+                        * float(props.get("scale", 1.0)))
+    else:
+        _unported(em)
 
 
 def load_scene_xml(path: str, defaults: dict | None = None):
@@ -319,22 +460,30 @@ def load_scene_xml(path: str, defaults: dict | None = None):
     for d in root.findall("default"):
         defaults.setdefault(d.get("name"), d.get("value"))
     _check_children(root, ("default", "integrator", "sensor", "bsdf",
-                           "shape"), "")
+                           "shape", "emitter"), "")
 
     materials: list = []
     mat_by_id: dict = {}
+    textures: list = []
+    spheres: list = []
     for b in root.findall("bsdf"):
-        idx = _parse_bsdf(b, defaults, materials)
+        idx = _parse_bsdf(b, defaults, materials, textures)
         if b.get("id"):
             mat_by_id[b.get("id")] = idx
-    meshes = [_parse_shape(sh, defaults, base, materials, mat_by_id)
-              for sh in root.findall("shape")]
+    meshes = [m for m in (_parse_shape(sh, defaults, base, materials,
+                                       mat_by_id, textures, spheres)
+                          for sh in root.findall("shape")) if m is not None]
+    env = dict(radiance=np.zeros(3, np.float32), image=None)
+    for em in root.findall("emitter"):
+        _parse_emitter(em, defaults, base, env)
 
     settings = RenderSettings(integrator=dict(type="path"))
     to_world, fov = np.eye(4, dtype=np.float32), 39.3077
+    aperture, focus = 0.0, 1.0
     sensor = root.find("sensor")
     if sensor is not None:
-        to_world, fov = _parse_sensor(sensor, defaults, settings)
+        to_world, fov, aperture, focus = _parse_sensor(sensor, defaults,
+                                                       settings)
     integrator = root.find("integrator")
     if integrator is not None:
         props_i = _props(integrator, defaults)
@@ -348,7 +497,14 @@ def load_scene_xml(path: str, defaults: dict | None = None):
 
     # ---- the SoA scene ---------------------------------------------------
     if not meshes:
-        raise NotImplementedError(f"{path}: a scene without shapes")
+        if not spheres:
+            raise NotImplementedError(f"{path}: a scene without shapes")
+        # the reference keeps the triangle table non-empty with one
+        # degenerate triangle
+        if not materials:
+            materials.append(dict(kind=st.BSDF_DIFFUSE))
+        meshes = [(np.zeros((3, 3), np.float32),
+                   np.asarray([[0, 1, 2]], np.int32), None, None, 0, None)]
     all_f, all_mat, all_emid, emitter_rads = [], [], [], []
     voff = 0
     for v, f, _, _, mat_idx, radiance in meshes:
@@ -392,11 +548,17 @@ def load_scene_xml(path: str, defaults: dict | None = None):
 
     rad_table = (np.stack(emitter_rads) if emitter_rads
                  else np.zeros((1, 3), np.float32))
-    emitters = st.build_emitters(tris, rad_table)
+    emitters = st.build_emitters(tris, rad_table, env_radiance=env["radiance"],
+                                 env_image=env["image"])
     st.set_emitter_rows(tris, emitters)
 
-    camera = st.make_camera(to_world, fov, settings.width / settings.height)
-    scene = st.Scene(tris=tris, spheres=st.empty_spheres(),
+    camera = st.make_camera(to_world, fov, settings.width / settings.height,
+                            aperture, focus)
+    scene = st.Scene(tris=tris,
+                     spheres=(st.make_spheres(*zip(*spheres)) if spheres
+                              else st.empty_spheres()),
                      materials=st.make_material_table(materials),
-                     emitters=emitters, camera=camera)
+                     emitters=emitters, camera=camera,
+                     textures=(st.TextureAtlas(data=st._t(np.stack(textures)))
+                               if textures else None))
     return scene, settings

@@ -9,6 +9,9 @@ integrator=drmlt over the path and the MMLT technique).
     python -m drmlt_mitsuba_tpu_torch.utils.cli veach -D technique=mmlt \\
         -D variant=orbital -D maxDepth=6 --chains 65536 --spp 256 -o veach.exr
 
+    python -m drmlt_mitsuba_tpu_torch.utils.cli tests/data/cornell.xml \
+        -D integrator=drmlt -D technique=mmlt --chains 65536 --spp 4096
+
 The scene argument is a Mitsuba scene XML (scene/xml.py reads the ported
 subset; `-D key=value` substitutes `$key`, and the film size, filter,
 sampleCount and the integrator's properties come from the file, as in the
@@ -84,6 +87,12 @@ def load_scene(name: str, defs: dict):
         "tallBox", "diffuse")), settings
 
 
+def _thinlens(scene) -> bool:
+    """True when the camera has a lens (aperture > 0): the traces then read
+    the lens dims (the reference CLI's cli.py:42)."""
+    return float(scene.camera.aperture_radius) > 0.0
+
+
 def render(args, scene, settings: RenderSettings, device):
     defs = settings.integrator
     if defs.get("type") != "drmlt":
@@ -120,14 +129,16 @@ def render(args, scene, settings: RenderSettings, device):
     gen.manual_seed(args.seed)
     if technique == "mmlt":
         bcfg = BDPTConfig(max_depth=int(defs.get("maxDepth", 5)),
-                          light_image=_pbool(defs.get("lightImage"), True))
+                          light_image=_pbool(defs.get("lightImage"), True),
+                          thinlens=_thinlens(scene))
         return render_drmlt_mmlt_grouped(
             scene, bcfg, cfg, fc, gen, n_steps,
             min_group=max(64, min(1024, args.chains // 4)),
             equal_chains=_pbool(defs.get("equalChains"), True))
     md = int(defs.get("maxDepth", 8))
     pcfg = PathConfig(max_depth=md if md > 0 else 12, rr_depth=100,
-                      min_depth=int(defs.get("minDepth", 1)))
+                      min_depth=int(defs.get("minDepth", 1)),
+                      thinlens=_thinlens(scene))
     return render_drmlt_path(scene, pcfg, cfg, fc, gen, n_steps)
 
 

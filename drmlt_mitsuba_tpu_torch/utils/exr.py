@@ -1,7 +1,9 @@
-"""Minimal OpenEXR 2.0 scanline writer in pure numpy (the writer half of
-drmlt_mitsuba_tpu/utils/exr.py, copied so the port does not import the
-reference package).  Writes uncompressed or ZIP/ZIPS scanline RGB(A)
-images in HALF or FLOAT.
+"""Minimal OpenEXR 2.0 scanline IO in pure numpy (a copy of
+drmlt_mitsuba_tpu/utils/exr.py, so the port does not import the reference
+package).  Writes uncompressed or ZIP/ZIPS scanline RGB(A) images in HALF
+or FLOAT; reads uncompressed and ZIP/ZIPS single-part scanline files
+(zlib and the EXR byte-deinterleave predictor), the environment maps of
+scene XMLs.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ _MAGIC = 20000630
 _HALF = 1
 _FLOAT = 2
 
+_PIXEL_SIZE = {_HALF: 2, _FLOAT: 4}
 _NP_TYPE = {_HALF: np.float16, _FLOAT: np.float32}
 
 
@@ -91,3 +94,89 @@ def _exr_zip_compress(raw: bytes) -> bytes:
     delta[1:] = (d & 0xFF).astype(np.uint8)
     z = zlib.compress(delta.tobytes())
     return z if len(z) < n else raw
+
+
+def _exr_zip_decompress(data: bytes, expected: int) -> bytes:
+    if len(data) == expected:
+        return data
+    raw = zlib.decompress(data)
+    buf = np.frombuffer(raw, np.uint8)
+    n = len(buf)
+    half = (n + 1) // 2
+    # OpenEXR Zip::uncompress: undo the predictor over the flat buffer
+    # (out[i] = out[i-1] + in[i] - 128 mod 256), then interleave the two
+    # halves back to byte order
+    rec = np.empty(n, np.uint8)
+    rec[0] = buf[0]
+    rec[1:] = (int(buf[0]) + np.cumsum(buf[1:].astype(np.int64) - 128)) & 0xFF
+    inter = np.empty(n, np.uint8)
+    inter[0::2] = rec[:half]
+    inter[1::2] = rec[half:]
+    return inter.tobytes()
+
+
+def read_exr(path: str) -> np.ndarray:
+    """(H, W, C) float32 image of a single-part scanline EXR with NO, ZIPS
+    or ZIP compression and HALF or FLOAT channels (R, G, B(, A) in that
+    order)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, _ = struct.unpack_from("<ii", data, 0)
+    if magic != _MAGIC:
+        raise ValueError(f"{path}: not an EXR file")
+    pos = 8
+    attrs = {}
+    while data[pos] != 0:
+        e = data.index(b"\x00", pos)
+        name = data[pos:e].decode()
+        pos = e + 1
+        e = data.index(b"\x00", pos)
+        type_ = data[pos:e].decode()
+        pos = e + 1
+        (size,) = struct.unpack_from("<i", data, pos)
+        pos += 4
+        attrs[name] = (type_, data[pos:pos + size])
+        pos += size
+    pos += 1
+
+    chdata = attrs["channels"][1]
+    channels = []
+    cp = 0
+    while chdata[cp] != 0:
+        e = chdata.index(b"\x00", cp)
+        cname = chdata[cp:e].decode()
+        cp = e + 1
+        ptype, _, _, _ = struct.unpack_from("<iiii", chdata, cp)
+        cp += 16
+        channels.append((cname, ptype))
+    (comp,) = struct.unpack_from("<B", attrs["compression"][1], 0)
+    if comp not in (0, 2, 3):
+        raise NotImplementedError(f"{path}: EXR compression {comp} is not "
+                                  f"read (NONE, ZIPS and ZIP are)")
+    x0, y0, x1, y1 = struct.unpack_from("<iiii", attrs["dataWindow"][1], 0)
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+
+    lines_per_block = {0: 1, 2: 1, 3: 16}[comp]
+    n_blocks = -(-h // lines_per_block)
+    offsets = struct.unpack_from(f"<{n_blocks}q", data, pos)
+
+    out = np.zeros((h, w, len(channels)), np.float32)
+    for off in offsets:
+        y, size = struct.unpack_from("<ii", data, off)
+        blk = data[off + 8: off + 8 + size]
+        nlines = min(lines_per_block, h - (y - y0))
+        expected = sum(w * _PIXEL_SIZE[pt] for _, pt in channels) * nlines
+        raw = _exr_zip_decompress(blk, expected) if comp else blk
+        bp = 0
+        for li in range(nlines):
+            for ci, (_, ptype) in enumerate(channels):
+                arr = np.frombuffer(raw, _NP_TYPE[ptype], count=w, offset=bp)
+                out[y - y0 + li, :, ci] = arr.astype(np.float32)
+                bp += w * _PIXEL_SIZE[ptype]
+
+    names = [c[0] for c in channels]
+    if names == ["B", "G", "R"]:
+        out = out[..., ::-1]
+    elif names == ["A", "B", "G", "R"]:
+        out = out[..., [3, 2, 1, 0]]
+    return out

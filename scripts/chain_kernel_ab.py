@@ -15,10 +15,15 @@ into a library of its own under build/chain_ab/; the checkout's own
 kernels come from ops/build.py.  A build's entry point is
 `drmlt_chain_launch` (the template over the trace body) or
 `drmlt_path_launch` (slice 1's path-only kernel); a build from before
-the BVH walk (no bvh.cuh) is called without the node-table arguments.
+the full scene scope (no SceneExt) is called without the scene-scope
+arguments, and one from before the BVH walk (no bvh.cuh) without the
+node-table arguments too.
 
-On cornell_box(256, 256), PathConfig(max_depth=8, rr_depth=100) and
-orbital DRMLT with the sampled splat at 65,536 chains it reports:
+On cornell_box(256, 256) (`--scene cornell`, the instantiation of
+slices 1-4) or cornell_scope(256, 256, "const") (`--scene const`, the
+full scene scope, which every build compared must have),
+PathConfig(max_depth=8, rr_depth=100) and orbital DRMLT with the sampled
+splat at 65,536 chains it reports:
   * ms per launch of 64 mutations in path mode (CUDA events over 3
     launches after one warm-up), every build in the order A B ... B A,
     --rounds times; and the same in mmlt mode at k = 6 for the builds
@@ -29,7 +34,8 @@ orbital DRMLT with the sampled splat at 65,536 chains it reports:
   * the build time of the checkout's csrc/: one nvcc per source in
     parallel (ops/build.py) against one nvcc command for all sources, in
     turns.
-Prints one JSON line and writes chiprun_out/chain_kernel_ab.json.
+Prints one JSON line and writes chiprun_out/chain_kernel_ab.json
+(chain_kernel_ab_const.json with `--scene const`).
 """
 from __future__ import annotations
 
@@ -63,7 +69,9 @@ from drmlt_mitsuba_tpu_torch.integrators.path import (  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import build  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt as MD  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megatrace as MT  # noqa: E402
-from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box  # noqa: E402
+from drmlt_mitsuba_tpu_torch.scene.builders import (  # noqa: E402
+    cornell_box, cornell_scope,
+)
 
 CHAINS = 65536
 SIZE = 256
@@ -113,17 +121,27 @@ def build_single(src: Path, out: Path):
     return time.perf_counter() - t0, res.stdout + res.stderr
 
 
-class _NoNodeTable:
-    """A build from before the BVH walk: its drmlt_chain_launch takes no
-    node table (the four arguments after cam), so they are dropped."""
+# the scene-scope arguments after the node table (ops/build.py:_SCENE),
+# the last of them the `full` flag
+N_SCOPE = 16
 
-    def __init__(self, lib):
-        self.lib = lib
+
+class _OlderBuild:
+    """A build from before the full scene scope (no SceneExt in
+    path_trace.cuh), and perhaps from before the BVH walk (no bvh.cuh):
+    its drmlt_chain_launch lacks those arguments, which are dropped."""
+
+    def __init__(self, lib, walk):
+        self.lib, self.walk = lib, walk
 
     def drmlt_chain_launch(self, *args):
-        if args[10]:
+        if args[10] and not self.walk:
             raise ValueError("this build cannot walk a BVH")
-        return self.lib.drmlt_chain_launch(*args[:7], *args[11:])
+        if args[10 + N_SCOPE]:
+            raise ValueError("this build has the scene scope of slices 1-4")
+        return self.lib.drmlt_chain_launch(
+            *args[:7], *(args[7:11] if self.walk else ()),
+            *args[11 + N_SCOPE:])
 
 
 def load(path: Path, src: Path):
@@ -132,10 +150,12 @@ def load(path: Path, src: Path):
     if hasattr(lib, "drmlt_chain_launch"):
         entry, sig = "drmlt_chain_launch", build._SIGNATURES[
             "drmlt_chain_launch"]
-        if not (src / "bvh.cuh").exists():
-            lib.drmlt_chain_launch.argtypes = sig[:7] + sig[11:]
+        walk = (src / "bvh.cuh").exists()
+        if "SceneExt" not in (src / "path_trace.cuh").read_text():
+            lib.drmlt_chain_launch.argtypes = (
+                sig[:7] + (sig[7:11] if walk else []) + sig[11 + N_SCOPE:])
             lib.drmlt_chain_launch.restype = ctypes.c_int
-            return _NoNodeTable(lib), entry
+            return _OlderBuild(lib, walk), entry
     else:
         entry, sig = "drmlt_path_launch", PATH_LAUNCH_SIG
     fn = getattr(lib, entry)
@@ -159,7 +179,7 @@ def step(lib, entry, tables, cfg, state, film, stats, seed, launch):
     scratch = torch.empty((2 * D, C), dtype=torch.float32,
                           device=state.device)
     rc = lib.drmlt_path_launch(
-        *MT.table_args(tables)[:7], *MT.table_args(tables)[11:],
+        *MT.table_args(tables)[:7], *MT.table_args(tables)[11 + N_SCOPE:],
         state.data_ptr(), scratch.data_ptr(), D, C,
         film.data_ptr(), film.shape[0], film.shape[1], stats.data_ptr(),
         None, MD.n_rand(cfg, D), N_MUT, seed, launch,
@@ -196,6 +216,8 @@ def main():
     ap.add_argument("--other", action="append", default=[],
                     metavar="NAME=DIR", help="another revision's csrc/")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--scene", choices=("cornell", "const"),
+                    default="cornell")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chain_kernel_ab: no CUDA device", file=sys.stderr)
@@ -234,7 +256,9 @@ def main():
         print(f"ptxas {name}: {p}", flush=True)
 
     g = torch.Generator(device=dev).manual_seed(3)
-    scene = cornell_box(SIZE, SIZE)
+    scene = (cornell_box(SIZE, SIZE) if args.scene == "cornell"
+             else cornell_scope(SIZE, SIZE, "const"))
+    report["scene"] = args.scene
     pcfg = PathConfig(max_depth=8, rr_depth=100, min_depth=1)
     tables = MT.make_tables(scene, pcfg, dev)
     trace = make_path_trace(scene, pcfg, dev)
@@ -283,7 +307,8 @@ def main():
                         for n, v in res.items()), flush=True)
 
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
-    with open(ROOT / "chiprun_out" / "chain_kernel_ab.json", "w") as f:
+    out = "chain_kernel_ab" + ("" if args.scene == "cornell" else "_const")
+    with open(ROOT / "chiprun_out" / f"{out}.json", "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"equal_to_checkout": report["equal_to_checkout"],
                       "ms_mean": {c: {n: sum(v) / len(v) for n, v in r.items()}

@@ -466,3 +466,105 @@ def test_raybench_runs_in_both_modes(cuda, tris, capsys):
     text = capsys.readouterr().out
     assert ("mode=bvh" if tris > 4096 else "mode=brute") in text
     assert "MRays/s" in text
+
+
+# ---- slice 5: the trace kernels' full scene scope --------------------------
+@pytest.mark.parametrize("variant", ["kinds", "const", "thinlens", "env64"])
+def test_full_scope_trace_kernels_match_twins(cuda, variant):
+    """The full-scope instantiations (spheres, conductor / rough conductor /
+    null, bitmap albedo, constant and image environments, thin lens) of the
+    path kernel, both adjoints (the albedo one on constant albedos) and the
+    MMLT kernel (not with a thin lens) against their twins."""
+    from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
+    sc = cornell_scope(64, 64, variant)
+    thin = variant == "thinlens"
+    cfg = PathConfig(max_depth=6, rr_depth=3, thinlens=thin)
+    tables = MT.make_tables(sc, cfg, cuda)
+    assert tables.full
+    g = torch.Generator(device=cuda).manual_seed(19)
+    uT = torch.rand((cfg.n_dims, 16384), generator=g, device=cuda)
+    n0 = build.LAUNCHES["path_trace[full]"]
+    _lanes_agree(MT.path_trace(tables, uT), MT.path_trace_reference(tables,
+                                                                    uT))
+    assert build.LAUNCHES["path_trace[full]"] == n0 + 1
+    for fn, twin in ((MT.path_trace_rad, MT.path_trace_rad_reference),
+                     (MT.path_trace_alb, MT.path_trace_alb_reference)):
+        if fn is MT.path_trace_alb and tables.tex_shape is not None:
+            with pytest.raises(ValueError, match="constant albedos"):
+                fn(tables, uT)
+            continue
+        k, t = fn(tables, uT), twin(tables, uT)
+        same = (k[:3] == t[:3]).all(0)
+        assert float(same.float().mean()) >= 0.998
+        torch.testing.assert_close(k[3:, same], t[3:, same], rtol=1e-5,
+                                   atol=0.0)
+    if thin:
+        with pytest.raises(NotImplementedError, match="thin-lens"):
+            MM.make_mmlt_tables(sc, BDPTConfig(max_depth=3), cuda)
+        return
+    for depth in (1, 4):
+        mt = MM.make_mmlt_tables(sc, BDPTConfig(max_depth=depth), cuda)
+        uM = torch.rand((mt.n_core, 16384), generator=g, device=cuda)
+        _lanes_agree(MM.mmlt_trace(mt, uM), MM.mmlt_trace_reference(mt, uM),
+                     atol=1e-5, pos_rows=2)
+
+
+@pytest.mark.parametrize("technique", ["path", "mmlt"])
+def test_full_scope_chain_kernel_matches_twin(cuda, technique):
+    """The chain kernel's full-scope instantiation, both modes, on the
+    image-environment configuration: 2,048 chains x 2 mutations, given
+    uniforms, against its twin."""
+    from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
+    sc = cornell_scope(64, 64, "env64")
+    g = torch.Generator(device=cuda).manual_seed(23)
+    C = 2048
+    if technique == "path":
+        pcfg = PathConfig(max_depth=6, rr_depth=100)
+        tables = MT.make_tables(sc, pcfg, cuda)
+        trace = make_path_trace(sc, pcfg, cuda)
+        D = pcfg.n_dims + pcfg.n_dims % 2
+        cand = torch.rand((8 * C, D), generator=g, device=cuda)
+        u0 = cand[torch.nonzero(trace(cand).lum > 0)[:C, 0]]
+        state0 = MD.pack_chain_state(state_from_splats(u0, trace(u0)))
+    else:
+        trace, _, D, tables = make_mmlt_trace_fixed(sc, 4, True, cuda)
+        cand = torch.rand((16 * C, D), generator=g, device=cuda)
+        u0 = cand[torch.nonzero(trace(cand).lum > 0)[:C, 0]]
+        state0 = MD.pack_chain_state(state_from_splats(u0, trace(u0)))
+    assert tables.full and state0.shape[1] == C
+    cfg = DRMLTConfig(type="orbital", splat_mode="sampled", n_chains=C)
+    uni = torch.rand((2 * MD.n_rand(cfg, state0.shape[0] - 6), C),
+                     generator=g, device=cuda)
+    outs = []
+    for fn in (MD.drmlt_chain_step, MD.drmlt_chain_step_reference):
+        st, film = state0.clone(), torch.zeros((64, 64, 3), device=cuda)
+        stats = torch.zeros((6, C), device=cuda)
+        fn(tables, cfg, 2, st, film, stats, 1, 0, uni)
+        outs.append((st, film, stats))
+    (sk, fk, tk), (sr, fr, tr) = outs
+    D = sk.shape[0] - 6
+    agree = (sk[:D] - sr[:D]).abs().max(0).values <= 2e-5
+    assert float(agree.float().mean()) >= 0.99
+    torch.testing.assert_close(tk.sum(1), tr.sum(1), rtol=1e-2, atol=1.0)
+
+
+def test_cli_renders_cornell_xml_on_the_card(cuda, tmp_path):
+    """tests/data/cornell.xml through the CLI in both techniques, on the
+    full-scope kernels (its rough-conductor analytic sphere)."""
+    import os
+
+    from drmlt_mitsuba_tpu_torch.utils import cli
+    from drmlt_mitsuba_tpu_torch.utils.exr import read_exr
+    xml = os.path.join(os.path.dirname(__file__), "data", "cornell.xml")
+    for tech in ("path", "mmlt"):
+        build.reset_launches()
+        out = tmp_path / f"{tech}.exr"
+        assert cli.main([xml, "-D", "integrator=drmlt", "-D",
+                         f"technique={tech}", "-D", "type=orbital",
+                         "--chains", "16384", "--spp", "64", "-o",
+                         str(out)]) == 0
+        img = read_exr(str(out))
+        assert img.shape == (64, 64, 3) and img.mean() > 0
+        trace = "path_trace[full]" if tech == "path" else "mmlt_trace[full]"
+        assert build.LAUNCHES[trace] > 0
+        assert build.LAUNCHES[f"drmlt_{tech}[full]"] > 0

@@ -79,7 +79,7 @@ def test_torch_packer_matches_numpy_packer():
     scene = cornell_box(16, 16)
     scene.materials.albedo.requires_grad_(True)
     scene.tris.v0.requires_grad_(True)
-    tri, mat, em, cam = MT.pack_mega_tables_torch(scene)
+    tri, mat, em, cam = MT.pack_mega_tables_torch(scene)[:4]
     (g_alb,) = torch.autograd.grad(mat[:, 1:4].sum(), scene.materials.albedo)
     assert torch.equal(g_alb, torch.ones_like(g_alb))
     (g_v0,) = torch.autograd.grad(em[:, 6:9].sum() + tri[:, 0:3].sum(),

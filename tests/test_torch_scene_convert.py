@@ -46,21 +46,25 @@ def test_scene_from_arrays_equals_builder():
 
 def test_scene_from_arrays_names_unported_fields():
     arrays = _subset(jax_leaves(jax_cornell(16, 16)))
-    arrays["textures.data"] = np.zeros((1, 2, 2, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="textures.data"):
+    arrays["materials.opacity"] = np.ones((5, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="materials.opacity"):
         scene_from_arrays(arrays)
 
 
 def test_mega_eligible_names_missing_kind():
-    """A reference scene outside the slice (rough-conductor tall box)
-    converts, and the path kernel's eligibility check names the kind."""
-    ref = jax_cornell(16, 16, tall_box_material="roughconductor")
+    """A reference scene outside the kernels' scope (a plastic tall box)
+    converts, and the path kernel's eligibility check names the kind; a
+    thin-lens config is in scope, a lens camera without its dims not."""
+    ref = jax_cornell(16, 16, tall_box_material="plastic")
     scene = scene_from_arrays(_subset(jax_leaves(ref)))
-    with pytest.raises(NotImplementedError, match=r"BSDF kinds \[3\]"):
+    with pytest.raises(NotImplementedError, match=r"BSDF kinds \[4\]"):
         mega_eligible(scene, PathConfig(max_depth=3))
     assert mega_eligible(cornell_box(16, 16), PathConfig(max_depth=3))
-    with pytest.raises(NotImplementedError, match="thin-lens"):
-        mega_eligible(cornell_box(16, 16), PathConfig(thinlens=True))
+    assert mega_eligible(cornell_box(16, 16), PathConfig(thinlens=True))
+    lens = cornell_box(16, 16)
+    lens.camera.aperture_radius = torch.tensor(10.0)
+    with pytest.raises(NotImplementedError, match="thinlens=True"):
+        mega_eligible(lens, PathConfig(max_depth=3))
     assert JPathConfig(max_depth=8).n_dims == PathConfig(max_depth=8).n_dims
 
 

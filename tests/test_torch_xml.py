@@ -157,12 +157,13 @@ def test_synthetic_xml_equals_reference(tmp_path):
 
 
 @pytest.mark.parametrize("element, name", [
-    ('<bsdf type="roughconductor" id="m"/>', "roughconductor"),
-    ('<shape type="sphere"><float name="radius" value="1"/></shape>',
-     "sphere"),
-    ('<emitter type="constant"/>', "constant"),
+    ('<bsdf type="plastic" id="m"/>', "plastic"),
+    ('<shape type="disk"><float name="radius" value="1"/></shape>',
+     "disk"),
+    ('<emitter type="point"/>', "point"),
     ('<shape type="rectangle"><bsdf type="diffuse"><texture '
-     'type="checkerboard"/></bsdf></shape>', "checkerboard"),
+     'type="bitmap"><string name="filename" value="a.png"/></texture>'
+     '</bsdf></shape>', "bitmap"),
 ])
 def test_unported_element_raises_naming_it(tmp_path, element, name):
     path = tmp_path / "bad.xml"
