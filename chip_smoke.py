@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's five slices once on one GPU: the DRMLT path
+"""Drive the PyTorch/CUDA port's six slices once on one GPU: the DRMLT path
 render, the depth-grouped DRMLT-over-MMLT render, differentiable
 rendering (inverse rendering through the adjoint and splat kernels),
 asset-scale scenes (the XML loader, the BVH walk in every trace kernel,
-the intersection kernel) and the trace kernels' full scene scope
-(analytic spheres, the conductor / rough-conductor / null kinds, bitmap
-albedo, constant and image environments, the thin lens).
+the intersection kernel), the trace kernels' full scene scope (analytic
+spheres, the conductor / rough-conductor / null kinds, bitmap albedo,
+constant and image environments, the thin lens) and PSSMLT (the chain
+kernel's pssmlt mode, the host PSSMLT integrator, the CLI's
+integrator=pssmlt).
 
     python3 chip_smoke.py
 
@@ -112,7 +114,30 @@ non-zero):
      4x4-block z-scores < 1.5); the white furnace
      (every pixel of furnace_sphere within 5 sigma of its analytic value,
      through the path kernel; the DRMLT render's mean); a profiled warm
-     render of each technique.
+     render of each technique;
+ 23. slice 6, PSSMLT: (a) the chain kernel's pssmlt mode vs its twin at
+     4,096 x 2 (mira / green x three / sampled, uniforms and Philox) in
+     path mode and mmlt mode at k = 1-6 on the 36-triangle box and in both
+     modes (k = 6) on the full-scope const configuration, and at 65,536 x
+     64 (Philox) on both (stats[1] == stats[3] == 0 exactly); its time on
+     the box against its twin's and the bound, and against the DRMLT mode
+     in turns at k = 6; (b) the main path's kernel form: the grouped render
+     with pssmlt=True on the Cornell box and the veach door (65,536
+     chains, 256 mutations per pixel) against phase 9's MC renders with
+     its gates, mutations/s, the chain kernel's ms per depth group against
+     the DRMLT mode's (phase 9) and the busy share; (c) render_pssmlt over
+     the path kernel on the box, Kelemen and Veach weights, against phase
+     5's MC render and gate, mutations/s, the busy share; (d) the CLI's
+     integrator=pssmlt on tests/data/cornell.xml in both techniques in
+     fresh processes against phase 22's MC renders and gates (path with
+     Kelemen's weights, the pooled MMLT trace with Veach's); the pooled
+     trace with Kelemen's weights, biased by its pinned depth dim as in
+     the reference, against the estimator's expected channel ratios (from
+     a plain-MC pass of the trace and the chains' depth shares): the fresh
+     render's channel means / MC, and Kelemen / Veach on the same chains
+     in this process; and a -D averageLuminance render (Veach weights: the
+     image scales by it over b).  The counters are reset before each
+     render of (b)-(d) and read after it.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -145,7 +170,7 @@ from drmlt_mitsuba_tpu_torch.integrators.mcmc import (  # noqa: E402
     bootstrap, state_from_splats,
 )
 from drmlt_mitsuba_tpu_torch.integrators.mmlt import (  # noqa: E402
-    make_mmlt_trace, mmlt_n_dims,
+    make_mmlt_trace, mmlt_masks, mmlt_n_dims,
 )
 from drmlt_mitsuba_tpu_torch.integrators.mmlt_grouped import (  # noqa: E402
     N_MUT, group_bootstrap, group_starts, make_mmlt_trace_fixed,
@@ -153,6 +178,9 @@ from drmlt_mitsuba_tpu_torch.integrators.mmlt_grouped import (  # noqa: E402
 )
 from drmlt_mitsuba_tpu_torch.integrators.path import (  # noqa: E402
     make_path_trace, render_pt,
+)
+from drmlt_mitsuba_tpu_torch.integrators.pssmlt import (  # noqa: E402
+    PSSMLTConfig, render_pssmlt,
 )
 from drmlt_mitsuba_tpu_torch.core.spectrum import (  # noqa: E402
     LUMINANCE_WEIGHTS,
@@ -170,6 +198,7 @@ from drmlt_mitsuba_tpu_torch.scene.builders import (  # noqa: E402
 from drmlt_mitsuba_tpu_torch.scene.bvh import build_bvh, pack_nodes  # noqa: E402
 from drmlt_mitsuba_tpu_torch.scene.types import prepare_scene  # noqa: E402
 from drmlt_mitsuba_tpu_torch.utils import cli, raybench  # noqa: E402
+from drmlt_mitsuba_tpu_torch.utils.exr import read_exr  # noqa: E402
 
 SIZE = 256
 DEPTH = 8
@@ -333,12 +362,13 @@ def device_profile(events, wall_s):
 
 
 def compare_chain(tables, cfg, n_mut, state0, size, seed, launch, uni,
-                  work=None):
+                  work=None, pssmlt=False):
     """Run the chain kernel and its twin from state0 on separate clones of
     the state, film and stats; returns lane agreement (the share of chains
     whose PSS rows agree to 2e-5), the films' relative L1 difference, the
     largest state difference over agreeing chains, the stats' sums and the
-    twin's wall seconds (work: the twin counts its ray-triangle tests)."""
+    twin's wall seconds (work: the twin counts its ray-triangle tests;
+    pssmlt: both run the pssmlt mode)."""
     out = []
     twin_s = 0.0
     for fn in (MD.drmlt_chain_step, MD.drmlt_chain_step_reference):
@@ -347,6 +377,7 @@ def compare_chain(tables, cfg, n_mut, state0, size, seed, launch, uni,
         stats = torch.zeros((6, state0.shape[1]), device=state0.device)
         kw = ({} if fn is MD.drmlt_chain_step or work is None
               else dict(work=work))
+        kw["pssmlt"] = pssmlt
         _, twin_s = sync_time(lambda: fn(tables, cfg, n_mut, st, film, stats,
                                          seed, launch, uni, **kw))
         out.append((st, film, stats))
@@ -1071,6 +1102,11 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
 # ---------------------------------------------------------------- slice 5
 CORNELL_XML = os.path.join(ROOT, "tests", "data", "cornell.xml")
 XML_SPP = 4096        # -D spp=4096: the file's sampleCount
+# phase 23d: the CLI's Kelemen MMLT render's channel means / MC within this
+# of the estimator's expectation, and Kelemen / Veach on the same chains
+# within half of it (on an H100 the Veach render's channel means lie within
+# 0.0035 of MC's, and the expectation up to 0.04 above 1: PERF.md, slice 6)
+KELEMEN_TOL = 0.012
 SCOPE_SEEDS = 16      # bootstrap seeds for the spread of b (phase 22)
 MC_SPP = 64           # samples per pixel of the MC references
 FURNACE_PATHS = 1 << 22   # the furnace check's paths (1,024 per pixel)
@@ -1464,6 +1500,8 @@ def slice5(name, dev, gen, report):
               f"{block_l1:.4f}; shape L1 {shape:.4f} against "
               f"{shape_expected:.4f} from the noise of two MC "
               f"({noise_mc:.4f}) and two MCMC ({noise_mcmc:.4f}) renders")
+        if sname == "cornell.xml":
+            out[f"xml_{tech}"] = dict(ref=ref, gate=gate)
         need(bool(torch.isfinite(img).all()), f"{key}: image not finite")
         need(mean_rel < gate, f"{key}: differs from MC by {mean_rel}")
         need(shape < SHAPE_GATE * shape_expected,
@@ -1580,6 +1618,427 @@ def slice5(name, dev, gen, report):
     return out
 
 
+# ---------------------------------------------------------------- slice 6
+# phase 23(a): the pssmlt mode's configurations at 4,096 x 2 (type, splat
+# mode, uniforms given), the first two on given uniforms, the others on
+# Philox
+PSS_CASES = (("mira", "three", True), ("green", "sampled", True),
+             ("mira", "sampled", False), ("green", "three", False))
+# a fresh process running the CLI's main that prints the launch counters
+# last (phase 23(d))
+CLI_RUN = ("import json, sys; from drmlt_mitsuba_tpu_torch.utils import cli; "
+           "from drmlt_mitsuba_tpu_torch.ops import build; "
+           "rc = cli.main(sys.argv[1:]); print(json.dumps(build.LAUNCHES)); "
+           "sys.exit(rc)")
+
+
+def kelemen_expected_ratio(trace, n_dims, K, p_large, b, chain_u0, gen, dev,
+                           batches=32):
+    """Per channel, E[Kelemen image] / E[image] of PSSMLT over the pooled
+    MMLT trace, whose chains keep their depth dim u[0] (depth 1 +
+    floor(u0 K)).  Kelemen's weights take a large step as uniform over the
+    whole primary sample space at density p_large, but a depth k held by a
+    share s_k of the chains sees large steps at K s_k p_large, so the
+    expected splat at z of depth k is f(z) (I(z)/b + K s_k p_large) /
+    (I(z)/b + p_large) (tests/test_torch_pssmlt_bias.py); averaged here
+    over batches x CHAINS uniform samples, with the chains' s_k and b."""
+    ck = torch.clamp(torch.floor(chain_u0 * K), max=K - 1).long()
+    s = torch.bincount(ck, minlength=K).double() / ck.numel()
+    num = torch.zeros(3, dtype=torch.float64, device=dev)
+    den = torch.zeros_like(num)
+    for _ in range(batches):
+        u = torch.rand((CHAINS, n_dims), generator=gen, device=dev)
+        sp = trace(u)
+        ok = torch.isfinite(sp.lum) & (sp.lum >= 0)
+        lum = torch.where(ok, sp.lum, 0.0).double()
+        f = torch.where(ok[:, None], sp.value.double().sum(1), 0.0)
+        k = torch.clamp(torch.floor(u[:, 0] * K), max=K - 1).long()
+        r = (lum / b + K * s[k] * p_large) / (lum / b + p_large)
+        num += (f * r[:, None]).sum(0)
+        den += f.sum(0)
+    return num / den
+
+
+def check_pss(tag, r):
+    check_chain(tag, r)
+    need(r["stats_kernel"][1] == 0.0 and r["stats_kernel"][3] == 0.0
+         and r["stats_twin"][1] == 0.0 and r["stats_twin"][3] == 0.0,
+         f"{tag}: stage-2 mass in the pssmlt mode: {r['stats_kernel']}")
+
+
+def mcmc_vs_mc(tag, img, img0, ref, refb, gate):
+    """Phase 9's gates: the channel means within `gate`, and the image's
+    shape within SHAPE_GATE x what the noise of two MC (ref, refb) and two
+    MCMC (img0, img) renders predicts.  Returns the figures."""
+    mean_rel, block_l1 = mc_compare(img, ref)
+    shape = shape_l1(img, ref)
+    noise_mc, noise_mcmc = shape_l1(refb, ref), shape_l1(img0, img)
+    expected = ((noise_mc ** 2 + noise_mcmc ** 2) / 2) ** 0.5
+    need(bool(torch.isfinite(img).all()), f"{tag}: image not finite")
+    need(mean_rel < gate, f"{tag}: mean differs from MC by {mean_rel} "
+         f"(gate {gate})")
+    need(shape < SHAPE_GATE * expected, f"{tag}: shape differs from MC by "
+         f"{shape}, the noise predicts {expected}")
+    return dict(mean_rel_err=mean_rel, block_rel_l1=block_l1, gate=gate,
+                shape_l1=shape, shape_noise_mc=noise_mc,
+                shape_noise_mcmc=noise_mcmc, shape_expected=expected)
+
+
+def slice6(name, dev, gen, report, mc_refs, s5):
+    """Phase 23: PSSMLT, the chain kernel's pssmlt mode (23a, 23b) and the
+    host integrator (23c, 23d).  Returns the kernels-line figures of the
+    pssmlt mode."""
+    out = {}
+    fc = filmlib.make_film_config(SIZE, SIZE, "box")
+    pcfg = PathConfig(max_depth=DEPTH, rr_depth=100)
+    cornell = cornell_box(SIZE, SIZE)
+    const = cornell_scope(SIZE, SIZE, "const")
+    # ---- 23a. the pssmlt mode vs its twin -----------------------------------
+    report["pssmlt_chain_vs_twin"] = {}
+    err = {"path": 0.0, "mmlt": 0.0}
+    starts = {}
+    for scope, sc in (("box", cornell), ("const", const)):
+        groups = [None] + (list(range(1, MMLT_DEPTH + 1)) if scope == "box"
+                           else [MMLT_DEPTH])
+        for k in groups:
+            if k is None:
+                tab = MT.make_tables(sc, pcfg, dev)
+                st0 = path_states(sc, pcfg, gen, dev, CHAINS)
+            else:
+                tab, st0, _ = slice2_starts(sc, k, gen, dev)
+            tech = "path" if k is None else "mmlt"
+            starts[(scope, k)] = (tab, st0)
+            s4 = st0[:, :C4].contiguous()
+            D = s4.shape[0] - 6
+            rows = []
+            for drtype, mode, given in PSS_CASES:
+                ccfg = DRMLTConfig(type=drtype, splat_mode=mode, n_chains=C4)
+                uni = (torch.rand((2 * MD.n_rand(ccfg, D), C4), generator=gen,
+                                  device=dev) if given else None)
+                r = compare_chain(tab, ccfg, 2, s4, SIZE, 61, 1, uni,
+                                  pssmlt=True)
+                tag = (f"{scope}/{tech}{k or ''}/{drtype}/{mode}/"
+                       f"{'uniforms' if given else 'philox'}")
+                report["pssmlt_chain_vs_twin"][tag] = r
+                check_pss(tag, r)
+                err[tech] = max(err[tech], r["state_max_abs"])
+                rows.append(f"{r['lane_agreement']:.5f}")
+            print(f"[23a pssmlt chain kernel vs twin] {name}: {scope}, "
+                  f"{tech}{'' if k is None else f' k {k}'} (D {D}), {C4} "
+                  f"chains x 2 mutations, lanes agreeing (mira/three/"
+                  f"uniforms, green/sampled/uniforms, mira/sampled/philox, "
+                  f"green/three/philox): " + ", ".join(rows))
+    # the main path's shape, Philox: 65,536 chains x 64 mutations; on the
+    # box the kernel is timed on the same configuration and state, the
+    # twin's wall is plain_ms and its count of ray-triangle tests (the y
+    # traces only) the bound's operations
+    for scope, k, drtype, mode in (("box", MMLT_DEPTH, "green", "sampled"),
+                                   ("box", None, "mira", "three"),
+                                   ("const", MMLT_DEPTH, "green", "sampled"),
+                                   ("const", None, "mira", "three")):
+        tab, st0 = starts[(scope, k)]
+        tech = "path" if k is None else "mmlt"
+        ccfg = DRMLTConfig(type=drtype, splat_mode=mode, n_chains=CHAINS)
+        work = {}
+        r = compare_chain(tab, ccfg, 64, st0, SIZE, 5, 0, None, work=work,
+                          pssmlt=True)
+        tag = f"{scope}/{tech}{k or ''}/{drtype}/{mode}/philox/65536x64"
+        report["pssmlt_chain_vs_twin"][tag] = r
+        check_pss(tag, r)
+        err[tech] = max(err[tech], r["state_max_abs"])
+        line = (f"[23a pssmlt chain kernel vs twin, {CHAINS} chains x 64 "
+                f"mutations] {name}: {tag}: lanes agreeing "
+                f"{r['lane_agreement']:.5f}, film rel L1 "
+                f"{r['film_rel_l1']:.2e}, stats {r['stats_kernel']} vs "
+                f"{r['stats_twin']}")
+        if scope == "box":
+            stc = st0.clone()
+            film = torch.zeros((SIZE, SIZE, 3), device=dev)
+            stats = torch.zeros((6, CHAINS), device=dev)
+            ms = event_ms(lambda: MD.drmlt_chain_step(
+                tab, ccfg, 64, stc, film, stats, 5, 0, pssmlt=True), runs=5)
+            bnd = bound(2 * nbytes(stc) + nbytes(film) + 2 * nbytes(stats),
+                        work["tri_tests"])
+            out[tech] = dict(ms=ms, plain_ms=r["twin_s"] * 1e3, bnd=bnd,
+                             tri_tests=work["tri_tests"])
+            line += (f"; kernel {ms:.3f} ms vs twin {r['twin_s'] * 1e3:.0f} "
+                     f"ms ({CHAINS * 64 / (ms / 1e3):.4e} mutations/s); "
+                     f"bound {bnd[0]:.4f} ms by {bnd[1]}, "
+                     f"{work['tri_tests']} ray-triangle tests")
+        print(line)
+    # like for like against the DRMLT mode (phase 10's configuration:
+    # orbital, sampled, k = 6), the two modes in turns
+    tab, st0 = starts[("box", MMLT_DEPTH)]
+    cfg_o = DRMLTConfig(type="orbital", n_chains=CHAINS, splat_mode="sampled")
+    turns = {False: [], True: []}
+    for pss in (False, True, True, False):
+        stc = st0.clone()
+        film = torch.zeros((SIZE, SIZE, 3), device=dev)
+        stats = torch.zeros((6, CHAINS), device=dev)
+        turns[pss].append(event_ms(lambda: MD.drmlt_chain_step(
+            tab, cfg_o, 64, stc, film, stats, 5, 0, pssmlt=pss), runs=3))
+    report["pssmlt_timing_ms"] = dict(
+        {f"{t}/{'mira/three' if t == 'path' else 'green/sampled'}": v
+         for t, v in out.items()},
+        mmlt_k6_orbital_sampled=dict(drmlt=turns[False], pssmlt=turns[True]))
+    print(f"[23a timing] {name}: chain kernel at k {MMLT_DEPTH}, orbital, "
+          f"sampled, {CHAINS} chains x 64 mutations, in turns: DRMLT mode "
+          f"{[round(x, 3) for x in turns[False]]} ms, pssmlt mode "
+          f"{[round(x, 3) for x in turns[True]]} ms")
+
+    # ---- 23b. the chain kernel's pssmlt mode on the main path ---------------
+    launches6 = dict.fromkeys(build.LAUNCHES, 0)
+
+    def count():
+        for key, c in build.LAUNCHES.items():
+            launches6[key] += c
+
+    n_steps = SIZE * SIZE * 256 // CHAINS
+    cfg = DRMLTConfig(type="orbital", n_chains=CHAINS, n_bootstrap=100_000,
+                      p_large=0.3, splat_mode="sampled")
+    bcfg = BDPTConfig(max_depth=MMLT_DEPTH, light_image=True)
+    report["slice6_grouped"] = {}
+    for sname, sc in (("cornell", cornell),
+                      ("veach", veach_door(SIZE, SIZE))):
+        gen.manual_seed(71)
+        (img0, _), first = sync_time(lambda: render_drmlt_mmlt_grouped(
+            sc, bcfg, cfg, fc, gen, n_steps, pssmlt=True))
+        gen.manual_seed(72)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: render_drmlt_mmlt_grouped(
+            sc, bcfg, cfg, fc, gen, n_steps, pssmlt=True))
+        count()
+        muts = sum(CHAINS * s for s in aux["steps_eff"].values())
+        need(all(float(st["a2"]) == 0.0 and float(st["accept2"]) == 0.0
+                 for st in aux["stats"].values()),
+             f"{sname}: the grouped pssmlt render ran a stage 2")
+        row = mcmc_vs_mc(f"grouped pssmlt {sname}", img, img0,
+                         *mc_refs[sname], MC_GATE[sname])
+        gen.manual_seed(73)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (_, auxp), prof_wall = sync_time(
+                lambda: render_drmlt_mmlt_grouped(sc, bcfg, cfg, fc, gen,
+                                                  n_steps, pssmlt=True))
+        evs = prof.events()
+        busy, per = device_profile(evs, prof_wall)
+        chain_ev = sorted((e.time_range.start, e.time_range.elapsed_us())
+                          for e in evs if e.device_type == DeviceType.CUDA
+                          and "drmlt_chain_kernel" in e.name)
+        per_group, i = {}, 0
+        for k, n_l in group_launches(auxp).items():
+            per_group[k] = [sum(us for _, us in chain_ev[i:i + n_l]) / 1e3,
+                            n_l]
+            i += n_l
+        drmlt_group = report["slice2"][sname]["chain_ms_per_group"]
+        row.update(b=float(aux["b"]), wall_s=wall, first_wall_s=first,
+                   mutations=muts, mutations_per_s=muts / wall,
+                   busy_share=busy, profile_wall_s=prof_wall,
+                   chain_ms_per_group=per_group,
+                   drmlt_chain_ms_per_group=drmlt_group,
+                   steps_per_group=aux["steps_per_group"],
+                   accept1={k: float(st["accept1"])
+                            for k, st in aux["stats"].items()})
+        report["slice6_grouped"][sname] = row
+        print(f"[23b grouped pssmlt render] {name}: {sname}: b "
+              f"{float(aux['b']):.6f}, warm {wall:.3f} s for {muts} mutations "
+              f"({muts / wall:.4e} mutations/s, bootstrap included; first "
+              f"call {first:.3f} s); vs MC mean rel {row['mean_rel_err']:.4f} "
+              f"(gate {MC_GATE[sname]}), shape L1 {row['shape_l1']:.4f} "
+              f"against {row['shape_expected']:.4f}; device busy {busy:.4f}; "
+              f"chain kernel ms per group (pssmlt [ms, launches]) "
+              + str({k: [round(v[0], 3), v[1]] for k, v in per_group.items()})
+              + " vs DRMLT mode (phase 9) "
+              + str({k: round(v, 3) for k, v in drmlt_group.items()}))
+        need(busy > 0, "the profiler saw no device activity")
+    # the MC reference of 23c
+    gen.manual_seed(74)
+    refb = filmlib.develop(fc, render_pt(cornell, pcfg, gen, SIZE * SIZE * 64,
+                                         fc, mode="accum"), mode="accum")
+
+    # ---- 23c. the host PSSMLT integrator over the path kernel ---------------
+    report["slice6_host"] = {}
+    n_dims = pcfg.n_dims + pcfg.n_dims % 2
+    trace = make_path_trace(cornell, pcfg, dev)
+    for kelemen in (True, False):
+        mcfg = PSSMLTConfig(n_chains=CHAINS, kelemen_style_weights=kelemen)
+        gen.manual_seed(81)
+        img0, _ = render_pssmlt(trace, mcfg, fc, gen, n_dims, n_steps)
+        gen.manual_seed(82)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: render_pssmlt(
+            trace, mcfg, fc, gen, n_dims, n_steps))
+        count()
+        style = "kelemen" if kelemen else "veach"
+        row = mcmc_vs_mc(f"render_pssmlt {style}", img, img0,
+                         mc_refs["path"], refb, MC_GATE["path"])
+        acc = float(aux["stats"]["accept"].mean())
+        need(0.1 < acc < 0.9, f"render_pssmlt {style}: acceptance {acc}")
+        muts = CHAINS * n_steps
+        row.update(b=float(aux["b"]), wall_s=wall, mutations=muts,
+                   mutations_per_s=muts / wall, accept=acc)
+        if not kelemen:
+            gen.manual_seed(83)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, prof_wall = sync_time(lambda: render_pssmlt(
+                    trace, mcfg, fc, gen, n_dims, n_steps))
+            busy, per = device_profile(prof.events(), prof_wall)
+            top = sorted(per.items(), key=lambda kv: -kv[1][0])
+            row.update(busy_share=busy, profile_wall_s=prof_wall,
+                       kernels_ms=[[k, t, c] for k, (t, c) in top])
+            need(busy > 0, "the profiler saw no device activity")
+        report["slice6_host"][style] = row
+        print(f"[23c render_pssmlt, {style} weights] {name}: cornell, depth "
+              f"{DEPTH}, {CHAINS} chains x {n_steps} steps: warm {wall:.3f} "
+              f"s ({muts / wall:.4e} mutations/s, bootstrap included); "
+              f"acceptance {acc:.4f}; vs MC mean rel "
+              f"{row['mean_rel_err']:.4f} (gate {MC_GATE['path']}), shape L1 "
+              f"{row['shape_l1']:.4f} against {row['shape_expected']:.4f}"
+              + ("" if kelemen else
+                 f"; device busy {row['busy_share']:.4f} of "
+                 f"{row['profile_wall_s']:.3f} s; " + "; ".join(
+                     f"{k.split('(')[0][:50]} {t:.3f} ms x{c}"
+                     for k, (t, c) in top[:4])))
+
+    # ---- 23d. the CLI: integrator=pssmlt on tests/data/cornell.xml ----------
+    # fresh processes: path with the reference's defaults (Kelemen's
+    # weights) and the pooled MMLT trace with Veach's, held to phase 22's
+    # gates; the pooled trace with Kelemen's weights, the reference CLI's
+    # default, is biased by its pinned depth dim, in the reference as in
+    # the port (tests/test_torch_pssmlt_bias.py), so it is held to the
+    # estimator's expectation instead (below)
+    report["slice6_cli"] = {}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    cli_d, cli_img = {}, {}
+    for tech, weights in (("path", "kelemen"), ("mmlt", "veach"),
+                          ("mmlt", "kelemen")):
+        tag = f"{tech}/{weights}"
+        exr = os.path.join(ROOT, "chiprun_out",
+                           f"pssmlt_{tech}_{weights}.exr")
+        cli_d[tag] = ["integrator=pssmlt", f"technique={tech}",
+                      f"spp={XML_SPP}", "kelemenStyleWeights="
+                      f"{str(weights == 'kelemen').lower()}"]
+        cmd = [sys.executable, "-c", CLI_RUN, CORNELL_XML]
+        for kv in cli_d[tag]:
+            cmd += ["-D", kv]
+        cmd += ["--chains", str(CHAINS), "-s", "5", "-o", exr]
+        res, wall = sync_time(lambda: subprocess.run(
+            cmd, capture_output=True, text=True, timeout=600, cwd=ROOT))
+        need(res.returncode == 0, f"CLI pssmlt {tag}: exit "
+             f"{res.returncode}: {res.stderr[-2000:]}")
+        lines = res.stdout.strip().splitlines()
+        for key, c in json.loads(lines[-1]).items():
+            launches6[key] += c
+        rate_line = next(ln for ln in lines if "mutations/s" in ln)
+        rate = re.search(r"\(([0-9.e+]+) mutations/s", rate_line)
+        img = torch.from_numpy(np.ascontiguousarray(
+            read_exr(exr)[..., :3])).to(dev)
+        ref = s5[f"xml_{tech}"]["ref"]
+        gate = s5[f"xml_{tech}"]["gate"]
+        mean_rel, block_l1 = mc_compare(img, ref)
+        ratio = (img.double().mean((0, 1)) / ref.double().mean((0, 1)))
+        report["slice6_cli"][tag] = dict(
+            process_wall_s=wall, mutations_per_s=float(rate.group(1)),
+            mean_rel_err=mean_rel, block_rel_l1=block_l1, gate=gate,
+            channel_ratio_to_mc=ratio.tolist(), stdout=lines[:-1])
+        cli_img[tag] = img
+        print(f"[23d CLI integrator=pssmlt, {tech}, {weights} weights] "
+              f"{name}: cornell.xml, spp {XML_SPP}, {CHAINS} chains, a fresh "
+              f"process of {wall:.2f} s: {rate_line}; vs MC mean rel "
+              f"{mean_rel:.4f} (phase 22's gate {gate:.4f}), channel means / "
+              f"MC {[round(x, 4) for x in ratio.tolist()]}, 16x16-block rel "
+              f"L1 {block_l1:.4f}")
+        need(bool(torch.isfinite(img).all()), f"CLI pssmlt {tag}: not finite")
+        if tag != "mmlt/kelemen":
+            need(mean_rel < gate, f"CLI pssmlt {tag}: differs from MC by "
+                 f"{mean_rel}")
+    # the same two MMLT renders in this process (the same -D list, seed and
+    # so chains), for the chains' depth shares and b; the expectation of the
+    # Kelemen / Veach ratio from a plain-MC pass of the same pooled trace
+    inproc = {}
+    for weights in ("kelemen", "veach"):
+        d = cli_d[f"mmlt/{weights}"]
+        sc, xs = cli.load_scene(CORNELL_XML, dict(kv.split("=", 1)
+                                                  for kv in d))
+        args = argparse.Namespace(D=d, chains=CHAINS, spp=None, seed=5)
+        build.reset_launches()
+        inproc[weights] = cli.render(args, sc, xs, dev)
+        count()
+    icfg = cli.integrator_config(args, xs)
+    K, p_large = int(icfg["maxDepth"]), float(icfg.get("pLarge", 0.3))
+    aux_k = inproc["kelemen"][1]
+    _, _, n_dims = mmlt_masks(BDPTConfig(max_depth=K))
+    gen.manual_seed(77)
+    expected = kelemen_expected_ratio(
+        make_mmlt_trace(sc, BDPTConfig(max_depth=K, light_image=True,
+                                       thinlens=_thin(sc)), dev),
+        n_dims, K, p_large, aux_k["b"], aux_k["state"].u[:, 0], gen, dev)
+    same = (inproc["kelemen"][0].double().mean((0, 1))
+            / inproc["veach"][0].double().mean((0, 1)))
+    fresh = report["slice6_cli"]["mmlt/kelemen"]
+    fresh_ratio = torch.tensor(fresh["channel_ratio_to_mc"],
+                               dtype=torch.float64, device=dev)
+    img_k = inproc["kelemen"][0]
+    fresh_same = float((cli_img["mmlt/kelemen"] - img_k).abs().sum()
+                       / img_k.abs().sum())
+    depth_share = (torch.bincount(torch.clamp(torch.floor(
+        aux_k["state"].u[:, 0] * K), max=K - 1).long(), minlength=K)
+        / CHAINS).tolist()
+    fresh.update(expected_ratio=expected.tolist(),
+                 inprocess_kelemen_over_veach=same.tolist(),
+                 fresh_vs_inprocess_rel_l1=fresh_same,
+                 depth_share=depth_share, gate=KELEMEN_TOL)
+    print(f"[23d Kelemen weights over the pooled MMLT trace] {name}: "
+          f"cornell.xml, chains' depth shares "
+          f"{[round(x, 4) for x in depth_share]} (K {K}), b "
+          f"{float(aux_k['b']):.6f}: the estimator's expected channel "
+          f"ratio {[round(x, 4) for x in expected.tolist()]}; in this "
+          f"process Kelemen / Veach on the same chains "
+          f"{[round(x, 4) for x in same.tolist()]} (gate "
+          f"{KELEMEN_TOL / 2}), the fresh process's channel means / MC "
+          f"{[round(x, 4) for x in fresh_ratio.tolist()]} (gate "
+          f"{KELEMEN_TOL}); fresh vs in-process image rel L1 "
+          f"{fresh_same:.2e}")
+    need(float((same - expected).abs().max()) < KELEMEN_TOL / 2,
+         f"Kelemen / Veach {same.tolist()} is not the estimator's "
+         f"{expected.tolist()}")
+    need(float((fresh_ratio - expected).abs().max()) < KELEMEN_TOL,
+         f"the CLI's Kelemen MMLT render / MC {fresh_ratio.tolist()} is not "
+         f"the estimator's {expected.tolist()}")
+    # -D averageLuminance reaches the render: with Veach's weights the image
+    # scales by it over b, on the same draws
+    sc, xs = cli.load_scene(CORNELL_XML, {"integrator": "pssmlt",
+                                          "spp": str(XML_SPP)})
+    args = argparse.Namespace(D=["kelemenStyleWeights=false"], chains=CHAINS,
+                              spp=None, seed=9)
+    build.reset_launches()
+    img, aux = cli.render(args, sc, xs, dev)
+    count()
+    b = float(aux["b"])
+    args.D.append(f"averageLuminance={2.0 * b!r}")
+    build.reset_launches()
+    img2, aux2 = cli.render(args, sc, xs, dev)
+    count()
+    ratio = float((img2.double().sum() / img.double().sum()))
+    report["slice6_average_luminance"] = dict(b=b, b_given=float(aux2["b"]),
+                                              image_ratio=ratio)
+    print(f"[23d -D averageLuminance] {name}: cornell.xml, pssmlt path, "
+          f"Veach weights: b {b:.6f}, with averageLuminance={2.0 * b!r} the "
+          f"render's b {float(aux2['b']):.6f} and image sum ratio "
+          f"{ratio:.6f} (want 2)")
+    need(abs(ratio - 2.0) < 1e-4, "averageLuminance did not reach the render")
+
+    report["slice6_launches"] = launches6
+    print(f"[23 slice 6 launches, the main path's renders] {name}: "
+          f"{launches6}")
+    for key in ("drmlt_mmlt_pssmlt", "mmlt_trace",
+                "path_trace", "splat_add", "path_trace[full]",
+                "mmlt_trace[full]"):
+        need(launches6[key] > 0, f"{key} did not launch on slice 6's path")
+    out["err"] = err
+    out["launches"] = launches6
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1605,13 +2064,14 @@ def main():
     report["build"] = dict(seconds=build.build_info["seconds"],
                            cached=build.build_info["cached"], ptxas=regs)
     # each trace kernel in its two scene-scope instantiations (ILb0E: the
-    # subset of slices 1-4, ILb1E: the full scope)
+    # subset of slices 1-4, ILb1E: the full scope), the chain kernel's in
+    # DRMLT mode (ELb0E) and pssmlt mode (ELb1E) each
     for k in ("path_trace_kernelILb0E", "path_trace_kernelILb1E",
               "mmlt_trace_kernelILb0E", "mmlt_trace_kernelILb1E",
-              "drmlt_chain_kernelINS_9PathTraceILb0EEE",
-              "drmlt_chain_kernelINS_9PathTraceILb1EEE",
-              "drmlt_chain_kernelINS_9MmltTraceILb0EEE",
-              "drmlt_chain_kernelINS_9MmltTraceILb1EEE", "splat_add_kernel",
+              *(f"drmlt_chain_kernelINS_9{t}ILb{x}EEELb{p}E"
+                for t in ("PathTrace", "MmltTrace") for x in (0, 1)
+                for p in (0, 1)),
+              "splat_add_kernel",
               "path_trace_rad_kernelILb0E", "path_trace_rad_kernelILb1E",
               "path_trace_alb_kernelILb0E", "path_trace_alb_kernelILb1E",
               "intersect_kernel"):
@@ -1701,6 +2161,7 @@ def main():
     ref_film, ref_wall = sync_time(lambda: render_pt(
         scene, pcfg, gen, SIZE * SIZE * 64, fc, mode="accum"))
     ref = filmlib.develop(fc, ref_film, mode="accum")
+    mc_refs = {"path": ref}     # the MC references slice 6 is held to
     # render_pt splats through the splat kernel (phase 11 checks it)
     ref_splats = build.LAUNCHES["splat_add"]
     mean_rel, block_l1 = mc_compare(img, ref)
@@ -1933,6 +2394,7 @@ def main():
         ref2b = filmlib.develop(fc, render_pt(
             sc, ref_cfg, gen, SIZE * SIZE * spp, fc, mode="accum"),
             mode="accum")
+        mc_refs[sname] = (ref2, ref2b)
         # the reference estimator, the three-state splat, after a warm-up
         gen.manual_seed(19)
         render_drmlt_mmlt_grouped(sc, bcfg, cfg3, fc, gen, n_steps)
@@ -2078,6 +2540,9 @@ def main():
     # ---- 19-22. slice 5 -----------------------------------------------------
     s5 = slice5(name, dev, gen, report)
 
+    # ---- 23. slice 6 --------------------------------------------------------
+    s6 = slice6(name, dev, gen, report, mc_refs, s5)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -2141,6 +2606,14 @@ def main():
                "mmlt_trace", "mmlt"),
               ("drmlt_chain_kernel[mmlt]", "drmlt_chain.cu",
                "megadrmlt.py:105", "drmlt_mmlt", "chain_mmlt"))),
+        # slice 6: the pssmlt mode (megadrmlt.py:338-350, 408-410) on the
+        # 36-triangle box (phase 23a), launched by the grouped renders
+        # (23b); its path-mode instantiation is checked in 23a and launched
+        # by no main path, so it is not listed
+        entry("drmlt_chain_kernel[mmlt,pssmlt]", "drmlt_chain.cu",
+              "megadrmlt.py:105", s6["launches"]["drmlt_mmlt_pssmlt"],
+              s6["err"]["mmlt"], s6["mmlt"]["ms"], s6["mmlt"]["plain_ms"],
+              s6["mmlt"]["bnd"]),
     ]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -1,21 +1,29 @@
-// drmlt_chain_kernel<Trace>: n_mut whole DRMLT mutations per chain, one
-// thread per chain.  The trace body is the template parameter: PathTrace
-// (the unidirectional path technique, path_trace.cuh) or MmltTrace (a
-// fixed-depth MMLT group, mmlt_trace.cuh).  Proposals, the three acceptance
-// types, the sampled and three-state splats, the stats and the Philox /
-// uniforms modes are shared by both.
+// drmlt_chain_kernel<Trace, Pss>: n_mut whole DRMLT mutations per chain,
+// one thread per chain.  The trace body is the first template parameter:
+// PathTrace (the unidirectional path technique, path_trace.cuh) or
+// MmltTrace (a fixed-depth MMLT group, mmlt_trace.cuh).  Proposals, the
+// three acceptance types, the sampled and three-state splats, the stats and
+// the Philox / uniforms modes are shared by both.
 //
 // Replaces the reference's Pallas kernel
 // drmlt_mitsuba_tpu/ops/pallas/megadrmlt.py:_mega_drmlt_kernel (:105,
 // built by make_mega_drmlt :504) with technique="path" and
-// technique="mmlt"; its pssmlt mode is not ported yet.  Each trace body
-// has the two scene-scope instantiations of path_trace.cu (slices 1-4,
-// and the full scope), so four kernels in all; the path mode also takes an
-// image environment, which the reference's path mode leaves to XLA
-// (megadrmlt.py:474).  Plain twin:
+// technique="mmlt", each with pssmlt False and True.  Each trace body has
+// the two scene-scope instantiations of path_trace.cu (slices 1-4, and the
+// full scope), and each of those the two modes, so eight kernels in all;
+// the path mode also takes an image environment, which the reference's
+// path mode leaves to XLA (megadrmlt.py:474).  Plain twin:
 // ops/megadrmlt.py:drmlt_chain_step_reference, which also documents the
 // uniform order, the state / film / stats layouts and the acceptance rules
 // (megadrmlt.py:264-435).
+//
+// Pss (the reference's pssmlt=True, megadrmlt.py:338-350, 408-410): stage
+// 1 only.  The z proposal is still drawn, so both modes consume the same
+// uniforms, but neither z nor green's reverse path y* is traced (their
+// results would only feed an a2 that the mode forces to 0); y is accepted
+// by Metropolis and the splat is Veach's two-state expected value, x at
+// 1 - a1 and y at a1 (or one of them picked by those weights in the
+// sampled mode).  a2 and accept2 stay 0.
 //
 // In mmlt mode (megadrmlt.py:158-190, 280-330, 367): the trace reads the
 // pinned depth dim u_depth = 1 - 0.5/k before the chain's dims and its
@@ -190,7 +198,7 @@ __device__ __forceinline__ void splat(const ChainArgs& a, const Traced& s, float
 // 128 threads per block and 4 resident blocks per SM cap the registers at
 // 65536 / (128 * 4): above 128 registers an SM holds only 3 blocks, and the
 // latency-bound traces lose a quarter of their warps to hide it.
-template <class Trace>
+template <class Trace, bool Pss>
 __global__ void __launch_bounds__(128, 4)
     drmlt_chain_kernel(Trace trace, ChainArgs a, const float* __restrict__ uni, int n_rand,
                        uint32_t seed, uint32_t launch) {
@@ -273,56 +281,61 @@ __global__ void __launch_bounds__(128, 4)
     const float coin1 = dr.next();
     const float coin2 = dr.next();
 
-    // ---- traces
+    // ---- traces (Pss: y only)
     const Traced ty = trace(PssView{yr, nullptr, nullptr, C, 1});
-    const Traced tz = trace(PssView{zr, nullptr, nullptr, C, 1});
+    Traced tz{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (!Pss) tz = trace(PssView{zr, nullptr, nullptr, C, 1});
 
     // ---- acceptance
     const float a1 = metropolis_clamp(ty.lum / fmaxf(cur.lum, 1e-30f));
     const bool accept1 = coin1 < a1;
-    bool do_second = !accept1 && (a.timid || !large);
-    const float lum_ratio = tz.lum / fmaxf(cur.lum, 1e-30f);
-    float a2;
-    if (a.drtype == kOrbital) {
-      if (tz.lum < ty.lum) {
-        a2 = 0.0f;
-      } else if (tz.lum >= cur.lum) {
-        a2 = 1.0f;
+    float a2 = 0.0f;
+    bool accept2 = false;
+    if constexpr (!Pss) {
+      bool do_second = !accept1 && (a.timid || !large);
+      const float lum_ratio = tz.lum / fmaxf(cur.lum, 1e-30f);
+      if (a.drtype == kOrbital) {
+        if (tz.lum < ty.lum) {
+          a2 = 0.0f;
+        } else if (tz.lum >= cur.lum) {
+          a2 = 1.0f;
+        } else {
+          float den = cur.lum - ty.lum;
+          a2 = metropolis_clamp((tz.lum - ty.lum) / (fabsf(den) > 0.0f ? den : 1.0f));
+        }
+      } else if (a.drtype == kMira) {
+        float a_rev = metropolis_clamp(ty.lum / fmaxf(tz.lum, 1e-30f));
+        float lq = 0.0f;
+        for (int d = frozen0 ? 1 : 0; d < D; ++d) {
+          float y = yr[d * C];
+          lq = lq + (kelemen_log_pdf(zr[d * C] - y, a.s1, a.s2, a.log_ratio) -
+                     kelemen_log_pdf(x[d * C] - y, a.s1, a.s2, a.log_ratio));
+        }
+        float q_ratio = large ? 1.0f : expf(lq);
+        a2 = metropolis_clamp(lum_ratio * q_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
+        if (a_rev >= 1.0f) a2 = 0.0f;
+        if (!isfinite(q_ratio)) a2 = 0.0f;
       } else {
-        float den = cur.lum - ty.lum;
-        a2 = metropolis_clamp((tz.lum - ty.lum) / (fabsf(den) > 0.0f ? den : 1.0f));
+        // green: trace the reverse path y* = z - (y - x)
+        float lum_rev = trace(PssView{zr, yr, x, C, 2}).lum;
+        float a_rev = metropolis_clamp(lum_rev / fmaxf(tz.lum, 1e-30f));
+        a2 = metropolis_clamp(lum_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
+        if (a_rev >= 1.0f) a2 = 0.0f;
       }
-    } else if (a.drtype == kMira) {
-      float a_rev = metropolis_clamp(ty.lum / fmaxf(tz.lum, 1e-30f));
-      float lq = 0.0f;
-      for (int d = frozen0 ? 1 : 0; d < D; ++d) {
-        float y = yr[d * C];
-        lq = lq + (kelemen_log_pdf(zr[d * C] - y, a.s1, a.s2, a.log_ratio) -
-                   kelemen_log_pdf(x[d * C] - y, a.s1, a.s2, a.log_ratio));
-      }
-      float q_ratio = large ? 1.0f : expf(lq);
-      a2 = metropolis_clamp(lum_ratio * q_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
-      if (a_rev >= 1.0f) a2 = 0.0f;
-      if (!isfinite(q_ratio)) a2 = 0.0f;
-    } else {
-      // green: trace the reverse path y* = z - (y - x)
-      float lum_rev = trace(PssView{zr, yr, x, C, 2}).lum;
-      float a_rev = metropolis_clamp(lum_rev / fmaxf(tz.lum, 1e-30f));
-      a2 = metropolis_clamp(lum_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
-      if (a_rev >= 1.0f) a2 = 0.0f;
+      if (!(tz.lum > 0.0f)) a2 = 0.0f;
+      if (!do_second) a2 = 0.0f;
+      accept2 = (coin2 < a2) && do_second;
     }
-    if (!(tz.lum > 0.0f)) a2 = 0.0f;
-    if (!do_second) a2 = 0.0f;
-    const bool accept2 = (coin2 < a2) && do_second;
 
-    // ---- splat: three-state weights, or one state picked by its weight
+    // ---- splat: three-state weights (Pss: two), or one state picked by
+    // its weight
     const float w_y = a1;
     const float w_z = (1.0f - a1) * a2;
     const float w_x = 1.0f - w_y - w_z;
     if (a.sampled) {
       float u_sel = dr.next();
       bool pick_y = u_sel < w_y;
-      bool pick_z = !pick_y && (u_sel < w_y + w_z);
+      bool pick_z = !Pss && !pick_y && (u_sel < w_y + w_z);
       // one call per state: passing the picked struct (pick_y ? ty : ...)
       // kept the three in the stack frame (ptxas: 256 bytes against 192)
       if (pick_y) {
@@ -335,7 +348,7 @@ __global__ void __launch_bounds__(128, 4)
     } else {
       splat(a, cur, w_x);
       splat(a, ty, w_y);
-      splat(a, tz, w_z);
+      if constexpr (!Pss) splat(a, tz, w_z);
     }
 
     // ---- state select: accept1 wins, then accept2
@@ -366,11 +379,18 @@ __global__ void __launch_bounds__(128, 4)
 
 template <class Trace>
 static int launch_chain(const Trace& trace, const ChainArgs& a, const float* uniforms,
-                        int n_rand, uint32_t seed, uint32_t launch, cudaStream_t stream) {
+                        int n_rand, uint32_t seed, uint32_t launch, bool pss,
+                        cudaStream_t stream) {
   const int block = 128;
   int grid = (a.C + block - 1) / block;
   if (grid > 0) {
-    drmlt_chain_kernel<Trace><<<grid, block, 0, stream>>>(trace, a, uniforms, n_rand, seed, launch);
+    if (pss) {
+      drmlt_chain_kernel<Trace, true>
+          <<<grid, block, 0, stream>>>(trace, a, uniforms, n_rand, seed, launch);
+    } else {
+      drmlt_chain_kernel<Trace, false>
+          <<<grid, block, 0, stream>>>(trace, a, uniforms, n_rand, seed, launch);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -379,7 +399,7 @@ static int launch_chain(const Trace& trace, const ChainArgs& a, const float* uni
 
 // technique 0 = path (max/min/rr depth and use_nee of the PathConfig),
 // 1 = mmlt (max_depth = the group's k; light_image, eye_dims, light_dims of
-// its BDPTConfig).
+// its BDPTConfig); pssmlt != 0 selects the stage-1-only instantiation.
 extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                   const float* em, int n_ems, const float* cam, const float* box,
                                   const int* link, const int* order, int n_nodes,
@@ -389,8 +409,8 @@ extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat
                                   float* scratch, int D, int C, float* film, int H, int W,
                                   float* stats, const float* uniforms, int n_rand, int n_mut,
                                   uint32_t seed, uint32_t launch, int drtype, int sampled,
-                                  int timid, int fix_emitter_path, float p_large, float s1,
-                                  float s2, float log_ratio, float sig2, float disp,
+                                  int timid, int fix_emitter_path, int pssmlt, float p_large,
+                                  float s1, float s2, float log_ratio, float sig2, float disp,
                                   float u_depth, float inv_k, void* stream) {
   const bool mmlt = technique == 1;
   if (mmlt && (max_depth < 1 || max_depth > drmlt::kMaxMmltDepth)) {
@@ -404,18 +424,21 @@ extern "C" int drmlt_chain_launch(const float* tri, int n_tris, const float* mat
                      (mmlt && fix_emitter_path) ? 1 : 0, em_lo,
                      em_lo + light_dims, max_depth, p_large, s1, s2, log_ratio, sig2, disp};
   cudaStream_t st = (cudaStream_t)stream;
+  const bool pss = pssmlt != 0;
   const drmlt::MmltCfg mc{max_depth, light_image, eye_dims};
   if (full) {
     const drmlt::TablesX tx = drmlt::with_ext(tb, DRMLT_EXT_ARGS);
     if (mmlt) {
       return drmlt::launch_chain(drmlt::MmltTrace<true>{tx, mc, u_depth, inv_k}, a, uniforms,
-                                 n_rand, seed, launch, st);
+                                 n_rand, seed, launch, pss, st);
     }
-    return drmlt::launch_chain(drmlt::PathTrace<true>{tx}, a, uniforms, n_rand, seed, launch, st);
+    return drmlt::launch_chain(drmlt::PathTrace<true>{tx}, a, uniforms, n_rand, seed, launch,
+                               pss, st);
   }
   if (mmlt) {
     return drmlt::launch_chain(drmlt::MmltTrace<false>{tb, mc, u_depth, inv_k}, a, uniforms,
-                               n_rand, seed, launch, st);
+                               n_rand, seed, launch, pss, st);
   }
-  return drmlt::launch_chain(drmlt::PathTrace<false>{tb}, a, uniforms, n_rand, seed, launch, st);
+  return drmlt::launch_chain(drmlt::PathTrace<false>{tb}, a, uniforms, n_rand, seed, launch,
+                             pss, st);
 }

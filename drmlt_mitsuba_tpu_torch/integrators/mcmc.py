@@ -1,5 +1,6 @@
 """Shared MCMC machinery (counterpart of drmlt_mitsuba_tpu/integrators/mcmc.py):
-batched chain state, bootstrap seeding, acceptance helpers.
+batched chain state, bootstrap seeding, splat accumulation, acceptance
+helpers.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 
 from drmlt_mitsuba_tpu_torch.core.rng import uniform
 from drmlt_mitsuba_tpu_torch.integrators.layout import Splats
+from drmlt_mitsuba_tpu_torch.render import film as filmlib
 
 BOOTSTRAP_BATCH = 8192
 
@@ -67,6 +69,21 @@ def bootstrap(trace_fn, generator, n_dims: int, n_bootstrap: int,
     state, b, _ = bootstrap_from_uniforms(trace_fn, u_boot, u_pick,
                                           n_chains)
     return state, b
+
+
+def splat_state(film_cfg, film, pos, value, weight):
+    """Add one weighted batch of splat lists to the film through
+    render/film.py:splat (the splat kernel on a CUDA film) and return it.
+
+    pos: (C, S, 2) in [0, 1)^2; value: (C, S, 3); weight: (C,), shared by
+    a chain's S splats."""
+    C, S, _ = pos.shape
+    scale = torch.tensor([film_cfg.width, film_cfg.height],
+                         dtype=torch.float32, device=pos.device)
+    return filmlib.splat(film_cfg, film, (pos * scale).reshape(C * S, 2),
+                         value.reshape(C * S, 3),
+                         weight=torch.repeat_interleave(weight, S),
+                         mode="splat")
 
 
 def metropolis_clamp(ratio):

@@ -7,10 +7,13 @@ technique dims:
   u[1]  strategy dim - frozen on small steps (moves only on large steps).
 The traced value is multiplied by D (uniform depth pmf), so b and every
 MH ratio are consistent with the plain Monte-Carlo estimator.  This is the
-MMLT kernel's own interface (ops/megammlt.py); the depth-grouped driver
-(integrators/mmlt_grouped.py) pins the depth dim per group instead.
+MMLT kernel's own interface (ops/megammlt.py), which the host PSSMLT
+integrator runs with `mmlt_masks`' pinned depth dim; the depth-grouped
+driver (integrators/mmlt_grouped.py) pins the depth dim per group instead.
 """
 from __future__ import annotations
+
+import torch
 
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
@@ -20,6 +23,20 @@ TECH_DIMS = 2  # depth + strategy
 
 def mmlt_n_dims(cfg: BDPTConfig) -> int:
     return TECH_DIMS + cfg.eye_dims + cfg.light_dims
+
+
+def mmlt_masks(cfg: BDPTConfig, even: bool = True, device=None):
+    """(frozen_mask, pinned_mask, n_dims) over the chain's PSS vector: the
+    strategy dim is frozen, the depth dim pinned; n_dims is padded to even
+    unless even=False."""
+    n = mmlt_n_dims(cfg)
+    if even and n % 2:
+        n += 1
+    frozen = torch.zeros((n,), dtype=torch.bool, device=device)
+    pinned = torch.zeros((n,), dtype=torch.bool, device=device)
+    frozen[1] = True
+    pinned[0] = True
+    return frozen, pinned, n
 
 
 def make_mmlt_trace(scene: Scene, cfg: BDPTConfig, device):

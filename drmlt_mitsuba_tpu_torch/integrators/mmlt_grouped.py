@@ -12,8 +12,8 @@ image is the sum.
 
 The kernel route of the reference (`_run_group_mega`) is the port's only
 route: the chain kernel on a CUDA device (ops/megadrmlt.py), its twin on
-the CPU.  The reference's XLA step loop, the mixture and acceptance-map
-options and the sharded driver are not ported.
+the CPU, in DRMLT or in pssmlt mode.  The reference's XLA step loop, the
+mixture and acceptance-map options and the sharded driver are not ported.
 
 Randomness comes from one torch.Generator, drawn in this order: the
 bootstrap vectors of groups 1..max_depth, then for each group that runs
@@ -102,15 +102,19 @@ def group_schedule(b_ks, n_chains: int, n_steps: int, equal_chains: bool,
 
 def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
                               film_cfg, generator, n_steps: int,
-                              min_group: int = 1024,
-                              equal_chains: bool = True):
+                              average_luminance=None, min_group: int = 1024,
+                              equal_chains: bool = True,
+                              pssmlt: bool = False):
     """Full depth-grouped DRMLT-over-MMLT render on generator.device.
 
     Per group k: ceil(steps_k / N_MUT) chain-kernel launches of N_MUT
     mutations (16 when steps_k < 32), then img += film_k * b_k / (N_k * steps_eff /
-    npixels).  Returns (image (H, W, 3), aux) with aux b, b_k, sizes,
-    steps_per_group, and per group that ran its steps_eff, stats and image
-    (the summand), like the reference."""
+    npixels).  average_luminance, when given, scales every b_k so that
+    they sum to it (mmlt_grouped.py:222-225); the schedule does not change.
+    pssmlt runs every launch in the chain kernel's pssmlt mode (stage-1-only
+    PSSMLT, the reference's control).  Returns (image (H, W, 3), aux) with
+    aux b, b_k, sizes, steps_per_group, and per group that ran its
+    steps_eff, stats and image (the summand), like the reference."""
     if dcfg.use_mixture or dcfg.acceptance_map:
         raise NotImplementedError(
             "useMixture / acceptanceMap are not ported to the chain kernel")
@@ -132,6 +136,9 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
 
     b_ks = [float(g["b"]) for g in groups]     # one host sync at set-up
     b_total = sum(b_ks)
+    if average_luminance is not None and b_total > 0:
+        b_ks = [bk * (float(average_luminance) / b_total) for bk in b_ks]
+        b_total = float(average_luminance)
     sizes, steps = group_schedule(b_ks, dcfg.n_chains, n_steps,
                                   equal_chains, min_group)
 
@@ -154,7 +161,7 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
         stats = torch.zeros((6, n_k), dtype=torch.float32, device=device)
         for i in range(n_launches):
             megadrmlt.drmlt_chain_step(g["tables"], dcfg, nm, arr, film,
-                                       stats, seed, i)
+                                       stats, seed, i, pssmlt=pssmlt)
         images[g["k"]] = film * (bk / (n_k * steps_eff / film_cfg.npixels))
         img = img + images[g["k"]]
         sums = stats.sum(1) / (n_k * steps_eff)

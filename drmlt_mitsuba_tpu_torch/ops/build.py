@@ -12,8 +12,8 @@ is kept beside it.
 `build_host` compiles the host-side BVH builder (csrc/bvh_builder.cpp)
 with g++ the same way.  There is no fallback: a missing nvcc or g++, a
 failed build or a launch the CUDA runtime refuses raises.  `LAUNCHES`
-counts, per kernel (the chain kernel per technique, the trace kernels'
-full-scope instantiations under "<name>[full]"), the launches the
+counts, per kernel (the chain kernel per technique and mode, the trace
+kernels' full-scope instantiations under "<name>[full]"), the launches the
 wrappers made; a wrapper adds one exactly where it launches its kernel.
 """
 from __future__ import annotations
@@ -46,12 +46,15 @@ def scope_key(name: str, tables) -> str:
 
 
 LAUNCHES = {"path_trace": 0, "drmlt_path": 0, "mmlt_trace": 0,
-            "drmlt_mmlt": 0, "splat_add": 0, "path_trace_rad": 0,
-            "path_trace_alb": 0, "intersect": 0}
+            "drmlt_mmlt": 0, "drmlt_path_pssmlt": 0, "drmlt_mmlt_pssmlt": 0,
+            "splat_add": 0, "path_trace_rad": 0, "path_trace_alb": 0,
+            "intersect": 0}
 # the full-scope instantiations of the trace kernels count apart
 # (ops/megatrace.py:scope_fields)
 LAUNCHES.update({k + FULL: 0 for k in ("path_trace", "drmlt_path",
                                        "mmlt_trace", "drmlt_mmlt",
+                                       "drmlt_path_pssmlt",
+                                       "drmlt_mmlt_pssmlt",
                                        "path_trace_rad", "path_trace_alb")})
 
 _P = ctypes.c_void_p
@@ -99,8 +102,8 @@ _SIGNATURES = {
         _P, _I, _I, _P,                        # film, H, W, stats
         _P, _I, _I, _U, _U,                    # uniforms, n_rand, n_mut,
         #                                        seed, launch
-        _I, _I, _I, _I,                        # drtype, sampled, timid,
-        #                                        fix_emitter_path
+        _I, _I, _I, _I, _I,                    # drtype, sampled, timid,
+        #                                        fix_emitter_path, pssmlt
         _F, _F, _F, _F, _F, _F,                # p_large, s1, s2, log_ratio,
         #                                        sigma2, dispersion
         _F, _F,                                # u_depth, 1/k (mmlt)

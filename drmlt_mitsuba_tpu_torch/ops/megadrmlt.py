@@ -4,9 +4,9 @@ MMLT technique: the chain kernel and its plain twin.
 `drmlt_chain_step` launches `csrc/drmlt_chain.cu:drmlt_chain_kernel`, the
 port of the reference's Pallas kernel `megadrmlt.py:_mega_drmlt_kernel`
 with technique="path" (the tables are a megatrace.TraceTables) or
-technique="mmlt" (a fixed-depth group's megammlt.MmltTables); its pssmlt
-mode is not ported yet.  `drmlt_chain_step_reference` is the same loop in
-plain PyTorch; the wrapper takes it only for tensors on the CPU.
+technique="mmlt" (a fixed-depth group's megammlt.MmltTables), in DRMLT
+mode or in its pssmlt mode.  `drmlt_chain_step_reference` is the same loop
+in plain PyTorch; the wrapper takes it only for tensors on the CPU.
 
 Per mutation and chain (megadrmlt.py:264-435): a large-step coin and D
 large-step uniforms; the stage-1 proposal y (Kelemen, pairwise for
@@ -16,6 +16,13 @@ the y and z traces (and green's reverse trace y* = z - (y - x)); the
 per-type acceptance; a three-state or sampled splat into the film; and the
 state select.  `do_second` is cleared after a large step unless
 timid_after_large.
+
+pssmlt mode (megadrmlt.py:338-350, 408-410): stage 1 only, PSSMLT as a
+control inside the same kernel.  z is drawn (the uniforms are those of
+DRMLT mode) but neither z nor y* is traced; y is accepted by Metropolis;
+the splat is Veach's two-state expected value (pssmlt_proc.cpp:204-225),
+x at 1 - a1 and y at a1, or in the sampled mode y with probability a1,
+else x.  a2 and accept2 are 0.
 
 MMLT mode (megadrmlt.py:158-190, 280-330, 367): the trace reads the pinned
 depth dim u_depth = 1 - 0.5/k before the chain's dims, and its value is
@@ -130,7 +137,7 @@ def _splat(film, px, py, rgb, w):
 
 def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
                                seed: int, launch: int, uniforms=None,
-                               work=None):
+                               work=None, pssmlt: bool = False):
     """Plain-PyTorch twin of drmlt_chain_kernel (see the module docstring).
     Updates state, film and stats in place and returns them.  With a dict
     `work`, adds the kernel's ray-triangle tests to it."""
@@ -204,40 +211,18 @@ def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
         j += 2
 
         lum_y, v_y, px_y, py_y = _trace(tables, y, work)
-        lum_z, v_z, px_z, py_z = _trace(tables, z, work)
         a1 = metropolis_clamp(lum_y / torch.clamp(lum_x, min=1e-30))
         accept1 = coin1 < a1
-        do_second = ~accept1
-        if not cfg.timid_after_large:
-            do_second = do_second & ~large
-        lum_ratio = lum_z / torch.clamp(lum_x, min=1e-30)
-        if cfg.type == "orbital":
-            num = lum_z - lum_y
-            den = lum_x - lum_y
-            a2 = torch.where(
-                lum_z < lum_y, 0.0,
-                torch.where(lum_z >= lum_x, 1.0, metropolis_clamp(
-                    num / torch.where(torch.abs(den) > 0, den, 1.0))))
-        elif cfg.type == "mira":
-            a_rev = metropolis_clamp(lum_y / torch.clamp(lum_z, min=1e-30))
-            lq = torch.zeros_like(lum_x)
-            for dd in range(1 if frozen0 else 0, D):
-                lq = lq + (kel.log_pdf(z_raw[dd] - y_raw[dd])
-                           - kel.log_pdf(x[dd] - y_raw[dd]))
-            q_ratio = torch.where(large, 1.0, torch.exp(lq))
-            a2 = metropolis_clamp(lum_ratio * q_ratio * (1.0 - a_rev)
-                                  / torch.clamp(1.0 - a1, min=1e-12))
-            a2 = torch.where(a_rev >= 1.0, 0.0, a2)
-            a2 = torch.where(torch.isfinite(q_ratio), a2, 0.0)
+        if pssmlt:
+            # stage 1 only: neither z nor y* is traced, a2 = 0, and z (a
+            # stand-in: x) is never splatted with weight nor selected
+            a2 = torch.zeros_like(a1)
+            accept2 = torch.zeros_like(accept1)
+            z, lum_z, v_z, px_z, py_z = x, lum_x, v_x, px_x, py_x
         else:
-            lum_rev = _trace(tables, pss_wrap(z_raw - (y_raw - x)), work)[0]
-            a_rev = metropolis_clamp(lum_rev / torch.clamp(lum_z, min=1e-30))
-            a2 = metropolis_clamp(lum_ratio * (1.0 - a_rev)
-                                  / torch.clamp(1.0 - a1, min=1e-12))
-            a2 = torch.where(a_rev >= 1.0, 0.0, a2)
-        a2 = torch.where(lum_z > 0, a2, 0.0)
-        a2 = torch.where(do_second, a2, 0.0)
-        accept2 = (coin2 < a2) & do_second
+            lum_z, v_z, px_z, py_z = _trace(tables, z, work)
+            a2, accept2 = _stage2(tables, cfg, kel, work, large, accept1, a1,
+                                  coin2, x, y_raw, z_raw, lum_x, lum_y, lum_z)
 
         w_y = a1
         w_z = (1.0 - a1) * a2
@@ -255,7 +240,8 @@ def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
         else:
             _splat(film, px_x, py_x, v_x, w_x)
             _splat(film, px_y, py_y, v_y, w_y)
-            _splat(film, px_z, py_z, v_z, w_z)
+            if not pssmlt:
+                _splat(film, px_z, py_z, v_z, w_z)
 
         a1m = accept1
         a2m = accept2 & ~accept1
@@ -278,6 +264,43 @@ def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
     state[D + 3:D + 6] = v_x
     stats += st
     return state, film, stats
+
+
+def _stage2(tables, cfg, kel, work, large, accept1, a1, coin2, x, y_raw,
+            z_raw, lum_x, lum_y, lum_z):
+    """(a2, accept2) of the delayed-rejection stage, per type."""
+    frozen0 = tables.technique == "mmlt"
+    do_second = ~accept1
+    if not cfg.timid_after_large:
+        do_second = do_second & ~large
+    lum_ratio = lum_z / torch.clamp(lum_x, min=1e-30)
+    if cfg.type == "orbital":
+        num = lum_z - lum_y
+        den = lum_x - lum_y
+        a2 = torch.where(
+            lum_z < lum_y, 0.0,
+            torch.where(lum_z >= lum_x, 1.0, metropolis_clamp(
+                num / torch.where(torch.abs(den) > 0, den, 1.0))))
+    elif cfg.type == "mira":
+        a_rev = metropolis_clamp(lum_y / torch.clamp(lum_z, min=1e-30))
+        lq = torch.zeros_like(lum_x)
+        for dd in range(1 if frozen0 else 0, x.shape[0]):
+            lq = lq + (kel.log_pdf(z_raw[dd] - y_raw[dd])
+                       - kel.log_pdf(x[dd] - y_raw[dd]))
+        q_ratio = torch.where(large, 1.0, torch.exp(lq))
+        a2 = metropolis_clamp(lum_ratio * q_ratio * (1.0 - a_rev)
+                              / torch.clamp(1.0 - a1, min=1e-12))
+        a2 = torch.where(a_rev >= 1.0, 0.0, a2)
+        a2 = torch.where(torch.isfinite(q_ratio), a2, 0.0)
+    else:
+        lum_rev = _trace(tables, pss_wrap(z_raw - (y_raw - x)), work)[0]
+        a_rev = metropolis_clamp(lum_rev / torch.clamp(lum_z, min=1e-30))
+        a2 = metropolis_clamp(lum_ratio * (1.0 - a_rev)
+                              / torch.clamp(1.0 - a1, min=1e-12))
+        a2 = torch.where(a_rev >= 1.0, 0.0, a2)
+    a2 = torch.where(lum_z > 0, a2, 0.0)
+    a2 = torch.where(do_second, a2, 0.0)
+    return a2, (coin2 < a2) & do_second
 
 
 # ---------------------------------------------------------------- kernel
@@ -319,18 +342,20 @@ def _technique_args(tables):
 
 
 def drmlt_chain_step(tables, cfg, n_mut: int, state, film, stats, seed: int,
-                     launch: int, uniforms=None):
+                     launch: int, uniforms=None, pssmlt: bool = False):
     """Run n_mut mutations of every chain under DRMLTConfig cfg, with the
     technique of `tables` (megatrace.TraceTables: path; megammlt.MmltTables:
-    a fixed-depth MMLT group).  Updates state (D+6, C), film (H, W, 3) and
-    stats (6, C) in place and returns them.
+    a fixed-depth MMLT group), as DRMLT or, with pssmlt, as stage-1-only
+    PSSMLT.  Updates state (D+6, C), film (H, W, 3) and stats (6, C) in
+    place and returns them.
 
     CUDA tensors launch drmlt_chain_kernel (one thread per chain); CPU
     tensors run drmlt_chain_step_reference."""
     _check(tables, cfg, n_mut, state, film, stats, uniforms)
     if state.device.type == "cpu":
         return drmlt_chain_step_reference(tables, cfg, n_mut, state, film,
-                                          stats, seed, launch, uniforms)
+                                          stats, seed, launch, uniforms,
+                                          pssmlt=pssmlt)
     if state.device.type != "cuda":
         raise NotImplementedError(f"no chain kernel for {state.device}")
     D, C = _n_dims(state), state.shape[1]
@@ -347,9 +372,11 @@ def drmlt_chain_step(tables, cfg, n_mut: int, state, film, stats, seed: int,
         uniforms.data_ptr() if uniforms is not None else None,
         n_rand(cfg, D), n_mut, seed & 0xFFFFFFFF, launch & 0xFFFFFFFF,
         _DRTYPE_CODE[cfg.type], int(cfg.splat_mode == "sampled"),
-        int(cfg.timid_after_large), int(cfg.fix_emitter_path), cfg.p_large,
-        kel.s1, kel.s2, kel.log_ratio, cfg.scale_second * cfg.sigma,
+        int(cfg.timid_after_large), int(cfg.fix_emitter_path), int(pssmlt),
+        cfg.p_large, kel.s1, kel.s2, kel.log_ratio,
+        cfg.scale_second * cfg.sigma,
         kernels.WrappedCauchy(cfg.rho).dispersion, u_depth, inv_k, stream)
     build.check(rc, "drmlt_chain_kernel")
-    build.LAUNCHES[build.scope_key("drmlt_" + tables.technique, tables)] += 1
+    name = "drmlt_" + tables.technique + ("_pssmlt" if pssmlt else "")
+    build.LAUNCHES[build.scope_key(name, tables)] += 1
     return state, film, stats

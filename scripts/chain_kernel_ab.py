@@ -15,9 +15,9 @@ into a library of its own under build/chain_ab/; the checkout's own
 kernels come from ops/build.py.  A build's entry point is
 `drmlt_chain_launch` (the template over the trace body) or
 `drmlt_path_launch` (slice 1's path-only kernel); a build from before
-the full scene scope (no SceneExt) is called without the scene-scope
-arguments, and one from before the BVH walk (no bvh.cuh) without the
-node-table arguments too.
+the pssmlt mode is called without its flag, one from before the full
+scene scope (no SceneExt) without the scene-scope arguments too, and one
+from before the BVH walk (no bvh.cuh) without the node-table arguments.
 
 On cornell_box(256, 256) (`--scene cornell`, the instantiation of
 slices 1-4) or cornell_scope(256, 256, "const") (`--scene const`, the
@@ -124,38 +124,51 @@ def build_single(src: Path, out: Path):
 # the scene-scope arguments after the node table (ops/build.py:_SCENE),
 # the last of them the `full` flag
 N_SCOPE = 16
+# the index of drmlt_chain_launch's `pssmlt` flag: the scene, then 25
+# arguments up to fix_emitter_path (ops/build.py:_SIGNATURES)
+PSS_ARG = len(build._SCENE) + 25
 
 
 class _OlderBuild:
-    """A build from before the full scene scope (no SceneExt in
-    path_trace.cuh), and perhaps from before the BVH walk (no bvh.cuh):
-    its drmlt_chain_launch lacks those arguments, which are dropped."""
+    """A build from before the pssmlt mode, and perhaps from before the full
+    scene scope (no SceneExt in path_trace.cuh) and the BVH walk (no
+    bvh.cuh): its drmlt_chain_launch lacks those arguments, which are
+    dropped."""
 
-    def __init__(self, lib, walk):
-        self.lib, self.walk = lib, walk
+    def __init__(self, lib, walk, scoped):
+        self.lib, self.walk, self.scoped = lib, walk, scoped
 
     def drmlt_chain_launch(self, *args):
-        if args[10] and not self.walk:
-            raise ValueError("this build cannot walk a BVH")
-        if args[10 + N_SCOPE]:
-            raise ValueError("this build has the scene scope of slices 1-4")
-        return self.lib.drmlt_chain_launch(
-            *args[:7], *(args[7:11] if self.walk else ()),
-            *args[11 + N_SCOPE:])
+        args = list(args)
+        if args.pop(PSS_ARG):
+            raise ValueError("this build has no pssmlt mode")
+        if not self.scoped:
+            if args[10] and not self.walk:
+                raise ValueError("this build cannot walk a BVH")
+            if args[10 + N_SCOPE]:
+                raise ValueError("this build has the scene scope of slices "
+                                 "1-4")
+            args = (args[:7] + (args[7:11] if self.walk else [])
+                    + args[11 + N_SCOPE:])
+        return self.lib.drmlt_chain_launch(*args)
 
 
 def load(path: Path, src: Path):
     """(library, entry name) with its argument types set."""
     lib = ctypes.CDLL(str(path))
     if hasattr(lib, "drmlt_chain_launch"):
-        entry, sig = "drmlt_chain_launch", build._SIGNATURES[
-            "drmlt_chain_launch"]
-        walk = (src / "bvh.cuh").exists()
-        if "SceneExt" not in (src / "path_trace.cuh").read_text():
-            lib.drmlt_chain_launch.argtypes = (
-                sig[:7] + (sig[7:11] if walk else []) + sig[11 + N_SCOPE:])
+        entry, sig = "drmlt_chain_launch", list(build._SIGNATURES[
+            "drmlt_chain_launch"])
+        if "int pssmlt" not in (src / "drmlt_chain.cu").read_text():
+            del sig[PSS_ARG]
+            walk = (src / "bvh.cuh").exists()
+            scoped = "SceneExt" in (src / "path_trace.cuh").read_text()
+            if not scoped:
+                sig = (sig[:7] + (sig[7:11] if walk else [])
+                       + sig[11 + N_SCOPE:])
+            lib.drmlt_chain_launch.argtypes = sig
             lib.drmlt_chain_launch.restype = ctypes.c_int
-            return _OlderBuild(lib, walk), entry
+            return _OlderBuild(lib, walk, scoped), entry
     else:
         entry, sig = "drmlt_path_launch", PATH_LAUNCH_SIG
     fn = getattr(lib, entry)

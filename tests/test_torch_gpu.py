@@ -568,3 +568,118 @@ def test_cli_renders_cornell_xml_on_the_card(cuda, tmp_path):
         trace = "path_trace[full]" if tech == "path" else "mmlt_trace[full]"
         assert build.LAUNCHES[trace] > 0
         assert build.LAUNCHES[f"drmlt_{tech}[full]"] > 0
+
+
+def _chain_case(cuda, technique, scope, C=2048):
+    """(tables, starting state) of a chain-kernel comparison: the path
+    technique at depth 4 or a depth-4 MMLT group, on the 36-triangle box
+    ("box") or the full-scope const configuration ("full")."""
+    from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
+    sc = (cornell_box(64, 64) if scope == "box"
+          else cornell_scope(64, 64, "const"))
+    g = torch.Generator(device=cuda).manual_seed(29)
+    if technique == "path":
+        pcfg = PathConfig(max_depth=4, rr_depth=100)
+        tables = MT.make_tables(sc, pcfg, cuda)
+        trace = make_path_trace(sc, pcfg, cuda)
+        D = pcfg.n_dims + pcfg.n_dims % 2
+    else:
+        trace, _, D, tables = make_mmlt_trace_fixed(sc, 4, True, cuda)
+    cand = torch.rand((16 * C, D), generator=g, device=cuda)
+    u0 = cand[torch.nonzero(trace(cand).lum > 0)[:C, 0]]
+    assert u0.shape[0] == C and tables.full == (scope == "full")
+    return tables, MD.pack_chain_state(state_from_splats(u0, trace(u0)))
+
+
+@pytest.mark.parametrize("scope", ["box", "full"])
+@pytest.mark.parametrize("technique", ["path", "mmlt"])
+@pytest.mark.parametrize("drtype,mode,given", [
+    ("mira", "three", True), ("green", "sampled", False),
+    ("orbital", "three", False)])
+def test_pssmlt_chain_kernel_matches_twin(cuda, technique, scope, drtype,
+                                          mode, given):
+    """The chain kernel's pssmlt mode, every instantiated trace body in
+    both scene scopes: 2,048 chains x 3 mutations against its twin, no
+    stage-2 mass, one launch counted under its own key."""
+    tables, state0 = _chain_case(cuda, technique, scope)
+    C, D = state0.shape[1], state0.shape[0] - 6
+    cfg = DRMLTConfig(type=drtype, splat_mode=mode, n_chains=C)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    uni = (torch.rand((3 * MD.n_rand(cfg, D), C), generator=g, device=cuda)
+           if given else None)
+    key = build.scope_key(f"drmlt_{technique}_pssmlt", tables)
+    n0, n_drmlt = build.LAUNCHES[key], build.LAUNCHES[
+        build.scope_key(f"drmlt_{technique}", tables)]
+    outs = []
+    for fn in (MD.drmlt_chain_step, MD.drmlt_chain_step_reference):
+        st, film = state0.clone(), torch.zeros((64, 64, 3), device=cuda)
+        stats = torch.zeros((6, C), device=cuda)
+        fn(tables, cfg, 3, st, film, stats, 7, 1, uni, pssmlt=True)
+        outs.append((st, film, stats))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[key] == n0 + 1
+    assert build.LAUNCHES[build.scope_key(f"drmlt_{technique}",
+                                          tables)] == n_drmlt
+    (sk, fk, tk), (sr, fr, tr) = outs
+    agree = (sk[:D] - sr[:D]).abs().max(0).values <= 2e-5
+    assert float(agree.float().mean()) >= 0.99
+    assert float((fk - fr).abs().sum() / fr.abs().sum()) <= 1e-2
+    torch.testing.assert_close(tk.sum(1), tr.sum(1), rtol=1e-2, atol=1.0)
+    assert float(tk[1].sum()) == 0.0 and float(tk[3].sum()) == 0.0
+    assert float(tk[2].sum()) > 0
+
+
+def test_pssmlt_renders_run_through_the_kernels(cuda):
+    """The grouped render with pssmlt=True launches the MMLT kernel and
+    the chain kernel's pssmlt mode only; render_pssmlt over the path
+    kernel launches it and the splat kernel."""
+    from drmlt_mitsuba_tpu_torch.integrators.pssmlt import (
+        PSSMLTConfig, render_pssmlt,
+    )
+    fc = filmlib.make_film_config(64, 64, "box")
+    build.reset_launches()
+    img, aux = render_drmlt_mmlt_grouped(
+        cornell_box(64, 64), BDPTConfig(max_depth=4),
+        DRMLTConfig(type="mira", n_chains=4096, n_bootstrap=8192,
+                    splat_mode="sampled"), fc,
+        torch.Generator(cuda).manual_seed(3), n_steps=64, pssmlt=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["drmlt_mmlt_pssmlt"] >= len(aux["images"]) > 0
+    assert build.LAUNCHES["drmlt_mmlt"] == 0
+    assert build.LAUNCHES["mmlt_trace"] > 0
+    assert all(float(s["accept2"]) == 0 for s in aux["stats"].values())
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+
+    build.reset_launches()
+    pcfg = PathConfig(max_depth=4, rr_depth=100)
+    img, aux = render_pssmlt(
+        make_path_trace(cornell_box(64, 64), pcfg, cuda),
+        PSSMLTConfig(n_chains=4096, n_bootstrap=8192), fc,
+        torch.Generator(cuda).manual_seed(4), pcfg.n_dims, n_steps=16)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["path_trace"] >= 16
+    assert build.LAUNCHES["splat_add"] == 32
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    assert 0.1 < float(aux["stats"]["accept"].mean()) < 0.9
+
+
+def test_cli_pssmlt_renders_cornell_xml_on_the_card(cuda, tmp_path,
+                                                    capsys):
+    """integrator=pssmlt on tests/data/cornell.xml in both techniques, on
+    the full-scope trace kernels."""
+    import os
+
+    from drmlt_mitsuba_tpu_torch.utils import cli
+    from drmlt_mitsuba_tpu_torch.utils.exr import read_exr
+    xml = os.path.join(os.path.dirname(__file__), "data", "cornell.xml")
+    for tech, trace in (("path", "path_trace[full]"),
+                        ("mmlt", "mmlt_trace[full]")):
+        build.reset_launches()
+        out = tmp_path / f"{tech}.exr"
+        assert cli.main([xml, "-D", "integrator=pssmlt", "-D",
+                         f"technique={tech}", "--chains", "16384", "--spp",
+                         "64", "-o", str(out)]) == 0
+        img = read_exr(str(out))
+        assert img.shape == (64, 64, 3) and img.mean() > 0
+        assert build.LAUNCHES[trace] > 16 and build.LAUNCHES["splat_add"] > 0
+    assert "mutations/s" in capsys.readouterr().out
