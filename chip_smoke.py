@@ -21,7 +21,9 @@ non-zero):
      scene;
   4. chain kernel (path mode) vs its twin on identical uniforms: 4096
      chains, n_mut 2, orbital / green / mira x three / sampled, plus the
-     Philox stream (chains, film and per-chain stats compared);
+     Philox stream (chains, film and per-chain stats compared), each
+     with its stage-2 share (the chains whose z the twin traced; phases
+     6, 8, 10 and 21 print it too, beside the kernel's time);
   5. slice 1: render_drmlt_path at 65536 chains, 256x256, depth 8,
      orbital, sampled splat, ~256 mutations per pixel (a first call, then
      the timed warm call), checked against a Monte-Carlo render_pt through
@@ -639,18 +641,20 @@ def slice3(name, dev, gen, fc, report):
         grad_paths_per_sec=rate_r, grad_albedo_paths_per_sec=rate_a,
         rad_step_device_ms=step_dev_ms, rad_step_busy_share=step_busy)
     print(f"[12 timing] {name}: path_trace_rad_kernel {timing['rad'][0]:.3f} "
-          f"ms vs twin {timing['rad'][1]:.3f} ms, its einsum "
+          f"ms vs twin {timing['rad'][1]:.3f} ms, its backward's einsum "
           f"{timing['rad'][3]:.4f} ms; path_trace_alb_kernel "
           f"{timing['alb'][0]:.3f} ms vs twin {timing['alb'][1]:.3f} ms, its "
-          f"einsum {timing['alb'][3]:.4f} ms ({CHAINS} lanes, depth "
+          f"backward's einsum {timing['alb'][3]:.4f} ms ({CHAINS} lanes, depth "
           f"{GRAD_DEPTH}, rr {GRAD_RR}; bound {timing['rad'][2][0]:.4f} ms by "
           f"{timing['rad'][2][1]}, {work['tri_tests']} ray-triangle tests); "
           f"grad_paths_per_sec {rate_r:.4e}, grad_albedo_paths_per_sec "
           f"{rate_a:.4e} (forward + backward, {GRAD_CALLS} calls; a "
           f"radiance call keeps the device busy {step_dev_ms:.3f} ms, a "
           f"busy share of {step_busy:.3f})")
-    out["rad"] = (adj_err["rad"], *timing["rad"])
-    out["alb"] = (adj_err["alb"], *timing["alb"])
+    # the einsum is the backward's own cost, not the same function: no
+    # PyTorch call traces a path, so the kernels line has no library time
+    out["rad"] = (adj_err["rad"], *timing["rad"][:3])
+    out["alb"] = (adj_err["alb"], *timing["alb"][:3])
 
     # ---- 13. replay gradient vs the adjoints ---------------------------------
     rcfg = PathConfig(max_depth=GRAD_DEPTH, rr_depth=100)
@@ -1390,6 +1394,7 @@ def slice5(name, dev, gen, report):
                                                   device=dev),
             torch.zeros((6, C4), device=dev), 5, 0, work=cwork)
         tests = cwork["tri_tests"] * (64 // 2) * (CHAINS // C4)
+        share = MD.stage2_share(cwork)
         c_bnd = bound(2 * nbytes(stc) + nbytes(film) + 2 * nbytes(stats),
                       tests)
         out[f"chain_{tech}"] = dict(err=max(chain_err[tech],
@@ -1398,13 +1403,14 @@ def slice5(name, dev, gen, report):
         report["scope_chain_vs_twin"][f"const/{tech}/65536x64"] = r
         report["scope_timing_ms"][f"chain_{tech}"] = dict(
             scene="const", ms=c_ms, plain_ms=r["twin_s"] * 1e3,
-            bound_ms=c_bnd[0], bound_by=c_bnd[1], tri_tests=tests)
+            bound_ms=c_bnd[0], bound_by=c_bnd[1], tri_tests=tests,
+            stage2_share=share)
         print(f"[21 chain kernel ({tech}), full scope, {CHAINS} chains x 64 "
               f"mutations] {name}: const: lanes agreeing "
               f"{r['lane_agreement']:.5f}, film rel L1 "
               f"{r['film_rel_l1']:.2e}; kernel {c_ms:.2f} ms vs twin "
-              f"{r['twin_s'] * 1e3:.0f} ms per launch; bound {c_bnd[0]:.4f} "
-              f"ms by {c_bnd[1]}")
+              f"{r['twin_s'] * 1e3:.0f} ms per launch, stage-2 share "
+              f"{share:.4f}; bound {c_bnd[0]:.4f} ms by {c_bnd[1]}")
 
     # ---- 22. slice 5's main path: the CLI renders ---------------------------
     report["slice5"] = {}
@@ -2126,10 +2132,14 @@ def main():
         ccfg = DRMLTConfig(type=drtype, splat_mode=mode, n_chains=C4)
         uni = (torch.rand((2 * MD.n_rand(ccfg, D), C4), generator=gen,
                           device=dev) if given else None)
-        r = compare_chain(tables, ccfg, 2, state0, SIZE, 77, 3, uni)
+        work = {}
+        r = compare_chain(tables, ccfg, 2, state0, SIZE, 77, 3, uni,
+                          work=work)
+        r["stage2_share"] = MD.stage2_share(work)
         tag = f"{drtype}/{mode}/{'uniforms' if given else 'philox'}"
         report["chain_vs_twin"][tag] = r
-        print(f"[4 chain kernel vs twin] {name}: {tag}: lanes agreeing "
+        print(f"[4 chain kernel vs twin] {name}: {tag}: stage-2 share "
+              f"{r['stage2_share']:.4f}, lanes agreeing "
               f"{r['lane_agreement']:.5f}, film rel L1 "
               f"{r['film_rel_l1']:.2e}, state max |d| "
               f"{r['state_max_abs']:.2e}, stats (a1 a2 accept1 accept2 "
@@ -2254,15 +2264,18 @@ def main():
     bound_chain = bound(2 * nbytes(states[0]) + nbytes(films[0])
                         + 2 * nbytes(stats[0]),
                         path_chain_work["tri_tests"])
+    share_path = MD.stage2_share(path_chain_work)
     report["timing_ms"] = dict(path_trace=ms_path, path_trace_plain=plain_path,
                                drmlt_path_n_mut64=ms_chain,
-                               drmlt_path_plain_n_mut64=plain_chain)
+                               drmlt_path_plain_n_mut64=plain_chain,
+                               drmlt_path_stage2_share=share_path)
     print(f"[6 timing] {name}: path_trace_kernel {ms_path:.3f} ms vs twin "
           f"{plain_path:.3f} ms ({CHAINS} lanes, depth {DEPTH}; bound "
           f"{bound_path[0]:.4f} ms by {bound_path[1]}, "
           f"{path_work['tri_tests']} ray-triangle tests); "
           f"drmlt_chain_kernel[path] {ms_chain:.3f} ms vs twin "
-          f"{plain_chain:.3f} ms ({CHAINS} chains x 64 mutations = "
+          f"{plain_chain:.3f} ms, stage-2 share {share_path:.4f} ({CHAINS} "
+          f"chains x 64 mutations = "
           f"{CHAINS * 64 / (ms_chain / 1e3):.4e} mutations/s; bound "
           f"{bound_chain[0]:.4f} ms by {bound_chain[1]}, "
           f"{path_chain_work['tri_tests']} ray-triangle tests)")
@@ -2314,18 +2327,23 @@ def main():
                     uni = (torch.rand((2 * MD.n_rand(ccfg, Dk), C4),
                                       generator=gen, device=dev)
                            if given else None)
-                    r = compare_chain(mtab, ccfg, 2, s4, SIZE, 31, 2, uni)
+                    work = {}
+                    r = compare_chain(mtab, ccfg, 2, s4, SIZE, 31, 2, uni,
+                                      work=work)
+                    r["stage2_share"] = MD.stage2_share(work)
                     tag = (f"k{kk}/{drtype}/{mode}/"
                            f"{'uniforms' if given else 'philox'}")
                     report["mmlt_chain_vs_twin"][tag] = r
                     check_chain(tag, r)
                     mmlt_chain_err = max(mmlt_chain_err, r["state_max_abs"])
-        agree = min(r["lane_agreement"] for t, r in
-                    report["mmlt_chain_vs_twin"].items()
-                    if t.startswith(f"k{kk}/"))
+        rows_k = [(t, r) for t, r in report["mmlt_chain_vs_twin"].items()
+                  if t.startswith(f"k{kk}/")]
+        agree = min(r["lane_agreement"] for _, r in rows_k)
         print(f"[8 chain kernel, mmlt mode, vs twin] {name}: k {kk} (D "
               f"{Dk}), {C4} chains x 2 mutations, 12 configurations: lowest "
-              f"lane agreement {agree:.5f}")
+              f"lane agreement {agree:.5f}; stage-2 share " + ", ".join(
+                  f"{t.split('/', 1)[1]} {r['stage2_share']:.4f}"
+                  for t, r in rows_k))
 
     cfg2 = DRMLTConfig(type="orbital", n_chains=CHAINS, n_bootstrap=100_000,
                        p_large=0.3, splat_mode="sampled")
@@ -2514,16 +2532,19 @@ def main():
     bound_mmlt_chain = bound(2 * nbytes(st_k) + nbytes(film_k)
                              + 2 * nbytes(stats_k),
                              mmlt_chain_work["tri_tests"])
+    share_mmlt = MD.stage2_share(mmlt_chain_work)
     report["timing_ms"].update(
         mmlt_trace=ms_mmlt, mmlt_trace_plain=plain_mmlt,
         drmlt_mmlt_k6_n_mut64=ms_mmlt_chain,
-        drmlt_mmlt_plain_k6_n_mut64=plain_mmlt_chain)
+        drmlt_mmlt_plain_k6_n_mut64=plain_mmlt_chain,
+        drmlt_mmlt_k6_stage2_share=share_mmlt)
     print(f"[10 timing] {name}: mmlt_trace_kernel {ms_mmlt:.3f} ms vs twin "
           f"{plain_mmlt:.3f} ms ({CHAINS} lanes, depth {MMLT_DEPTH}; bound "
           f"{bound_mmlt[0]:.4f} ms by {bound_mmlt[1]}, "
           f"{mmlt_work['tri_tests']} ray-triangle tests); "
           f"drmlt_chain_kernel[mmlt] {ms_mmlt_chain:.3f} ms vs twin "
-          f"{plain_mmlt_chain:.3f} ms ({CHAINS} chains x 64 mutations at k "
+          f"{plain_mmlt_chain:.3f} ms, stage-2 share {share_mmlt:.4f} "
+          f"({CHAINS} chains x 64 mutations at k "
           f"{MMLT_DEPTH} = {CHAINS * 64 / (ms_mmlt_chain / 1e3):.4e} "
           f"mutations/s; bound {bound_mmlt_chain[0]:.4f} ms by "
           f"{bound_mmlt_chain[1]}, {mmlt_chain_work['tri_tests']} "
@@ -2566,7 +2587,7 @@ def main():
         entry("drmlt_chain_kernel[mmlt]", "drmlt_chain.cu",
               "megadrmlt.py:105", launches2["drmlt_mmlt"], mmlt_chain_err,
               ms_mmlt_chain, plain_mmlt_chain, bound_mmlt_chain),
-        # library: index_add_ of the taps; the einsum of the backward
+        # library: index_add_ of the taps
         entry("splat_add_kernel", "splat.cu", "splat_kernel.py:79",
               s3["launches"]["splat_add"], *s3["splat"]),
         entry("path_trace_rad_kernel", "path_trace_grad.cu",

@@ -32,11 +32,18 @@
 // fix_emitter_path, stage 2 is the identity on the light-walk dims
 // [em_lo, em_hi) unless the chain's current strategy is light tracing.
 //
-// What bounds it on an H100: the 2-3 traces per mutation (see
-// path_trace.cu and mmlt_trace.cu: divergent, latency-bound per-thread
-// work); the proposal arithmetic is O(D) per mutation and the splat is 1 or
-// 3 atomicAdds of 3 floats.  With D up to 76 the per-chain arrays x, y_raw
-// and z_raw would spill from registers to local memory, so
+// What bounds it on an H100: the traces (see path_trace.cu and
+// mmlt_trace.cu: divergent, latency-bound per-thread work): y for every
+// chain, z only for the chains that run stage 2 (y rejected, and the step
+// small unless timid), and green's reverse path y* only for those whose z
+// carries light.  The TPU kernel traces z and y* on every lane, masked; a
+// per-thread branch would save nothing here either, since nearly every warp
+// holds some stage-2 chain.  So each block gathers its stage-2 chains into a
+// list in shared memory and traces them on its first threads, in full warps
+// (the kernel's phases are described above it).  The proposal arithmetic
+// is O(D) per mutation and the splat is 1 or 3 atomicAdds of 3 floats.
+// With D up to 76 the per-chain arrays x, y_raw and z_raw would spill from
+// registers to local memory, so
 //   * x lives in the chain state (D+6, C) itself, updated in place,
 //   * y_raw and z_raw live in a dim-major global scratch (2D, C),
 // and the trace reads its PSS dims from there through a stride (PssView),
@@ -195,15 +202,78 @@ __device__ __forceinline__ void splat(const ChainArgs& a, const Traced& s, float
   }
 }
 
-// 128 threads per block and 4 resident blocks per SM cap the registers at
-// 65536 / (128 * 4): above 128 registers an SM holds only 3 blocks, and the
-// latency-bound traces lose a quarter of their warps to hide it.
+// Threads per block, and the blocks an SM keeps resident: together they
+// cap the registers at 65536 / (kChainBlock * kChainMinBlocks) = 128.  Above
+// 128 registers an SM holds fewer blocks, and the latency-bound traces lose
+// warps to hide it.  A larger block gathers its stage-2 traces from more
+// chains, so fewer warps run part-empty, but waits at each barrier for the
+// slowest of more y traces: on an H100, 256 threads ran 1-21% faster than
+// 128 in every DRMLT mode (scripts/chain_kernel_ab.py, PERF.md).
+constexpr int kChainBlock = 256;
+constexpr int kChainMinBlocks = 65536 / (kChainBlock * 128);
+constexpr int kChainWarps = kChainBlock / 32;
+
+// A block's stage-2 work list and results, indexed by thread (chain); and
+// each chain's y trace during phase 2 and its stats, which would otherwise
+// hold twelve registers through the traces (the subset's path
+// instantiation spilled at the 128-register cap).
+struct Stage2 {
+  int list[kChainBlock];     // the threads whose chain has a trace to run
+  int warp_n[kChainWarps];   // list entries per warp
+  Traced tz[kChainBlock];    // the z traces
+  float lum_rev[kChainBlock];  // green: the y* traces' luminance
+  Traced ty[kChainBlock];    // the chain's own y trace
+  float st[6][kChainBlock];  // a1, a2, accept1, accept2, large, moved
+};
+
+// The block's shared memory in DRMLT mode; the pssmlt mode takes none.
+__device__ __forceinline__ Stage2& stage2_block() {
+  __shared__ Stage2 s;
+  return s;
+}
+
+// Write the threads of the block whose `flag` holds to s.list[0, n), in
+// thread order, and return n: a ballot and a count per warp, and one offset
+// per warp.  Every thread of the block calls it; it synchronises the block
+// twice.
+__device__ __forceinline__ int gather(bool flag, Stage2& s) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const unsigned bal = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) s.warp_n[w] = __popc(bal);
+  __syncthreads();
+  int off = 0, n = 0;
+  for (int i = 0; i < kChainWarps; ++i) {
+    const int k = s.warp_n[i];
+    off += i < w ? k : 0;
+    n += k;
+  }
+  if (flag) s.list[off + __popc(bal & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+  return n;
+}
+
+// A mutation runs in three phases.  (1) Each thread, for its own chain: every
+// uniform in the twin's order, y and z in the scratch, the y trace, stage 1
+// and do_second.  (2) The block gathers the chains that run stage 2 into a
+// list, and threads 0 .. n-1 trace their z, each reading its chain's column
+// of the scratch, so the traces run in full warps rather than on the few
+// lanes of each warp whose chain needs one; green then gathers the chains
+// whose z carries light and traces their y*.  A chain that skips stage 2 has
+// a2 = 0, so its z was never splatted with weight nor selected: its results
+// are those of a kernel that traces every z.  (3) Each thread finishes its
+// own chain: stage-2 acceptance, splat, select, stats.  Another thread's
+// trace reads a chain's scratch (and for y*, its x), which the chain writes
+// only in phases 1 and 3, after the barrier that ends phase 2.  A thread
+// past the last chain takes part in every barrier and ballot.  The pssmlt
+// mode has no stage 2, no barrier and no shared memory.
 template <class Trace, bool Pss>
-__global__ void __launch_bounds__(128, 4)
+__global__ void __launch_bounds__(kChainBlock, kChainMinBlocks)
     drmlt_chain_kernel(Trace trace, ChainArgs a, const float* __restrict__ uni, int n_rand,
                        uint32_t seed, uint32_t launch) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.C) return;
+  const int t = threadIdx.x;
+  const int c = blockIdx.x * blockDim.x + t;
+  if (Pss && c >= a.C) return;
+  const bool live = Pss || c < a.C;
   const long C = a.C;
   const int D = a.D;
   float* x = a.state + c;            // row d at x[d * C]
@@ -213,86 +283,130 @@ __global__ void __launch_bounds__(128, 4)
   // compile-time flag, so the path instantiation carries none of it
   constexpr bool frozen0 = Trace::kMmlt;
 
-  Traced cur{x[D * C],       x[(D + 3) * C], x[(D + 4) * C],
-             x[(D + 5) * C], x[(D + 1) * C], x[(D + 2) * C]};
-  float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  Traced cur{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (live) {
+    cur = {x[D * C],       x[(D + 3) * C], x[(D + 4) * C],
+           x[(D + 5) * C], x[(D + 1) * C], x[(D + 2) * C]};
+  }
+  float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // pssmlt mode
+  if constexpr (!Pss) {
+    for (int s = 0; s < 6; ++s) stage2_block().st[s][t] = 0.0f;
+  }
   Draws dr{uni, C, c, n_rand, 0, 0, seed, launch, {0u, 0u, 0u, 0u}};
 
   for (int m = 0; m < a.n_mut; ++m) {
-    dr.start(m);
-    // ---- stage 1: large-step coin, D large-step uniforms, Kelemen steps
-    const bool large = dr.next() < a.p_large;
-    for (int d = 0; d < D; ++d) yr[d * C] = dr.next();
-    if (a.drtype == kOrbital) {
-      const int P = D / 2;
-      for (int p = 0; p < P; ++p) zr[p * C] = dr.next();   // radius uniforms
-      for (int p = 0; p < P; ++p) {
-        float u_ang = dr.next();
-        if (!large) {
-          float r = kelemen_sample(zr[p * C], a.s2, a.log_ratio);
-          float ang = u_ang * kTwoPi;
-          float du0 = r * cosf(ang), du1 = r * sinf(ang);
-          if (frozen0 && p == 0) du0 = 0.0f;
-          yr[2 * p * C] = x[2 * p * C] + du0;
-          yr[(2 * p + 1) * C] = x[(2 * p + 1) * C] + du1;
+    // ======== phase 1: this thread's chain
+    bool large = false, accept1 = false, do_second = false;
+    float coin2 = 0.0f, u_sel = 0.0f, a1 = 0.0f;
+    Traced ty{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (live) {
+      dr.start(m);
+      // ---- stage 1: large-step coin, D large-step uniforms, Kelemen steps
+      large = dr.next() < a.p_large;
+      for (int d = 0; d < D; ++d) yr[d * C] = dr.next();
+      if (a.drtype == kOrbital) {
+        const int P = D / 2;
+        for (int p = 0; p < P; ++p) zr[p * C] = dr.next();   // radius uniforms
+        for (int p = 0; p < P; ++p) {
+          float u_ang = dr.next();
+          if (!large) {
+            float r = kelemen_sample(zr[p * C], a.s2, a.log_ratio);
+            float ang = u_ang * kTwoPi;
+            float du0 = r * cosf(ang), du1 = r * sinf(ang);
+            if (frozen0 && p == 0) du0 = 0.0f;
+            yr[2 * p * C] = x[2 * p * C] + du0;
+            yr[(2 * p + 1) * C] = x[(2 * p + 1) * C] + du1;
+          }
+        }
+      } else {
+        for (int d = 0; d < D; ++d) {
+          float u_k = dr.next();
+          if (!large) {
+            float du = (frozen0 && d == 0) ? 0.0f : kelemen_sample(u_k, a.s2, a.log_ratio);
+            yr[d * C] = x[d * C] + du;
+          }
         }
       }
-    } else {
-      for (int d = 0; d < D; ++d) {
-        float u_k = dr.next();
-        if (!large) {
-          float du = (frozen0 && d == 0) ? 0.0f : kelemen_sample(u_k, a.s2, a.log_ratio);
-          yr[d * C] = x[d * C] + du;
+      // ---- stage 2: orbital rotates the UNWRAPPED y - x about y by a
+      // wrapped-Cauchy angle; green / mira take a small Gaussian step from x
+      if (a.drtype == kOrbital) {
+        for (int p = 0; p < D / 2; ++p) {
+          float u = dr.next();
+          float sign = u < 0.5f ? 1.0f : -1.0f;
+          float xx = u < 0.5f ? 2.0f * u : 2.0f * (u - 0.5f);
+          float v = cosf(kTwoPi * xx);
+          float cth = fminf(fmaxf((v + a.disp) / (1.0f + a.disp * v), -1.0f), 1.0f);
+          float sth = sign * sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
+          float y0 = yr[2 * p * C], y1 = yr[(2 * p + 1) * C];
+          float du0 = y0 - x[2 * p * C];
+          float du1 = y1 - x[(2 * p + 1) * C];
+          zr[2 * p * C] = y0 - cth * du0 + sth * du1;
+          zr[(2 * p + 1) * C] = y1 - sth * du0 - cth * du1;
+        }
+      } else {
+        for (int d = 0; d < D; ++d) zr[d * C] = dr.next();   // Box-Muller u1
+        for (int d = 0; d < D; ++d) {
+          float u2 = dr.next();
+          float r = sqrtf(-2.0f * logf(fmaxf(1.0f - zr[d * C], 1e-38f)));
+          zr[d * C] = x[d * C] + r * cosf(kTwoPi * u2) * a.sig2;
         }
       }
-    }
-    // ---- stage 2: orbital rotates the UNWRAPPED y - x about y by a
-    // wrapped-Cauchy angle; green / mira take a small Gaussian step from x
-    if (a.drtype == kOrbital) {
-      for (int p = 0; p < D / 2; ++p) {
-        float u = dr.next();
-        float sign = u < 0.5f ? 1.0f : -1.0f;
-        float xx = u < 0.5f ? 2.0f * u : 2.0f * (u - 0.5f);
-        float v = cosf(kTwoPi * xx);
-        float cth = fminf(fmaxf((v + a.disp) / (1.0f + a.disp * v), -1.0f), 1.0f);
-        float sth = sign * sqrtf(fmaxf(1.0f - cth * cth, 0.0f));
-        float y0 = yr[2 * p * C], y1 = yr[(2 * p + 1) * C];
-        float du0 = y0 - x[2 * p * C];
-        float du1 = y1 - x[(2 * p + 1) * C];
-        zr[2 * p * C] = y0 - cth * du0 + sth * du1;
-        zr[(2 * p + 1) * C] = y1 - sth * du0 - cth * du1;
+      if (frozen0) zr[0] = x[0];
+      if (Trace::kMmlt && a.fix_em) {
+        // identity on the light-walk dims unless light tracing (s == k)
+        float s_cur = fminf(floorf(x[0] * (float)(a.k_depth + 1)), (float)a.k_depth);
+        if (s_cur != (float)a.k_depth) {
+          for (int d = a.em_lo; d < a.em_hi; ++d) zr[d * C] = x[d * C];
+        }
       }
-    } else {
-      for (int d = 0; d < D; ++d) zr[d * C] = dr.next();   // Box-Muller u1
-      for (int d = 0; d < D; ++d) {
-        float u2 = dr.next();
-        float r = sqrtf(-2.0f * logf(fmaxf(1.0f - zr[d * C], 1e-38f)));
-        zr[d * C] = x[d * C] + r * cosf(kTwoPi * u2) * a.sig2;
-      }
-    }
-    if (frozen0) zr[0] = x[0];
-    if (Trace::kMmlt && a.fix_em) {
-      // identity on the light-walk dims unless light tracing (s == k)
-      float s_cur = fminf(floorf(x[0] * (float)(a.k_depth + 1)), (float)a.k_depth);
-      if (s_cur != (float)a.k_depth) {
-        for (int d = a.em_lo; d < a.em_hi; ++d) zr[d * C] = x[d * C];
-      }
-    }
-    const float coin1 = dr.next();
-    const float coin2 = dr.next();
+      const float coin1 = dr.next();
+      coin2 = dr.next();
+      // the pssmlt mode draws it after its trace: drawn here, it cost that
+      // mode's <MmltTrace> 8 B of spills
+      if (!Pss && a.sampled) u_sel = dr.next();
 
-    // ---- traces (Pss: y only)
-    const Traced ty = trace(PssView{yr, nullptr, nullptr, C, 1});
+      ty = trace(PssView{yr, nullptr, nullptr, C, 1});
+      a1 = metropolis_clamp(ty.lum / fmaxf(cur.lum, 1e-30f));
+      accept1 = coin1 < a1;
+      do_second = !Pss && !accept1 && (a.timid || !large);
+    }
+
+    // ======== phase 2: the block's stage-2 traces, in full warps
     Traced tz{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if constexpr (!Pss) tz = trace(PssView{zr, nullptr, nullptr, C, 1});
+    float lum_rev = 0.0f;
+    if constexpr (!Pss) {
+      Stage2& sh = stage2_block();
+      const long base = (long)blockIdx.x * blockDim.x;
+      sh.ty[t] = ty;
+      const int n = gather(do_second, sh);
+      if (t < n) {
+        const int j = sh.list[t];
+        sh.tz[j] = trace(PssView{a.scratch + D * C + base + j, nullptr, nullptr, C, 1});
+      }
+      __syncthreads();
+      if (do_second) tz = sh.tz[t];
+      if (a.drtype == kGreen) {
+        // the reverse path y* = z - (y - x) of the chains whose z carries
+        // light (elsewhere a2 is 0 whatever y* gives)
+        const bool rev = do_second && tz.lum > 0.0f;
+        const int n2 = gather(rev, sh);
+        if (t < n2) {
+          const int j = sh.list[t];
+          sh.lum_rev[j] = trace(PssView{a.scratch + D * C + base + j, a.scratch + base + j,
+                                        a.state + base + j, C, 2}).lum;
+        }
+        __syncthreads();
+        if (rev) lum_rev = sh.lum_rev[t];
+      }
+      ty = sh.ty[t];
+    }
+    if (!live) continue;
 
-    // ---- acceptance
-    const float a1 = metropolis_clamp(ty.lum / fmaxf(cur.lum, 1e-30f));
-    const bool accept1 = coin1 < a1;
+    // ======== phase 3: this thread's chain
+    // ---- stage-2 acceptance (a2 = 0 where stage 2 does not run)
     float a2 = 0.0f;
     bool accept2 = false;
-    if constexpr (!Pss) {
-      bool do_second = !accept1 && (a.timid || !large);
+    if (do_second) {
       const float lum_ratio = tz.lum / fmaxf(cur.lum, 1e-30f);
       if (a.drtype == kOrbital) {
         if (tz.lum < ty.lum) {
@@ -316,15 +430,12 @@ __global__ void __launch_bounds__(128, 4)
         if (a_rev >= 1.0f) a2 = 0.0f;
         if (!isfinite(q_ratio)) a2 = 0.0f;
       } else {
-        // green: trace the reverse path y* = z - (y - x)
-        float lum_rev = trace(PssView{zr, yr, x, C, 2}).lum;
         float a_rev = metropolis_clamp(lum_rev / fmaxf(tz.lum, 1e-30f));
         a2 = metropolis_clamp(lum_ratio * (1.0f - a_rev) / fmaxf(1.0f - a1, 1e-12f));
         if (a_rev >= 1.0f) a2 = 0.0f;
       }
       if (!(tz.lum > 0.0f)) a2 = 0.0f;
-      if (!do_second) a2 = 0.0f;
-      accept2 = (coin2 < a2) && do_second;
+      accept2 = coin2 < a2;
     }
 
     // ---- splat: three-state weights (Pss: two), or one state picked by
@@ -333,7 +444,7 @@ __global__ void __launch_bounds__(128, 4)
     const float w_z = (1.0f - a1) * a2;
     const float w_x = 1.0f - w_y - w_z;
     if (a.sampled) {
-      float u_sel = dr.next();
+      if (Pss) u_sel = dr.next();
       bool pick_y = u_sel < w_y;
       bool pick_z = !Pss && !pick_y && (u_sel < w_y + w_z);
       // one call per state: passing the picked struct (pick_y ? ty : ...)
@@ -348,7 +459,8 @@ __global__ void __launch_bounds__(128, 4)
     } else {
       splat(a, cur, w_x);
       splat(a, ty, w_y);
-      if constexpr (!Pss) splat(a, tz, w_z);
+      // w_z is 0 where stage 2 did not run: nothing to add
+      if (do_second) splat(a, tz, w_z);
     }
 
     // ---- state select: accept1 wins, then accept2
@@ -360,28 +472,42 @@ __global__ void __launch_bounds__(128, 4)
       for (int d = 0; d < D; ++d) x[d * C] = pss_wrap(zr[d * C]);
       cur = tz;
     }
-    st[0] += a1;
-    st[1] += a2;
-    st[2] += accept1 ? 1.0f : 0.0f;
-    st[3] += accept2 ? 1.0f : 0.0f;
-    st[4] += large ? 1.0f : 0.0f;
-    st[5] += (accept1 || a2m) ? 1.0f : 0.0f;
+    const float inc[6] = {a1,
+                          a2,
+                          accept1 ? 1.0f : 0.0f,
+                          accept2 ? 1.0f : 0.0f,
+                          large ? 1.0f : 0.0f,
+                          (accept1 || a2m) ? 1.0f : 0.0f};
+    for (int s = 0; s < 6; ++s) {
+      if constexpr (Pss) {
+        st[s] += inc[s];
+      } else {
+        stage2_block().st[s][t] += inc[s];
+      }
+    }
   }
 
+  if (!live) return;
   x[D * C] = cur.lum;
   x[(D + 1) * C] = cur.px;
   x[(D + 2) * C] = cur.py;
   x[(D + 3) * C] = cur.r;
   x[(D + 4) * C] = cur.g;
   x[(D + 5) * C] = cur.b;
-  for (int s = 0; s < 6; ++s) a.stats[s * C + c] += st[s];
+  for (int s = 0; s < 6; ++s) {
+    if constexpr (Pss) {
+      a.stats[s * C + c] += st[s];
+    } else {
+      a.stats[s * C + c] += stage2_block().st[s][t];
+    }
+  }
 }
 
 template <class Trace>
 static int launch_chain(const Trace& trace, const ChainArgs& a, const float* uniforms,
                         int n_rand, uint32_t seed, uint32_t launch, bool pss,
                         cudaStream_t stream) {
-  const int block = 128;
+  const int block = kChainBlock;
   int grid = (a.C + block - 1) / block;
   if (grid > 0) {
     if (pss) {

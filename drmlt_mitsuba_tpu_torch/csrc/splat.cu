@@ -15,12 +15,15 @@
 // colliding atomics serialise in L2; that, not HBM, is what a hot pixel
 // costs.
 //
-// Design: one thread per tap, four f32 atomicAdds (RED instructions: the
-// return value is unused).  A tap outside the film is dropped, as the
-// reference's one-hot rows drop it and as the twin does.  The order of the
-// adds is not fixed, so sums differ from the twin's in the last bits;
-// callers compare with a tolerance.  The backward (a gather g[py, px]) is plain PyTorch, as the
-// reference computes it outside its kernel too.
+// Design: one thread per tap and one 16-byte vector reduction per tap
+// (Hopper's atomicAdd(float4*, float4): one L2 reduction of four floats,
+// where four scalar atomicAdds take four; its return value is unused), so
+// the film's base must be 16-byte aligned (ops/splat.py checks it).  A tap
+// outside the film is dropped, as the reference's one-hot rows drop it and
+// as the twin does.  The order of the adds is not fixed, so sums differ
+// from the twin's in the last bits; callers compare with a tolerance.  The
+// backward (a gather g[py, px]) is plain PyTorch, as the reference
+// computes it outside its kernel too.
 #include <cuda_runtime.h>
 
 namespace drmlt {
@@ -34,11 +37,7 @@ __global__ void splat_add_kernel(float* __restrict__ film, int H, int W,
   const int y = py[i], x = px[i];
   if ((unsigned)y >= (unsigned)H || (unsigned)x >= (unsigned)W) return;
   const float4 v = reinterpret_cast<const float4*>(vals)[i];
-  float* f = film + 4 * ((size_t)y * W + x);
-  atomicAdd(f, v.x);
-  atomicAdd(f + 1, v.y);
-  atomicAdd(f + 2, v.z);
-  atomicAdd(f + 3, v.w);
+  atomicAdd(reinterpret_cast<float4*>(film) + ((size_t)y * W + x), v);
 }
 
 }  // namespace drmlt

@@ -12,10 +12,14 @@ Per mutation and chain (megadrmlt.py:264-435): a large-step coin and D
 large-step uniforms; the stage-1 proposal y (Kelemen, pairwise for
 orbital); the stage-2 proposal z (orbital: the wrapped-Cauchy rotation of
 the *unwrapped* y - x about y; green / mira: a small Gaussian step from x);
-the y and z traces (and green's reverse trace y* = z - (y - x)); the
-per-type acceptance; a three-state or sampled splat into the film; and the
-state select.  `do_second` is cleared after a large step unless
-timid_after_large.
+the y trace; the z trace of the chains that run stage 2 (`do_second`: y
+rejected, and the step small unless timid_after_large) and green's reverse
+trace y* = z - (y - x) of those whose z carries light, each gathered into
+one batch as the kernel gathers them into full warps (zeros elsewhere:
+their a2 is 0 whatever z would give); the per-type acceptance; a
+three-state or sampled splat into the film; and the state select.  The
+twin's `work` counts the chains each trace ran on (y_lanes, z_lanes,
+y_rev_lanes) beside the ray-triangle tests.
 
 pssmlt mode (megadrmlt.py:338-350, 408-410): stage 1 only, PSSMLT as a
 control inside the same kernel.  z is drawn (the uniforms are those of
@@ -122,6 +126,32 @@ def _trace(tables, v, work):
     return lum, rgb * li, px, py
 
 
+def _trace_lanes(tables, v, lanes, work, kind):
+    """_trace of the chains where the bool (C,) `lanes` holds (every chain
+    for None), gathered into one batch as the kernel gathers a block's
+    stage-2 traces into full warps, and zeros elsewhere.  With a dict
+    `work`, adds the traced chains to work[kind + "_lanes"]."""
+    C = v.shape[1]
+    idx = None if lanes is None else torch.nonzero(lanes)[:, 0]
+    if work is not None:
+        key = kind + "_lanes"
+        work[key] = work.get(key, 0) + (C if idx is None else idx.numel())
+    if idx is None:
+        return _trace(tables, v, work)
+    lum = torch.zeros(C, device=v.device)
+    rgb = torch.zeros((3, C), device=v.device)
+    px, py = torch.zeros_like(lum), torch.zeros_like(lum)
+    if idx.numel():
+        lum[idx], rgb[:, idx], px[idx], py[idx] = _trace(tables, v[:, idx],
+                                                         work)
+    return lum, rgb, px, py
+
+
+def stage2_share(work) -> float:
+    """The share of mutations whose z was traced, from a twin's `work`."""
+    return work.get("z_lanes", 0) / max(work.get("y_lanes", 0), 1)
+
+
 def _splat(film, px, py, rgb, w):
     """Add rgb * w at pixel (floor(px W), floor(py H)); positions outside
     [0, 1) (exactly 1.0 after the wrap) are dropped."""
@@ -210,7 +240,7 @@ def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
         coin1, coin2 = U[j], U[j + 1]
         j += 2
 
-        lum_y, v_y, px_y, py_y = _trace(tables, y, work)
+        lum_y, v_y, px_y, py_y = _trace_lanes(tables, y, None, work, "y")
         a1 = metropolis_clamp(lum_y / torch.clamp(lum_x, min=1e-30))
         accept1 = coin1 < a1
         if pssmlt:
@@ -220,9 +250,14 @@ def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
             accept2 = torch.zeros_like(accept1)
             z, lum_z, v_z, px_z, py_z = x, lum_x, v_x, px_x, py_x
         else:
-            lum_z, v_z, px_z, py_z = _trace(tables, z, work)
-            a2, accept2 = _stage2(tables, cfg, kel, work, large, accept1, a1,
-                                  coin2, x, y_raw, z_raw, lum_x, lum_y, lum_z)
+            do_second = ~accept1
+            if not cfg.timid_after_large:
+                do_second = do_second & ~large
+            lum_z, v_z, px_z, py_z = _trace_lanes(tables, z, do_second, work,
+                                                  "z")
+            a2, accept2 = _stage2(tables, cfg, kel, work, large, do_second,
+                                  a1, coin2, x, y_raw, z_raw, lum_x, lum_y,
+                                  lum_z)
 
         w_y = a1
         w_z = (1.0 - a1) * a2
@@ -266,13 +301,11 @@ def drmlt_chain_step_reference(tables, cfg, n_mut: int, state, film, stats,
     return state, film, stats
 
 
-def _stage2(tables, cfg, kel, work, large, accept1, a1, coin2, x, y_raw,
+def _stage2(tables, cfg, kel, work, large, do_second, a1, coin2, x, y_raw,
             z_raw, lum_x, lum_y, lum_z):
-    """(a2, accept2) of the delayed-rejection stage, per type."""
+    """(a2, accept2) of the delayed-rejection stage, per type; lum_z is 0
+    where do_second does not hold (z was not traced there)."""
     frozen0 = tables.technique == "mmlt"
-    do_second = ~accept1
-    if not cfg.timid_after_large:
-        do_second = do_second & ~large
     lum_ratio = lum_z / torch.clamp(lum_x, min=1e-30)
     if cfg.type == "orbital":
         num = lum_z - lum_y
@@ -293,7 +326,8 @@ def _stage2(tables, cfg, kel, work, large, accept1, a1, coin2, x, y_raw,
         a2 = torch.where(a_rev >= 1.0, 0.0, a2)
         a2 = torch.where(torch.isfinite(q_ratio), a2, 0.0)
     else:
-        lum_rev = _trace(tables, pss_wrap(z_raw - (y_raw - x)), work)[0]
+        lum_rev = _trace_lanes(tables, pss_wrap(z_raw - (y_raw - x)),
+                               do_second & (lum_z > 0), work, "y_rev")[0]
         a_rev = metropolis_clamp(lum_rev / torch.clamp(lum_z, min=1e-30))
         a2 = metropolis_clamp(lum_ratio * (1.0 - a_rev)
                               / torch.clamp(1.0 - a1, min=1e-12))

@@ -61,12 +61,18 @@ def splat_add_reference_(film, py, px, vals):
 def splat_add_(film, py, px, vals):
     """film[py, px] += vals in place and return film.
 
-    A CUDA film launches splat_add_kernel; a CPU film runs the twin."""
+    A CUDA film launches splat_add_kernel (its base must be 16-byte
+    aligned, or this raises); a CPU film runs the twin."""
     _check(film, py, px, vals)
     if film.device.type == "cpu":
         return splat_add_reference_(film, py, px, vals)
     if film.device.type != "cuda":
         raise NotImplementedError(f"no splat kernel for {film.device}")
+    if film.data_ptr() % 16:
+        # the kernel adds a tap to a pixel as one float4, in place: no copy
+        # can stand in for the caller's film
+        raise ValueError("the film must be 16-byte aligned for the splat "
+                         "kernel")
     # int32 indices as film.taps makes them: no conversion launches
     py = py.to(torch.int32).contiguous()
     px = px.to(torch.int32).contiguous()

@@ -7,10 +7,14 @@ with debug_uniforms; the port's twin reads the same array in the same
 order.  One case runs the reference Pallas kernel in interpret mode; the
 other types and splat modes run against the reference test-suite's
 pure-JAX loop `_reference_multistep` (tests/test_megadrmlt.py) fed the XLA
-trace_paths.  Tolerances are those of the reference's own kernel-vs-loop
+trace_paths, and the timid_after_large cases, which that loop does not
+take, against the reference's own DRMLT step (integrators/drmlt.py:
+drmlt_step) with its draws answered from the same uniforms.  Tolerances are those of the reference's own kernel-vs-loop
 test (tests/test_megadrmlt.py:437-444): state u to 2e-5, lum rtol 2e-4,
 film (scaled by its max) to 5e-3.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ import pytest
 import torch
 from test_megadrmlt import _reference_multistep
 
+from drmlt_mitsuba_tpu.integrators import drmlt as JDR
 from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig as JDRMLTConfig
 from drmlt_mitsuba_tpu.integrators.layout import PathConfig as JPathConfig
 from drmlt_mitsuba_tpu.integrators.mcmc import ChainState as JChainState
@@ -115,21 +120,88 @@ def test_chain_twin_matches_interpret_kernel():
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("drtype,mode", [("green", "three"),
-                                         ("mira", "three"),
-                                         ("orbital", "sampled")])
-def test_chain_twin_matches_reference_loop(ref_trace, drtype, mode):
+class _Draws:
+    """jax.random as integrators/drmlt.py:drmlt_step draws from it, for one
+    mutation: each draw is answered from the twin's uniforms U (n_rand, C)
+    of that mutation (ops/megadrmlt.py gives their order).  The keys are
+    the names of the draws."""
+
+    def __init__(self, drtype, U, D):
+        C, P = U.shape[1], D // 2
+        T = U.T
+        if drtype == "orbital":
+            kern = np.zeros((C, P, 2, 2), np.float32)    # radius, angle
+            kern[:, :, 0, 0] = T[:, 1 + D:1 + D + P]
+            kern[:, :, 1, 0] = T[:, 1 + D + P:1 + 2 * D]
+            stage2 = np.stack([T[:, 1 + 2 * D:1 + 2 * D + P]] * 2, -1)
+            j = 1 + 2 * D + P
+        else:
+            kern = np.stack([T[:, 1 + D:1 + 2 * D]] * 2, -1)
+            stage2 = np.stack([T[:, 1 + 2 * D:1 + 3 * D],
+                               T[:, 1 + 3 * D:1 + 4 * D]], -1)
+            j = 1 + 4 * D
+        self.draws = dict(coin=U[0], large=T[:, 1:1 + D], kern=kern,
+                          stage2=stage2, acc1=U[j], acc2=U[j + 1])
+
+    def split(self, key, n):
+        return (("stage1", "stage2", "acc1", "acc2") if key is None
+                else ("coin", "large", "kern"))
+
+    def uniform(self, key, shape):
+        return jnp.asarray(self.draws[key]).reshape(shape)
+
+
+def jax_drmlt_steps(monkeypatch, trace, jcfg, fc, jst, uni, n_mut, frozen):
+    """n_mut mutations of the reference's integrators/drmlt.py:drmlt_step
+    (three-state splat) on the twin's uniforms: (state, film, summed
+    stats a1, a2, accept1, accept2, large over chains and mutations)."""
+    n_rand = uni.shape[0] // n_mut
+    C, D = jst.u.shape
+    film = jfilm.new_film(fc)
+    sums = np.zeros(5)
+    for m in range(n_mut):
+        draws = _Draws(jcfg.type, uni[m * n_rand:(m + 1) * n_rand], D)
+        monkeypatch.setattr(JDR, "jax", types.SimpleNamespace(
+            random=draws, tree=jax.tree))
+        (jst, film, _), st = JDR.drmlt_step(trace, jcfg, fc, frozen,
+                                            (jst, film, None), None)
+        sums += C * np.asarray([st[k] for k in ("a1", "a2", "accept1",
+                                                "accept2", "large")])
+    monkeypatch.undo()
+    return jst, film, sums
+
+
+@pytest.mark.parametrize("drtype,mode,timid", [
+    ("green", "three", False), ("mira", "three", False),
+    ("orbital", "sampled", False), ("green", "three", True),
+    ("orbital", "three", True)], ids=[
+    "green-three", "mira-three", "orbital-sampled", "green-three-timid",
+    "orbital-three-timid"])
+def test_chain_twin_matches_reference_loop(ref_trace, monkeypatch, drtype,
+                                           mode, timid):
+    """timid: stage 2 after large steps too, held to drmlt_step, with the
+    stats (a1, a2, accept1, accept2, large) summed over chains to 1e-5."""
     W, H, n_mut = 32, 32, 2
     state0, jst0, tables, D = _setup(W, H, 13)
-    cfg = DRMLTConfig(type=drtype, n_chains=C, splat_mode=mode)
+    cfg = DRMLTConfig(type=drtype, n_chains=C, splat_mode=mode,
+                      timid_after_large=timid)
+    jcfg = JDRMLTConfig(type=drtype, n_chains=C, splat_mode=mode,
+                        timid_after_large=timid, fuse_traces=False)
+    fc = jfilm.make_film_config(W, H, "box")
     n_rand = MD.n_rand(cfg, D)
     uni = np.random.default_rng(6).random((n_mut * n_rand, C),
                                           dtype=np.float32)
-    ref_state, ref_film = _reference_multistep(
-        ref_trace, JDRMLTConfig(type=drtype, n_chains=C, splat_mode=mode),
-        jfilm.make_film_config(W, H, "box"), DEPTH, jst0, jnp.asarray(uni),
-        n_mut, n_rand, splat_mode=mode, frozen0=False)
-    got, film, _ = _run_port(tables, cfg, n_mut, state0, W, H, uni)
+    got, film, stats = _run_port(tables, cfg, n_mut, state0, W, H, uni)
+    if timid:
+        ref_state, ref_film, ref_stats = jax_drmlt_steps(
+            monkeypatch, ref_trace, jcfg, fc, jst0, uni, n_mut,
+            jnp.zeros((D,), bool))
+        np.testing.assert_allclose(stats.sum(1)[:5].numpy(), ref_stats,
+                                   rtol=1e-5, atol=1e-4)
+    else:
+        ref_state, ref_film = _reference_multistep(
+            ref_trace, jcfg, fc, DEPTH, jst0, jnp.asarray(uni), n_mut,
+            n_rand, splat_mode=mode, frozen0=False)
     _compare(got, film, ref_state.u, ref_state.lum, ref_film)
 
 

@@ -99,11 +99,20 @@ def test_mmlt_kernel_matches_twin(cuda, scene, depth):
                  pos_rows=2)
 
 
+# the chain kernel's blocks gather their stage-2 chains: 2,000 chains leave
+# a last block part-empty, whose tail threads cross every barrier; timid
+# runs stage 2 after large steps too
+CHAIN_CASES = pytest.mark.parametrize("C,timid", [(2048, False),
+                                                  (2000, True)],
+                                      ids=["2048", "2000-timid"])
+
+
+@CHAIN_CASES
 @pytest.mark.parametrize("drtype", ["orbital", "green", "mira"])
 @pytest.mark.parametrize("mode", ["three", "sampled"])
 @pytest.mark.parametrize("given", [True, False], ids=["uniforms", "philox"])
-def test_chain_kernel_matches_twin(cuda, drtype, mode, given):
-    C, W = 2048, 64
+def test_chain_kernel_matches_twin(cuda, drtype, mode, given, C, timid):
+    W = 64
     pcfg = PathConfig(max_depth=4, rr_depth=100)
     D = pcfg.n_dims + pcfg.n_dims % 2
     scene = cornell_box(W, W)
@@ -112,7 +121,7 @@ def test_chain_kernel_matches_twin(cuda, drtype, mode, given):
     g = torch.Generator(cuda).manual_seed(2)
     u = torch.rand((C, D), device=cuda, generator=g)
     state0 = MD.pack_chain_state(state_from_splats(u, trace(u)))
-    cfg = DRMLTConfig(type=drtype, splat_mode=mode)
+    cfg = DRMLTConfig(type=drtype, splat_mode=mode, timid_after_large=timid)
     uni = (torch.rand((3 * MD.n_rand(cfg, D), C), device=cuda, generator=g)
            if given else None)
     out = []
@@ -130,11 +139,12 @@ def test_chain_kernel_matches_twin(cuda, drtype, mode, given):
     torch.testing.assert_close(tk.sum(1), tr.sum(1), rtol=1e-2, atol=1.0)
 
 
+@CHAIN_CASES
 @pytest.mark.parametrize("drtype", ["orbital", "green", "mira"])
 @pytest.mark.parametrize("mode", ["three", "sampled"])
 @pytest.mark.parametrize("given", [True, False], ids=["uniforms", "philox"])
-def test_mmlt_chain_kernel_matches_twin(cuda, drtype, mode, given):
-    C, W, k = 2048, 64, 4
+def test_mmlt_chain_kernel_matches_twin(cuda, drtype, mode, given, C, timid):
+    W, k = 64, 4
     trace, _, D, tables = make_mmlt_trace_fixed(cornell_box(W, W), k, True,
                                                 cuda)
     g = torch.Generator(cuda).manual_seed(5)
@@ -143,7 +153,8 @@ def test_mmlt_chain_kernel_matches_twin(cuda, drtype, mode, given):
     assert u.shape[0] == C
     state0 = MD.pack_chain_state(state_from_splats(u, trace(u)))
     cfg = DRMLTConfig(type=drtype, splat_mode=mode,
-                      fix_emitter_path=drtype == "green")
+                      fix_emitter_path=drtype == "green",
+                      timid_after_large=timid)
     uni = (torch.rand((3 * MD.n_rand(cfg, D), C), device=cuda, generator=g)
            if given else None)
     out = []
@@ -262,6 +273,52 @@ def test_splat_kernel_drops_out_of_range_taps(cuda):
     assert 0 < int(inside.sum()) < N
     torch.testing.assert_close(float(k.sum()), float(vals[inside].sum()),
                                rtol=1e-4, atol=0.0)
+
+
+def test_splat_kernel_on_hot_pixels(cuda):
+    """65,536 taps on three pixels (one vector atomic per tap, all on the
+    same few addresses) against the twin and the float64 sums: in float32
+    the sum of n taps in any order lies within n * 2^-24 of the exact one
+    relative to the sum of positive taps, so 1e-4 at ~22,000 taps a pixel
+    holds with a wide margin where the typical error is ~1e-5."""
+    g = torch.Generator(cuda).manual_seed(7)
+    H = W = 64
+    hot = torch.tensor([[0, 0], [17, 40], [63, 63]], device=cuda,
+                       dtype=torch.int32)
+    pick = torch.randint(0, 3, (65536,), generator=g, device=cuda)
+    py, px = hot[pick, 0].contiguous(), hot[pick, 1].contiguous()
+    vals = torch.rand((65536, 4), generator=g, device=cuda)
+    before = build.LAUNCHES["splat_add"]
+    k = SP.splat_add_(torch.zeros((H, W, 4), device=cuda), py, px, vals)
+    t = SP.splat_add_reference_(torch.zeros((H, W, 4), device=cuda), py, px,
+                                vals)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["splat_add"] == before + 1
+    exact = torch.zeros((H * W, 4), dtype=torch.float64, device=cuda)
+    exact.index_add_(0, (py * W + px).long(), vals.double())
+    exact = exact.view(H, W, 4)
+    torch.testing.assert_close(k.double(), exact, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(t.double(), exact, rtol=1e-4, atol=0.0)
+    assert int((k != 0).any(-1).sum()) == 3
+
+
+def test_splat_kernel_rejects_a_misaligned_film(cuda):
+    """The kernel adds a tap as one 16-byte vector, in place: a film whose
+    base is not 16-byte aligned raises (no copy can stand in for it); the
+    twin takes it on the CPU."""
+    store = torch.zeros(16 * 16 * 4 + 1, device=cuda)
+    film = store[1:].view(16, 16, 4)
+    assert film.data_ptr() % 16
+    py = torch.zeros(4, dtype=torch.int32, device=cuda)
+    vals = torch.ones((4, 4), device=cuda)
+    before = build.LAUNCHES["splat_add"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        SP.splat_add_(film, py, py, vals)
+    assert build.LAUNCHES["splat_add"] == before
+    assert float(store.abs().sum()) == 0.0
+    cpu = torch.zeros(16 * 16 * 4 + 1)[1:].view(16, 16, 4)
+    SP.splat_add_(cpu, py.cpu(), py.cpu(), vals.cpu())
+    assert float(cpu[0, 0, 0]) == 4.0
 
 
 @pytest.mark.parametrize("mode", ["rad", "alb"])
@@ -509,15 +566,18 @@ def test_full_scope_trace_kernels_match_twins(cuda, variant):
                      atol=1e-5, pos_rows=2)
 
 
+@pytest.mark.parametrize("drtype,C,timid", [("orbital", 2048, False),
+                                            ("green", 2000, True)],
+                         ids=["orbital", "green-2000-timid"])
 @pytest.mark.parametrize("technique", ["path", "mmlt"])
-def test_full_scope_chain_kernel_matches_twin(cuda, technique):
+def test_full_scope_chain_kernel_matches_twin(cuda, technique, drtype, C,
+                                              timid):
     """The chain kernel's full-scope instantiation, both modes, on the
-    image-environment configuration: 2,048 chains x 2 mutations, given
-    uniforms, against its twin."""
+    image-environment configuration: 2,048 chains (or 2,000, a part-empty
+    last block) x 2 mutations, given uniforms, against its twin."""
     from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
     sc = cornell_scope(64, 64, "env64")
     g = torch.Generator(device=cuda).manual_seed(23)
-    C = 2048
     if technique == "path":
         pcfg = PathConfig(max_depth=6, rr_depth=100)
         tables = MT.make_tables(sc, pcfg, cuda)
@@ -532,7 +592,8 @@ def test_full_scope_chain_kernel_matches_twin(cuda, technique):
         u0 = cand[torch.nonzero(trace(cand).lum > 0)[:C, 0]]
         state0 = MD.pack_chain_state(state_from_splats(u0, trace(u0)))
     assert tables.full and state0.shape[1] == C
-    cfg = DRMLTConfig(type="orbital", splat_mode="sampled", n_chains=C)
+    cfg = DRMLTConfig(type=drtype, splat_mode="sampled", n_chains=C,
+                      timid_after_large=timid)
     uni = torch.rand((2 * MD.n_rand(cfg, state0.shape[0] - 6), C),
                      generator=g, device=cuda)
     outs = []

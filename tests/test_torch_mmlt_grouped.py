@@ -5,7 +5,9 @@ The chain twin (ops/megadrmlt.py, technique "mmlt") is held to the
 reference test-suite's pure-JAX mutation loop `_reference_multistep`
 (tests/test_megadrmlt.py, frozen strategy dim) fed the reference's XLA
 fixed-depth trace `make_mmlt_trace_fixed(force_xla=True)` on identical
-uniforms, with the tolerances of tests/test_torch_drmlt.py (the reference's
+uniforms (the timid_after_large case, which that loop does not take, to
+the reference's integrators/drmlt.py:drmlt_step, as in
+tests/test_torch_drmlt.py), with the tolerances of tests/test_torch_drmlt.py (the reference's
 own kernel-vs-loop ones): state u to 2e-5, lum rtol 2e-4, film (scaled by
 its max) to 5e-3.  The grouped render is held to the reference's pieces
 composed the same way and, statistically, to the reference's Monte-Carlo
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from test_megadrmlt import _reference_multistep
+from test_torch_drmlt import jax_drmlt_steps
 
 from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig as JDRMLTConfig
 from drmlt_mitsuba_tpu.integrators.layout import PathConfig as JPathConfig
@@ -89,25 +92,90 @@ def _compare(got, fm, ref_state, ref_film):
     np.testing.assert_allclose(a / scale, b / scale, atol=5e-3)
 
 
-@pytest.mark.parametrize("drtype,mode", [("orbital", "three"),
-                                         ("green", "sampled"),
-                                         ("mira", "three")])
-def test_mmlt_chain_twin_matches_reference_loop(group, drtype, mode):
+@pytest.mark.parametrize("drtype,mode,timid", [
+    ("orbital", "three", False), ("green", "sampled", False),
+    ("mira", "three", False), ("green", "three", True)], ids=[
+    "orbital-three", "green-sampled", "mira-three", "green-three-timid"])
+def test_mmlt_chain_twin_matches_reference_loop(group, monkeypatch, drtype,
+                                                mode, timid):
     tables, state0, jst0, jtrace, D = group
     n_mut = 2
-    cfg = DRMLTConfig(type=drtype, n_chains=C, splat_mode=mode)
+    cfg = DRMLTConfig(type=drtype, n_chains=C, splat_mode=mode,
+                      timid_after_large=timid)
+    jcfg = JDRMLTConfig(type=drtype, n_chains=C, splat_mode=mode,
+                        timid_after_large=timid, fuse_traces=False)
+    fc = jfilm.make_film_config(W, H, "box")
     nr = MD.n_rand(cfg, D)
     uni = np.random.default_rng(9).random((n_mut * nr, C), dtype=np.float32)
-    ref_state, ref_film = _reference_multistep(
-        jtrace, JDRMLTConfig(type=drtype, n_chains=C, splat_mode=mode),
-        jfilm.make_film_config(W, H, "box"), K, jst0, jnp.asarray(uni),
-        n_mut, nr, splat_mode=mode, frozen0=True)
     got, fm = _run_twin(tables, cfg, n_mut, state0, uni)
+    if timid:
+        ref_state, ref_film, _ = jax_drmlt_steps(
+            monkeypatch, jtrace, jcfg, fc, jst0, uni, n_mut,
+            jnp.arange(D) == 0)
+    else:
+        ref_state, ref_film = _reference_multistep(
+            jtrace, jcfg, fc, K, jst0, jnp.asarray(uni), n_mut, nr,
+            splat_mode=mode, frozen0=True)
     _compare(got, fm, ref_state, ref_film)
     # the frozen strategy dim moves on large steps only
     moved = got.u[:, 0] != state0[0]
     large = torch.from_numpy(uni[0::nr] < cfg.p_large).any(0)
     assert bool((~moved | large).all())
+
+
+def test_chain_twin_traces_only_stage2_chains(group, monkeypatch):
+    """Green, one mutation at a time on 256 chains: z is traced on exactly
+    the chains that run stage 2 (y rejected on a small step, from the
+    per-chain stats) and y* on those whose z carries light (from a twin
+    that traces every chain), the work counts say so, and state, film and
+    stats equal that twin's bit for bit."""
+    tables, state0, _, _, D = group
+    n = 256
+    state0 = state0[:, :n].contiguous()
+    cfg = DRMLTConfig(type="green", n_chains=n, splat_mode="three")
+    nr = MD.n_rand(cfg, D)
+    uni = torch.from_numpy(np.random.default_rng(12).random(
+        (2 * nr, n), dtype=np.float32))
+    gathered = MD._trace_lanes
+    runs = {}
+    for every in (True, False):
+        seen = []
+
+        def trace_lanes(tables, v, lanes, work, kind, every=every):
+            out = (MD._trace(tables, v, work) if every
+                   else gathered(tables, v, lanes, work, kind))
+            seen.append((kind, lanes, out[0]))
+            return out
+
+        monkeypatch.setattr(MD, "_trace_lanes", trace_lanes)
+        state, fm, stats = state0.clone(), torch.zeros((H, W, 3)), []
+        works = []
+        for m in range(2):
+            st, work = torch.zeros((6, n)), {}
+            MD.drmlt_chain_step_reference(tables, cfg, 1, state, fm, st, 0,
+                                          0, uni[m * nr:(m + 1) * nr],
+                                          work=work)
+            stats.append(st)
+            works.append(work)
+        runs[every] = (state, fm, torch.stack(stats), seen, works)
+    monkeypatch.undo()
+    state, fm, stats, seen, works = runs[False]
+    for m in range(2):
+        do_second = (stats[m, 2] == 0) & (stats[m, 4] == 0)
+        lum_z_every = runs[True][3][3 * m + 1][2]
+        rev = do_second & (lum_z_every > 0)
+        assert [k for k, _, _ in seen[3 * m:3 * m + 3]] == ["y", "z",
+                                                           "y_rev"]
+        assert torch.equal(seen[3 * m + 1][1], do_second)
+        assert torch.equal(seen[3 * m + 2][1], rev)
+        assert torch.equal(seen[3 * m + 1][2][do_second],
+                           lum_z_every[do_second])
+        assert works[m]["y_lanes"] == n
+        assert works[m]["z_lanes"] == int(do_second.sum()) > 0
+        assert works[m]["y_rev_lanes"] == int(rev.sum()) > 0
+        assert works[m]["z_lanes"] < n and works[m]["y_rev_lanes"] < n
+    for a, b in zip((state, fm, stats), runs[True][:3]):
+        assert torch.equal(a, b)
 
 
 def test_mmlt_chain_twin_fix_emitter_path(group):
