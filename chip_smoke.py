@@ -294,7 +294,7 @@ def bound(n_bytes, tri_tests, node_tests=0):
 
 
 def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def ptxas_report(text):
@@ -1310,17 +1310,24 @@ def slice5(name, dev, gen, report):
             uM = torch.rand((mt.n_core, CHAINS), generator=gen, device=dev)
             k = MM.mmlt_trace(mt, uM)
             torch.cuda.synchronize()
-            t = MM.mmlt_trace_reference(mt, uM)
+            work = {}
+            t = MM.mmlt_trace_reference(mt, uM, work)
             mx, _, bad = lane_diff(k, t, pos_rows=2)
+            ms = event_ms(lambda: MM.mmlt_trace(mt, uM), runs=5)
+            bnd = bound(nbytes(uM, mt.tri, mt.mat, mt.em, mt.cam, mt.sph,
+                               mt.tri_ext, mt.tex) + 5 * CHAINS * 4,
+                        work["tri_tests"], work.get("node_tests", 0))
             report["scope_mmlt_vs_twin"][f"{sname}/{depth}"] = dict(
-                max_abs=mx, bad_lanes=bad)
-            row.append(f"d{depth} {1 - bad:.5f}")
+                max_abs=mx, bad_lanes=bad, ms=ms, bound_ms=bnd[0])
+            row.append(f"d{depth} {1 - bad:.5f} {ms:.4f} ms (bound "
+                       f"{bnd[0]:.4f})")
             need(bool(torch.isfinite(k).all()), f"{sname}/{depth}: non-finite")
             need(bad <= MAX_BAD_LANES_MMLT,
                  f"MMLT {sname}/{depth}: {bad:.4f} of lanes differ")
             mmlt_err = max(mmlt_err, mx)
         print(f"[20 MMLT kernel vs twin, full scope] {name}: {sname}, "
-              f"{CHAINS} lanes (depth, lanes agreeing): " + ", ".join(row))
+              f"{CHAINS} lanes (depth, lanes agreeing, kernel ms, bound ms "
+              f"from the twin's sweeps): " + ", ".join(row))
     mt6 = MM.make_mmlt_tables(scenes["const"][0],
                               BDPTConfig(max_depth=MMLT_DEPTH), dev)
     uM = torch.rand((mt6.n_core, CHAINS), generator=gen, device=dev)
@@ -2293,21 +2300,28 @@ def main():
             uT = torch.rand((mt.n_core, CHAINS), generator=gen, device=dev)
             k = MM.mmlt_trace(mt, uT)
             torch.cuda.synchronize()
-            t = MM.mmlt_trace_reference(mt, uT)
+            work = {}
+            t = MM.mmlt_trace_reference(mt, uT, work)
             mx, mean, bad = lane_diff(k, t, pos_rows=2)
             m_rel = float(((k[:3].double().mean(1) - t[:3].double().mean(1))
                            .abs() / (t[:3].double().mean(1).abs() + 1e-12))
                           .max())
+            ms = event_ms(lambda: MM.mmlt_trace(mt, uT), runs=5)
+            bnd = bound(nbytes(uT, mt.tri, mt.mat, mt.em, mt.cam)
+                        + 5 * CHAINS * 4, work["tri_tests"])
             report["mmlt_vs_twin"][f"{sname}/{depth}"] = dict(
-                max_abs=mx, mean_abs=mean, bad_lanes=bad, mean_rel=m_rel)
-            row.append(f"d{depth} {1 - bad:.5f} {mx:.1e}")
+                max_abs=mx, mean_abs=mean, bad_lanes=bad, mean_rel=m_rel,
+                ms=ms, bound_ms=bnd[0], tri_tests=work["tri_tests"])
+            row.append(f"d{depth} {1 - bad:.5f} {mx:.1e} {ms:.4f} ms "
+                       f"(bound {bnd[0]:.4f})")
             need(bool(torch.isfinite(k).all()), f"{sname}/{depth}: non-finite")
             need(bad <= MAX_BAD_LANES_MMLT,
                  f"MMLT {sname}/{depth}: {bad:.4f} of lanes differ")
             need(m_rel <= MEAN_RTOL, f"MMLT {sname}/{depth}: means {m_rel}")
             mmlt_err = max(mmlt_err, mx)
         print(f"[7 MMLT kernel vs twin] {name}: {sname}, {CHAINS} lanes "
-              f"(depth, lanes agreeing, max |d|): " + ", ".join(row))
+              f"(depth, lanes agreeing, max |d|, kernel ms, bound ms from "
+              f"the twin's sweeps): " + ", ".join(row))
 
     # ---- 8. chain kernel (mmlt mode) vs twin --------------------------------
     report["mmlt_chain_vs_twin"] = {}

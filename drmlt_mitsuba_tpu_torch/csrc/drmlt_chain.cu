@@ -18,12 +18,12 @@
 // (megadrmlt.py:264-435).
 //
 // Pss (the reference's pssmlt=True, megadrmlt.py:338-350, 408-410): stage
-// 1 only.  The z proposal is still drawn, so both modes consume the same
-// uniforms, but neither z nor green's reverse path y* is traced (their
-// results would only feed an a2 that the mode forces to 0); y is accepted
-// by Metropolis and the splat is Veach's two-state expected value, x at
-// 1 - a1 and y at a1 (or one of them picked by those weights in the
-// sampled mode).  a2 and accept2 stay 0.
+// 1 only.  Nothing reads the z proposal (it would only feed an a2 that the
+// mode forces to 0), so its uniforms are passed over, not drawn: both modes
+// keep the same draw indices, and neither z nor green's reverse path y* is
+// built or traced; y is accepted by Metropolis and the splat is Veach's
+// two-state expected value, x at 1 - a1 and y at a1 (or one of them picked
+// by those weights in the sampled mode).  a2 and accept2 stay 0.
 //
 // In mmlt mode (megadrmlt.py:158-190, 280-330, 367): the trace reads the
 // pinned depth dim u_depth = 1 - 0.5/k before the chain's dims and its
@@ -94,22 +94,32 @@ struct Draws {
     m = m_;
     j = 0;
   }
+  // Philox's four words for draws 4b .. 4b + 3
+  __device__ void block(int b) {
+    w[0] = (uint32_t)c;
+    w[1] = (uint32_t)m;
+    w[2] = (uint32_t)b;
+    w[3] = 0u;
+    philox4x32_10(w, seed, launch);
+  }
   __device__ float next() {
     float r;
     if (uni) {
       r = uni[((long)m * n_rand + j) * C + c];
     } else {
-      if ((j & 3) == 0) {
-        w[0] = (uint32_t)c;
-        w[1] = (uint32_t)m;
-        w[2] = (uint32_t)(j >> 2);
-        w[3] = 0u;
-        philox4x32_10(w, seed, launch);
-      }
+      if ((j & 3) == 0) block(j >> 2);
       r = (float)(w[j & 3] >> 9) * 1.1920928955078125e-07f;   // 2^-23
     }
     ++j;
     return r;
+  }
+  // Pass over n draws: the next draw is the one after them.  Its words are
+  // drawn here when it falls inside a group of four that the cache does not
+  // hold (a draw at a group's start draws its own).
+  __device__ void skip(int n) {
+    const int last = j - 1;   // the last draw taken (-1: none)
+    j += n;
+    if (!uni && (j & 3) != 0 && (j >> 2) != (last >> 2)) block(j >> 2);
   }
 };
 
@@ -207,8 +217,13 @@ __device__ __forceinline__ void splat(const ChainArgs& a, const Traced& s, float
 // 128 registers an SM holds fewer blocks, and the latency-bound traces lose
 // warps to hide it.  A larger block gathers its stage-2 traces from more
 // chains, so fewer warps run part-empty, but waits at each barrier for the
-// slowest of more y traces: on an H100, 256 threads ran 1-21% faster than
-// 128 in every DRMLT mode (scripts/chain_kernel_ab.py, PERF.md).
+// slowest of more y traces: on an H100, 256 threads ran faster than 128 in
+// the DRMLT modes, by up to 28% on the full scope, though the subset's path
+// mode has gone either way by up to 3% (scripts/chain_kernel_ab.py with a
+// copy of csrc/ whose kChainBlock is 128, PERF.md).  The pssmlt mode has no
+// barrier, but 256 suits it too: over four A/B runs of its eight
+// configurations, 256 was ahead in 29 of 32 comparisons, by up to 1.23%,
+// and behind by at most 0.22% in the other three.
 constexpr int kChainBlock = 256;
 constexpr int kChainMinBlocks = 65536 / (kChainBlock * 128);
 constexpr int kChainWarps = kChainBlock / 32;
@@ -328,8 +343,11 @@ __global__ void __launch_bounds__(kChainBlock, kChainMinBlocks)
         }
       }
       // ---- stage 2: orbital rotates the UNWRAPPED y - x about y by a
-      // wrapped-Cauchy angle; green / mira take a small Gaussian step from x
-      if (a.drtype == kOrbital) {
+      // wrapped-Cauchy angle; green / mira take a small Gaussian step from x.
+      // The pssmlt mode never reads z: it passes over z's uniforms.
+      if constexpr (Pss) {
+        dr.skip(a.drtype == kOrbital ? D / 2 : 2 * D);
+      } else if (a.drtype == kOrbital) {
         for (int p = 0; p < D / 2; ++p) {
           float u = dr.next();
           float sign = u < 0.5f ? 1.0f : -1.0f;
@@ -351,8 +369,8 @@ __global__ void __launch_bounds__(kChainBlock, kChainMinBlocks)
           zr[d * C] = x[d * C] + r * cosf(kTwoPi * u2) * a.sig2;
         }
       }
-      if (frozen0) zr[0] = x[0];
-      if (Trace::kMmlt && a.fix_em) {
+      if (!Pss && frozen0) zr[0] = x[0];
+      if (!Pss && Trace::kMmlt && a.fix_em) {
         // identity on the light-walk dims unless light tracing (s == k)
         float s_cur = fminf(floorf(x[0] * (float)(a.k_depth + 1)), (float)a.k_depth);
         if (s_cur != (float)a.k_depth) {

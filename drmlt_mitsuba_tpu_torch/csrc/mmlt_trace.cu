@@ -7,11 +7,13 @@
 // ops/megammlt.py:mmlt_trace_reference.
 //
 // What bounds it on an H100: per-thread, divergent, latency-bound work,
-// as in path_trace.cu.  Each lane sweeps every triangle once per walk
-// slot (two walks of up to max_depth slots) plus one shadow sweep; the
-// walks stop at different slots and the strategies differ per lane, so
-// warps diverge.  The per-slot MIS arrays and the four captured vertices
-// live in per-thread local memory (L1-resident), not in registers.
+// as in path_trace.cu.  Each lane sweeps the triangles (or walks the BVH)
+// once per bounce its strategy needs, t - 1 + max(s - 1, 0) <= max_depth
+// of them (the eye walk up to its slot t - 1, then the light walk up to
+// s - 1, in one loop: mmlt_trace.cuh:walk), plus one shadow ray; the
+// strategies and the walks' ends differ per lane, so warps diverge.  The
+// per-slot MIS arrays and the four captured vertices live in per-thread
+// local memory (L1-resident), not in registers.
 //
 // Design: one thread per lane, PSS dims read dim-major (uT is (n_core, R),
 // neighbouring threads read neighbouring floats), tables indexed directly

@@ -19,8 +19,13 @@
 //     lv0 on the light side) are captured when the walk reaches their
 //     slot, not carried through a masked copy at every slot;
 //   * materials and emitters are indexed by id (no loop over every row);
-//   * a walk stops at its first miss or absorbed bounce, and the shadow
-//     ray and MIS run only for a lane that has a contribution.
+//   * each walk stops at its selected slot (ev on the eye side, lv on the
+//     light side: nothing reads a slot past it) or at its first miss or
+//     absorbed bounce, and the two walks run in one loop, the light walk
+//     where the eye walk stopped, so a warp takes at most max_depth
+//     bounces, not every slot of one walk and then of the other (the TPU
+//     tile walks every slot masked);
+//   * the shadow ray and MIS run only for a lane that has a contribution.
 #pragma once
 
 #include "path_trace.cuh"
@@ -84,18 +89,63 @@ __device__ __forceinline__ float mis_ratio(float p_num, float p_den) {
   return (p_num > 0.0f ? p_num : 1.0f) / (p_den > 0.0f ? p_den : 1.0f);
 }
 
-// One subpath walk from slot 0 (the endpoint, filled in by the caller):
-// slots 1..n_slots-1 are surface hits.  u(j) reads PSS dim j; the bounce
-// at slot v reads dims ubase + 3 (v - 1) + {0, 1, 2} (the last slot
-// samples no direction and reads zeros).  Captures slot sel_a into *va
-// (with its emitter row) and slot sel_b into *vb; in the full scope an
-// escape at slot sel_a is marked on *va.  (megammlt.py:287-516)
+// What the light walk starts from: the ray leaving the emitter, its
+// throughput and direction pdf, the endpoint's point and normal.
+struct LightRay {
+  V3 o, d, beta, p0, n;
+  float pdf_dir;
+  bool valid;
+};
+
+// Both subpath walks of a lane in one loop: the eye walk from the camera
+// (the ray o, d with direction pdf pdf_sa, leaving slot 0 at o with normal
+// pn) up to slot ev, then the light walk from *lr up to slot lv; a walk
+// whose selected slot is 0 takes no bounce (and *lr is read only where lv
+// > 0).  Nothing reads a slot past the selected one (the MIS recursion
+// stops at the selected vertices), so each lane takes only the bounces its
+// strategy needs, and a warp runs the longest lane's t - 1 + max(s - 1, 0)
+// <= max_depth iterations rather than every slot of one walk and then of
+// the other.  The eye walk has n_eye slots, the light walk n_eye - 1; slots
+// 1.. are surface hits; u(j) reads PSS dim j; the bounce at slot v reads
+// dims ubase + 3 (v - 1) + {0, 1, 2} (ubase 4 on the eye side, lubase on
+// the light side; the last slot samples no direction and reads zeros); a
+// walk also stops at its first miss or absorbed bounce.  Captures: the eye
+// walk's slots ev and ev - 1 into cap[0], cap[1] (the emitter row at ev
+// into *erow_ev; in the full scope an escape at ev is marked on cap[0]),
+// the light walk's lv and lv - 1 into cap[2], cap[3] (ev0 = max(ev - 1, 0),
+// lv0 likewise: slot 0 is the caller's); each slot's pdfs and delta into
+// ws[0] (eye) and ws[1] (light).  The walked side's state stays in
+// registers; the light ray waits in the caller's frame, built before the
+// loop (the same work on every lane: at the switch it would run once per
+// distinct ev in a warp).  (megammlt.py:287-516)
 template <bool X, class U>
-static __device__ __noinline__ void walk(const TabT<X>& tb, const U& u, V3 o, V3 d, V3 beta,
-                                         float pdf_sa, V3 pp, V3 pn, int n_slots, int ubase,
-                                         bool importance, bool act, int sel_a, int sel_b,
-                                         VtxT<X>* va, int* erow_a, VtxT<X>* vb, WalkSlots* w) {
-  for (int v = 1; v < n_slots && act; ++v) {
+static __device__ __noinline__ void walk(const TabT<X>& tb, const U& u, V3 o, V3 d, float pdf_sa,
+                                         V3 pn, const LightRay* lr, int n_eye, int lubase, int ev,
+                                         int lv, VtxT<X>* cap, int* erow_ev, WalkSlots* ws) {
+  bool light = false, act = true;
+  int n_slots = n_eye, ubase = 4, sel = ev;
+  VtxT<X>* va = cap;   // the side's captures: slot sel, then sel - 1
+  WalkSlots* w = ws;
+  V3 beta = v3(1.0f, 1.0f, 1.0f), pp = o;
+  for (int v = 1;; ++v) {
+    if (!act || v > sel) {   // this side is done: on to the light walk, or stop
+      if (light || lv == 0) break;
+      light = true;
+      act = lr->valid;
+      n_slots -= 1;
+      ubase = lubase;
+      sel = lv;
+      va += 2;   // va, w held the eye side's cap, ws
+      w += 1;
+      o = lr->o;
+      d = lr->d;
+      beta = lr->beta;
+      pdf_sa = lr->pdf_dir;
+      pp = lr->p0;
+      pn = lr->n;
+      v = 0;
+      continue;
+    }
     int id;
     float t_hit = closest_hit(tb, o, d, &id);
     int sph = -1;
@@ -104,13 +154,14 @@ static __device__ __noinline__ void walk(const TabT<X>& tb, const U& u, V3 o, V3
     }
     if (id < 0 && sph < 0) {   // escaped
       if constexpr (X) {
-        if (v == sel_a) {
+        if (v == sel) {
           va->esc = true;
           va->wi = -d;
           va->beta = beta;
         }
       }
-      break;
+      act = false;
+      continue;
     }
     V3 hp = o + t_hit * d;
     V3 ng, ns;
@@ -167,11 +218,11 @@ static __device__ __noinline__ void walk(const TabT<X>& tb, const U& u, V3 o, V3
     w->delta[v] = is_delta<X>(kind);
 
     const V3 wiw = -d;
-    if (v == sel_a) {
+    if (v == sel) {
       *va = vtx<X>(Vertex{hp, ns, ng, wiw, beta, mat_id, true}, tu, tv);
-      *erow_a = (int)__ldg(erow_src);
+      if (!light) *erow_ev = (int)__ldg(erow_src);
     }
-    if (v == sel_b) *vb = vtx<X>(Vertex{hp, ns, ng, wiw, beta, mat_id, true}, tu, tv);
+    if (v == sel - 1) va[1] = vtx<X>(Vertex{hp, ns, ng, wiw, beta, mat_id, true}, tu, tv);
 
     // BSDF sample, and the reverse pdf of slot v - 1
     const Frame fr = make_frame(ns);
@@ -192,7 +243,7 @@ static __device__ __noinline__ void walk(const TabT<X>& tb, const U& u, V3 o, V3
     w->pdf_rev[v - 1] = rev_sa * cos_prev / d2;
 
     V3 bn = beta * bs.weight;
-    if (importance) {   // shading-normal correction of the adjoint walk
+    if (!light) {   // shading-normal correction of the adjoint (eye) walk
       float num = fabsf(dot(wiw, ns)) * fabsf(dot(wow, ng));
       float den = fabsf(dot(wiw, ng)) * fabsf(dot(wow, ns));
       float corr = den > 0.0f ? num / den : 1.0f;
@@ -242,7 +293,7 @@ static __device__ __noinline__ MmltOut trace_mmlt(const TabT<X>& tb, const MmltC
   const V3 cam_o = ld3(cam + 9);
   const float film_area = 4.0f * __ldg(cam + 12) * __ldg(cam + 13);
 
-  // ---- eye walk from the pinhole camera
+  // ---- the eye walk's endpoint: the pinhole camera
   const float ux = u(2), uy = u(3);
   const float x = (2.0f * ux - 1.0f) * __ldg(cam + 12);
   const float y = (1.0f - 2.0f * uy) * __ldg(cam + 13);
@@ -253,7 +304,8 @@ static __device__ __noinline__ MmltOut trace_mmlt(const TabT<X>& tb, const MmltC
   const float c0 = fmaxf(cos0, 1e-6f);
   const float pdf0 = cos0 > 1e-6f ? 1.0f / (film_area * (c0 * (c0 * c0))) : 0.0f;
 
-  WalkSlots we, wl;
+  WalkSlots ws[2];   // the eye walk's slots, then the light walk's
+  WalkSlots &we = ws[0], &wl = ws[1];
   for (int i = 0; i <= K; ++i) {
     we.pdf_fwd[i] = we.pdf_rev[i] = wl.pdf_fwd[i] = wl.pdf_rev[i] = 0.0f;
     we.delta[i] = wl.delta[i] = false;
@@ -261,16 +313,11 @@ static __device__ __noinline__ MmltOut trace_mmlt(const TabT<X>& tb, const MmltC
   const V3 zero3 = v3(0.0f, 0.0f, 0.0f), one3 = v3(1.0f, 1.0f, 1.0f);
   const VtxT<X> none = vtx<X>(Vertex{zero3, zero3, zero3, zero3, zero3, 0, false});
   const VtxT<X> cam_vtx = vtx<X>(Vertex{cam_o, cam_f, cam_f, -cam_f, one3, 0, true});
-  VtxT<X> se = ev == 0 ? cam_vtx : none, se0 = ev0 == 0 ? cam_vtx : none;
-  int erow_ev = -1;
   we.pdf_fwd[0] = 1.0f;
   we.delta[0] = true;
-  walk<X>(tb, u, cam_o, ed, one3, pdf0, cam_o, cam_f, n_eye, 4, true, true, ev, ev0, &se,
-          &erow_ev, &se0, &we);
-  we.pdf_rev[0] = 0.0f;
 
-  // ---- light walk from an area emitter (pick by power, uniform point,
-  //      cosine direction)
+  // ---- the light walk's endpoint on an area emitter (pick by power,
+  //      uniform point, cosine direction)
   const int lbase = 2 + mc.eye_dims;
   const float u_pick = u(lbase);
   int row = 0;
@@ -294,11 +341,18 @@ static __device__ __noinline__ MmltOut trace_mmlt(const TabT<X>& tb, const MmltC
   const V3 lbeta = valid0 ? l_rad * bscale : zero3;
   const V3 l_end_b = valid0 ? l_rad / fmaxf(pdf_pos, 1e-20f) : zero3;
   const VtxT<X> light_vtx = vtx<X>(Vertex{p0, lng, lng, lng, l_end_b, 0, valid0});
-  VtxT<X> sl = lv == 0 ? light_vtx : none, sl0 = lv0 == 0 ? light_vtx : none;
-  int erow_unused = -1;
   wl.pdf_fwd[0] = pdf_pos;
-  walk<X>(tb, u, p0 + ldir * 1e-3f, ldir, lbeta, pdf_dir, p0, lng, n_light, lbase + 5, false,
-          valid0, lv, lv0, &sl, &erow_unused, &sl0, &wl);
+  LightRay lray;   // read by the walk only where the light walk takes a bounce
+  if (lv > 0) lray = {p0 + ldir * 1e-3f, ldir, lbeta, p0, lng, pdf_dir, valid0};
+
+  // ---- the eye walk, then the light walk; the selected vertices se, se0
+  //      (eye side) and sl, sl0 (light side)
+  VtxT<X> cap[4] = {ev == 0 ? cam_vtx : none, ev0 == 0 ? cam_vtx : none,
+                    lv == 0 ? light_vtx : none, lv0 == 0 ? light_vtx : none};
+  const VtxT<X>&se = cap[0], &se0 = cap[1], &sl = cap[2], &sl0 = cap[3];
+  int erow_ev = -1;
+  walk<X>(tb, u, cam_o, ed, pdf0, cam_f, &lray, n_eye, lbase + 5, ev, lv, cap, &erow_ev, ws);
+  we.pdf_rev[0] = 0.0f;
 
   // ---- s = 0: the selected eye vertex is on an emitter
   V3 he_rad = zero3;

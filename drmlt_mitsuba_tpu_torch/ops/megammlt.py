@@ -14,7 +14,9 @@ Per lane (megammlt.py:262-929): depth and strategy (s, t) from dims 0-1;
 the eye walk from the pinhole camera and the light walk from an area
 emitter, each keeping per-slot pdf_fwd / pdf_rev / delta / valid and the
 two vertices the strategy selects (ev, ev0 on the eye side, lv, lv0 on the
-light side); the s = 0 emitter hit (or, with an environment, the s = 0 eye
+light side), and each stopping at its selected slot ev or lv (the kernel
+runs both walks in one loop, csrc/mmlt_trace.cuh:walk; the twin keeps a
+loop over every slot, masked); the s = 0 emitter hit (or, with an environment, the s = 0 eye
 walk that escaped, at MIS weight 1), or the selected connection with one
 shadow ray (t = 1: the light-image projection onto the film); the
 balance-heuristic MIS weight by the ratio recursion over the slots.  The
@@ -151,11 +153,14 @@ def _copy(dst, m, src):
 def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
           importance, sel, ep, work):
     """One subpath walk (megammlt.py:287-516).  sel: slot indices (R,)
-    whose vertices to capture; ep: the endpoint (slot 0) record.  Returns
-    (pdf_fwd, pdf_rev, delta, valid) per slot, the captured vertices and
-    the emitter row of the first captured one.  A walk that leaves the
-    scene marks the vertex of that slot escaped (its wi the escape
-    direction reversed, its beta the throughput)."""
+    whose vertices to capture, sel[0] the last (the kernel's sel_a);
+    ep: the endpoint (slot 0) record.  Returns (pdf_fwd, pdf_rev, delta,
+    valid) per slot, the captured vertices and the emitter row of the
+    first captured one.  A walk that leaves the scene marks the vertex of
+    that slot escaped (its wi the escape direction reversed, its beta the
+    throughput).  A lane stops after slot sel[0], as the kernel's does
+    (nothing reads a slot past it), so `work` counts the sweeps the lane
+    needs; the loop still runs every slot, masked."""
     tri = tables.tri
     R = o.shape[0]
     dev = o.device
@@ -177,6 +182,7 @@ def _walk(tables, u, o, d, beta, pdf_sa, src_p, src_ns, n_slots, ubase,
     act = ep["valid"]
     pp, pn = src_p, src_ns
     for v in range(1, n_slots):
+        act = act & (sel[0] >= v)
         best_t, best_id = closest_hit(tri, o, d, tables.nodes)
         count_sweeps(work, tri, act, o, d, nodes=tables.nodes)
         if tables.n_sphs:

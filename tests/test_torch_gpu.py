@@ -99,6 +99,27 @@ def test_mmlt_kernel_matches_twin(cuda, scene, depth):
                  pos_rows=2)
 
 
+@pytest.mark.parametrize("scene", ["diffuse", "glass"])
+@pytest.mark.parametrize("depth", [1, 6])
+@pytest.mark.parametrize("side", ["s0", "t1"])
+def test_mmlt_kernel_one_sided_strategies(cuda, scene, depth, side):
+    """Every lane on an s = 0 strategy (no light walk) or on t = 1 (no eye
+    walk), over the pooled depths 1..max_depth: one side of the kernel's
+    fused walk is empty on every lane."""
+    cfg = BDPTConfig(max_depth=depth)
+    tables = MM.make_mmlt_tables(_scene(scene), cfg, cuda)
+    uT = torch.rand((tables.n_core, 16384), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(depth))
+    # u(1) * (d + 1) below 1 picks s = 0, at or above d picks s = d
+    # (t = 1), for every depth d <= 6
+    uT[1] = uT[1] * 0.14 if side == "s0" else 1.0 - uT[1] * 0.14
+    k = MM.mmlt_trace(tables, uT)
+    torch.cuda.synchronize()
+    _lanes_agree(k, MM.mmlt_trace_reference(tables, uT), atol=1e-6,
+                 pos_rows=2)
+    assert float(k[:3].sum()) > 0
+
+
 # the chain kernel's blocks gather their stage-2 chains: 2,000 chains leave
 # a last block part-empty, whose tail threads cross every barrier; timid
 # runs stage 2 after large steps too
@@ -654,15 +675,18 @@ def _chain_case(cuda, technique, scope, C=2048):
 
 @pytest.mark.parametrize("scope", ["box", "full"])
 @pytest.mark.parametrize("technique", ["path", "mmlt"])
-@pytest.mark.parametrize("drtype,mode,given", [
-    ("mira", "three", True), ("green", "sampled", False),
-    ("orbital", "three", False)])
+@pytest.mark.parametrize("drtype,mode,given,C", [
+    ("mira", "three", True, 2048), ("green", "sampled", False, 2048),
+    ("orbital", "three", False, 2048), ("orbital", "sampled", True, 2000)],
+    ids=["mira-three-True", "green-sampled-False", "orbital-three-False",
+         "orbital-sampled-True-2000"])
 def test_pssmlt_chain_kernel_matches_twin(cuda, technique, scope, drtype,
-                                          mode, given):
+                                          mode, given, C):
     """The chain kernel's pssmlt mode, every instantiated trace body in
     both scene scopes: 2,048 chains x 3 mutations against its twin, no
-    stage-2 mass, one launch counted under its own key."""
-    tables, state0 = _chain_case(cuda, technique, scope)
+    stage-2 mass, one launch counted under its own key; 2,000 chains leave
+    the mode's last block part-empty."""
+    tables, state0 = _chain_case(cuda, technique, scope, C)
     C, D = state0.shape[1], state0.shape[0] - 6
     cfg = DRMLTConfig(type=drtype, splat_mode=mode, n_chains=C)
     g = torch.Generator(device=cuda).manual_seed(31)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig as JBDPTConfig
+from drmlt_mitsuba_tpu.integrators.bidir import eye_subpath, light_subpath
 from drmlt_mitsuba_tpu.integrators.mmlt import make_mmlt_trace as jax_mmlt
 from drmlt_mitsuba_tpu.integrators.mmlt import mmlt_n_dims as jax_n_dims
 from drmlt_mitsuba_tpu.scene import builders as jax_builders
@@ -74,6 +75,75 @@ def test_twin_matches_xla_trace_mmlt(scene, kw, depth, light_image):
     sp = trace_mmlt(pscene, cfg, torch.from_numpy(u[:, 1:]),
                     torch.from_numpy(d))
     _compare(va / depth, sp.value[:, 0].numpy(), pa, sp.pos[:, 0].numpy())
+
+
+def _walk_length(sp):
+    """Per lane, the surface slots a subpath walk reaches: its hits, and
+    the slot where it left the scene (the sweeps its walk takes)."""
+    return sp.valid[:, 1:].sum(1) + sp.escaped[:, 1:].sum(1)
+
+
+def test_twin_sweeps_stop_at_the_selected_slots(monkeypatch):
+    """Each lane's walks stop at the slots its strategy selects, as the
+    kernel's fused walk does, on the box at the pinned depth 6 and over the
+    pooled depths 1-6 (s = 0 and t = 1 included): the twin sweeps
+    min(eye walk length, t - 1) + min(light walk length, max(s - 1, 0))
+    times per lane, each length the reference's own subpath's on the same
+    dims (the slots it reaches, the one where it leaves the scene
+    included), and `work` counts those sweeps.  Its outputs still match
+    the XLA trace_mmlt.  The glass box is left out: its bottom face lies
+    on the floor, and a light walk that refracts down through it meets
+    both at once, a tie that the reference's walk and the twin break
+    apart, so their walk lengths differ on some lanes (seed 11: 16 of
+    1,024) for a reason that is not the stop at the selected slot."""
+    K = 6
+    jscene = jax_builders.cornell_box(32, 32)
+    jcfg, cfg = JBDPTConfig(max_depth=K), BDPTConfig(max_depth=K)
+    tables = megammlt.make_mmlt_tables(builders.cornell_box(32, 32), cfg,
+                                       "cpu")
+    lbase = 2 + cfg.eye_dims
+    xla_trace = jax_mmlt(jscene, jcfg, force_xla=True)
+
+    @jax.jit
+    def reference(x):
+        """The walks' lengths and the trace, compiled as one program."""
+        eye = eye_subpath(jscene, jcfg, x[:, 2:lbase])[0]
+        light = light_subpath(jscene, jcfg, x[:, lbase:])
+        return _walk_length(eye), _walk_length(light), xla_trace(x)
+
+    count = megammlt.count_sweeps
+    sweeps, closest = torch.zeros(R, dtype=torch.int64), []
+
+    def spy(work, tri, mask, o, d, tmax=None, nodes=None):
+        n0 = work.get("tri_tests", 0)
+        count(work, tri, mask, o, d, tmax, nodes)
+        if tmax is None:            # a walk's closest-hit sweep
+            sweeps.add_(mask.long())
+            closest.append(work["tri_tests"] - n0)
+
+    monkeypatch.setattr(megammlt, "count_sweeps", spy)
+    rng = np.random.default_rng(11)
+    for pinned in (True, False):
+        u = rng.random((R, tables.n_core), dtype=np.float32)
+        if pinned:
+            u[:, 0] = np.float32(1.0 - 0.5 / K)
+        # the strategy (s, t) in float32, as mmlt_trace.cuh picks it
+        depth = np.minimum(np.floor(u[:, 0] * np.float32(K)), K - 1) + 1
+        s = np.minimum(np.floor(u[:, 1] * (depth + 1)), depth)
+        t = depth + 1 - s
+        assert {0.0, 1.0} <= set(s) and 1.0 in set(t)
+        le, ll, ref = reference(jnp.asarray(u))
+        want = (np.minimum(np.asarray(le), t - 1)
+                + np.minimum(np.asarray(ll), np.maximum(s - 1, 0)))
+
+        sweeps.zero_()
+        closest.clear()
+        got = megammlt.mmlt_trace_reference(
+            tables, torch.from_numpy(u.T.copy()), {})
+        np.testing.assert_array_equal(sweeps.numpy(), want.astype(np.int64))
+        assert sum(closest) == tables.tri.shape[0] * int(want.sum())
+        _compare(np.asarray(ref.value[:, 0]), got[:3].T.numpy(),
+                 np.asarray(ref.pos[:, 0]), got[3:].T.numpy())
 
 
 def test_config_layout_and_wrapper_checks():
