@@ -293,6 +293,36 @@ def bound(n_bytes, tri_tests, node_tests=0):
                                  else "operations")
 
 
+def same_bits(a, b):
+    """Whether two float tensors are equal bit for bit."""
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def warp_bounce_row(active):
+    """The warp-bounces of one path per thread, the lane-bounces / 32 and
+    the compacted kernel's at its block (ops/megatrace.py:warp_bounces)
+    for the twin's live masks."""
+    return dict(per_thread=MT.warp_bounces(active),
+                lanes_32=int(torch.stack(active).sum()) // 32,
+                compacted=MT.warp_bounces(active, MT.PATH_BLOCK))
+
+
+def path_turns(tables, uT, rounds=2):
+    """ms per launch of the path kernel (compact) and of one path per
+    thread (lane), in turns lane, compact, compact, lane, `rounds` times:
+    {"compact": [...], "lane": [...]}."""
+    ms = {"compact": [], "lane": []}
+    for _ in range(rounds):
+        for m in ("lane", "compact", "compact", "lane"):
+            ms[m].append(event_ms(lambda: MT.path_trace(
+                tables, uT, compact=m == "compact"), runs=10))
+    return ms
+
+
+def fmt_turns(turns):
+    return ", ".join(f"{m} {sum(v) / len(v):.4f} ms" for m, v in turns.items())
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -797,7 +827,7 @@ def ray_bytes(tables, n):
     written, and the tables read once."""
     nd = tables.nodes
     tab = nbytes(tables.tri) + (0 if nd is None else
-                                nbytes(nd.box, nd.link, nd.order))
+                                nbytes(nd.node, nd.rec))
     return n * (28 + 8) + tab
 
 
@@ -887,26 +917,35 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
     tables = MT.make_tables(scene, pcfg, dev)
     uT = torch.rand((pcfg.n_dims, CHAINS), generator=gen, device=dev)
     k = MT.path_trace(tables, uT)
+    lane_eq = same_bits(k, MT.path_trace(tables, uT, compact=False))
     torch.cuda.synchronize()
-    walk_work = {}
-    t, plain_s = sync_time(lambda: MT.path_trace_reference(tables, uT,
-                                                           walk_work))
+    walk_work, live = {}, []
+    t, plain_s = sync_time(lambda: MT.path_trace_reference(
+        tables, uT, walk_work, live))
+    wb = warp_bounce_row(live)
     mx, mean, bad = lane_diff(k, t)
     ms_walk = event_ms(lambda: MT.path_trace(tables, uT), runs=10)
+    turns = path_turns(tables, uT, rounds=1)
     nd = tables.nodes
     bnd = bound(nbytes(uT, tables.tri, tables.mat, tables.em, tables.cam,
-                       nd.box, nd.link, nd.order) + 3 * CHAINS * 4,
+                       nd.node, nd.rec) + 3 * CHAINS * 4,
                 walk_work["tri_tests"], walk_work["node_tests"])
     report["large_path_vs_twin"] = dict(
         max_abs=mx, mean_abs=mean, bad_lanes=bad, ms=ms_walk,
-        plain_ms=plain_s * 1e3, bound_ms=bnd[0], bound_by=bnd[1], **walk_work)
+        plain_ms=plain_s * 1e3, bound_ms=bnd[0], bound_by=bnd[1],
+        equal_to_lane_kernel=lane_eq, turns=turns, warp_bounces=wb,
+        **walk_work)
     print(f"[16 path kernel on the large scene vs twin] {name}: "
           f"{scene.tris.v0.shape[0]} triangles, BVH of {nd.n_nodes} nodes, "
           f"{CHAINS} lanes, depth {DEPTH}: lanes differing {bad:.5f}, max |d| "
-          f"{mx:.2e}; {ms_walk:.3f} ms vs twin {plain_s * 1e3:.0f} ms; "
+          f"{mx:.2e}; bit-equal to one path per thread {lane_eq}; "
+          f"{ms_walk:.3f} ms vs twin {plain_s * 1e3:.0f} ms; in turns "
+          f"{fmt_turns(turns)}; warp-bounces (twin) {wb}; "
           f"bound {bnd[0]:.4f} ms by {bnd[1]} ({walk_work['node_tests']} box "
           f"tests, {walk_work['tri_tests']} triangle tests)")
     need(bad <= MAX_BAD_LANES, f"large scene path kernel: {bad} lanes differ")
+    need(lane_eq, "large scene: the compacting path kernel differs from "
+         "one path per thread")
     out["walk"] = dict(err=mx, ms=ms_walk, plain_ms=plain_s * 1e3,
                        bound_ms=bnd[0], bound_by=bnd[1])
 
@@ -1083,7 +1122,7 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
         t = sc.tris
         tb = dataclasses.replace(brute, nodes=pack_nodes(
             sc.bvh if sc.bvh is not None else build_bvh(
-                t.v0.numpy(), t.e1.numpy(), t.e2.numpy()), dev))
+                t.v0.numpy(), t.e1.numpy(), t.e2.numpy()), brute.tri))
         ms_w = event_ms(lambda: MT.path_trace(tb, u2), runs=10)
         ms_b = event_ms(lambda: MT.path_trace(brute, u2), runs=2)
         same = bool(torch.equal(MT.path_trace(tb, u2),
@@ -1218,12 +1257,16 @@ def slice5(name, dev, gen, report):
         need(tables.full, f"{sname}: not the full-scope instantiation")
         uT = torch.rand((cfg.n_dims, CHAINS), generator=gen, device=dev)
         k = MT.path_trace(tables, uT)
+        lane_eq = same_bits(k, MT.path_trace(tables, uT, compact=False))
         torch.cuda.synchronize()
         t = MT.path_trace_reference(tables, uT)
         mx, mean, bad = lane_diff(k, t)
         m_rel = float(((k.double().mean(1) - t.double().mean(1)).abs()
                        / t.double().mean(1).abs()).max())
-        row = dict(max_abs=mx, mean_abs=mean, bad_lanes=bad, mean_rel=m_rel)
+        row = dict(max_abs=mx, mean_abs=mean, bad_lanes=bad, mean_rel=m_rel,
+                   equal_to_lane_kernel=lane_eq)
+        need(lane_eq, f"{sname}: the compacting path kernel differs from "
+             f"one path per thread")
         adj = []
         for mode, fn, twin in (("rad", MT.path_trace_rad,
                                 MT.path_trace_rad_reference),
@@ -1251,7 +1294,8 @@ def slice5(name, dev, gen, report):
         report["scope_path_vs_twin"][sname] = row
         print(f"[19 path kernel and adjoints vs twins, full scope] {name}: "
               f"{sname}: {CHAINS} lanes, depth {DEPTH}: lanes differing "
-              f"{bad:.5f}, max |d| {mx:.3e}, channel-mean rel {m_rel:.2e}; "
+              f"{bad:.5f}, max |d| {mx:.3e}, channel-mean rel {m_rel:.2e}, "
+              f"bit-equal to one path per thread {lane_eq}; "
               + "; ".join(adj))
         need(bool(torch.isfinite(k).all()), f"{sname}: non-finite radiance")
         need(bad <= MAX_BAD_LANES, f"{sname}: {bad:.4f} of lanes differ")
@@ -1263,9 +1307,11 @@ def slice5(name, dev, gen, report):
     sc = scenes["const"][0]
     tables = MT.make_tables(sc, pcfg, dev)
     uT = torch.rand((pcfg.n_dims, CHAINS), generator=gen, device=dev)
-    work = {}
-    MT.path_trace_reference(tables, uT, work)
+    work, live = {}, []
+    MT.path_trace_reference(tables, uT, work, live)
+    wb = warp_bounce_row(live)
     ms = event_ms(lambda: MT.path_trace(tables, uT), runs=20)
+    turns = path_turns(tables, uT)
     plain = event_ms(lambda: MT.path_trace_reference(tables, uT), runs=3)
     ext = nbytes(tables.sph, tables.tri_ext, tables.tex)
     bnd = bound(nbytes(uT, tables.tri, tables.mat, tables.em, tables.cam)
@@ -1289,10 +1335,13 @@ def slice5(name, dev, gen, report):
                             bound_ms=g_bnd[0], bound_by=g_bnd[1])
     report["scope_timing_ms"] = dict(path=dict(
         scene="const", ms=ms, plain_ms=plain, bound_ms=bnd[0],
-        bound_by=bnd[1], tri_tests=work["tri_tests"]), **timing)
-    print(f"[19 timing, full scope] {name}: path_trace_kernel[full] {ms:.3f} "
-          f"ms vs twin {plain:.3f} ms ({CHAINS} lanes, depth {DEPTH}, const "
-          f"configuration; bound {bnd[0]:.4f} ms by {bnd[1]}); "
+        bound_by=bnd[1], tri_tests=work["tri_tests"], turns=turns,
+        warp_bounces=wb), **timing)
+    print(f"[19 timing, full scope] {name}: path_trace_kernel[full] "
+          f"{ms:.4f} ms vs twin {plain:.3f} ms ({CHAINS} lanes, depth "
+          f"{DEPTH}, const configuration; in turns with one path per thread "
+          f"{fmt_turns(turns)}; warp-bounces (twin) {wb}; bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}); "
           + "; ".join(f"path_trace_{m}_kernel[full] {r['ms']:.3f} ms vs twin "
                       f"{r['plain_ms']:.3f} ms ({r['scene']}, depth "
                       f"{GRAD_DEPTH}; bound {r['bound_ms']:.4f} ms)"
@@ -1896,8 +1945,12 @@ def slice6(name, dev, gen, report, mc_refs, s5):
                     trace, mcfg, fc, gen, n_dims, n_steps))
             busy, per = device_profile(prof.events(), prof_wall)
             top = sorted(per.items(), key=lambda kv: -kv[1][0])
+            # the path kernel's device time per launch in the host loop
+            pk = [v for k, v in per.items() if "path_trace_kernel" in k]
+            pk_ms = sum(t for t, _ in pk) / max(sum(c for _, c in pk), 1)
             row.update(busy_share=busy, profile_wall_s=prof_wall,
-                       kernels_ms=[[k, t, c] for k, (t, c) in top])
+                       kernels_ms=[[k, t, c] for k, (t, c) in top],
+                       path_kernel_ms_per_launch=pk_ms)
             need(busy > 0, "the profiler saw no device activity")
         report["slice6_host"][style] = row
         print(f"[23c render_pssmlt, {style} weights] {name}: cornell, depth "
@@ -1908,7 +1961,9 @@ def slice6(name, dev, gen, report, mc_refs, s5):
               f"{row['shape_l1']:.4f} against {row['shape_expected']:.4f}"
               + ("" if kelemen else
                  f"; device busy {row['busy_share']:.4f} of "
-                 f"{row['profile_wall_s']:.3f} s; " + "; ".join(
+                 f"{row['profile_wall_s']:.3f} s, path_trace_kernel "
+                 f"{row['path_kernel_ms_per_launch']:.4f} ms a launch; "
+                 + "; ".join(
                      f"{k.split('(')[0][:50]} {t:.3f} ms x{c}"
                      for k, (t, c) in top[:4])))
 
@@ -2080,6 +2135,7 @@ def main():
     # subset of slices 1-4, ILb1E: the full scope), the chain kernel's in
     # DRMLT mode (ELb0E) and pssmlt mode (ELb1E) each
     for k in ("path_trace_kernelILb0E", "path_trace_kernelILb1E",
+              "path_lane_kernelILb0E", "path_lane_kernelILb1E",
               "mmlt_trace_kernelILb0E", "mmlt_trace_kernelILb1E",
               *(f"drmlt_chain_kernelINS_9{t}ILb{x}EEELb{p}E"
                 for t in ("PathTrace", "MmltTrace") for x in (0, 1)
@@ -2107,16 +2163,24 @@ def main():
         tables = MT.make_tables(scene, pcfg, dev)
         uT = torch.rand((pcfg.n_dims, CHAINS), generator=gen, device=dev)
         k = MT.path_trace(tables, uT)
+        lane_eq = same_bits(k, MT.path_trace(tables, uT, compact=False))
         torch.cuda.synchronize()
-        t = MT.path_trace_reference(tables, uT)
+        live = []
+        t = MT.path_trace_reference(tables, uT, live=live)
         mx, mean, bad = lane_diff(k, t)
         m_rel = float(((k.double().mean(1) - t.double().mean(1)).abs()
                        / t.double().mean(1).abs()).max())
+        wb = warp_bounce_row(live)
         report["path_vs_twin"][tall] = dict(max_abs=mx, mean_abs=mean,
-                                            bad_lanes=bad, mean_rel=m_rel)
+                                            bad_lanes=bad, mean_rel=m_rel,
+                                            equal_to_lane_kernel=lane_eq,
+                                            warp_bounces=wb)
         print(f"[3 path kernel vs twin] {name}: {tall}: max |d| {mx:.3e}, "
               f"mean |d| {mean:.3e}, lanes differing {bad:.5f}, "
-              f"channel-mean rel {m_rel:.2e}")
+              f"channel-mean rel {m_rel:.2e}; bit-equal to one path per "
+              f"thread {lane_eq}; warp-bounces (twin) {wb}")
+        need(lane_eq, f"{tall}: the compacting kernel differs from one "
+             f"path per thread")
         need(bool(torch.isfinite(k).all()), f"{tall}: non-finite radiance")
         need(bad <= MAX_BAD_LANES, f"{tall}: {bad:.4f} of lanes differ")
         need(m_rel <= MEAN_RTOL, f"{tall}: channel means differ {m_rel}")
@@ -2250,6 +2314,9 @@ def main():
 
     uT = torch.rand((pcfg.n_dims, CHAINS), generator=gen, device=dev)
     ms_path = event_ms(lambda: MT.path_trace(tables, uT), runs=20)
+    # the design before compaction, in turns with the kernel (lane, kernel,
+    # kernel, lane)
+    turns = path_turns(tables, uT)
     plain_path = event_ms(lambda: MT.path_trace_reference(tables, uT),
                           runs=3)
     path_work = {}
@@ -2273,11 +2340,13 @@ def main():
                         path_chain_work["tri_tests"])
     share_path = MD.stage2_share(path_chain_work)
     report["timing_ms"] = dict(path_trace=ms_path, path_trace_plain=plain_path,
+                               path_trace_turns=turns,
                                drmlt_path_n_mut64=ms_chain,
                                drmlt_path_plain_n_mut64=plain_chain,
                                drmlt_path_stage2_share=share_path)
-    print(f"[6 timing] {name}: path_trace_kernel {ms_path:.3f} ms vs twin "
-          f"{plain_path:.3f} ms ({CHAINS} lanes, depth {DEPTH}; bound "
+    print(f"[6 timing] {name}: path_trace_kernel {ms_path:.4f} ms vs twin "
+          f"{plain_path:.3f} ms ({CHAINS} lanes, depth {DEPTH}; in turns "
+          f"with one path per thread {fmt_turns(turns)}; bound "
           f"{bound_path[0]:.4f} ms by {bound_path[1]}, "
           f"{path_work['tri_tests']} ray-triangle tests); "
           f"drmlt_chain_kernel[path] {ms_chain:.3f} ms vs twin "

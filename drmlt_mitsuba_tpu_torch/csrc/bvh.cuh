@@ -12,22 +12,29 @@
 // ops/intersect.py:walk_closest / walk_any.
 //
 // What bounds it on an H100: like the sweeps it replaces, per-thread,
-// divergent, latency-bound work (dependent loads of nodes and triangles
-// through L1 / L2; the tables of a 65,826-triangle scene are ~6 MB, L2
-// resident).  Design: one thread per ray walks the depth-first node array
-// with skip pointers (a hit inner node goes to idx + 1, a leaf or a missed
-// box to skip[idx]): no stack, no shared memory, two 16-byte loads of the
-// box and one of the links per node.  A leaf tests its `count` triangles
-// through order[first ...], so hit ids are the original triangle ids and
-// the triangle, material and emitter tables are not reordered.
+// divergent, latency-bound work (~50 dependent node steps per ray on a
+// 19,586-triangle scene, each a load from L1 / L2 at up to 32 addresses a
+// warp; a 65,826-triangle scene's node and triangle records are ~4.3 MB,
+// L2 resident).
+// Design: one thread per ray walks the depth-first node array with skip
+// pointers (a hit inner node goes to idx + 1, a leaf or a missed box to its
+// skip): no stack, no shared memory.  A node is one 32-byte record, two
+// 16-byte loads of one sector pair: lo.xyz and the skip pointer, hi.xyz and
+// the leaf's first record << 4 | its count (0: an inner node), the ints as
+// float bits.  A leaf's triangles are contiguous 48-byte records in leaf
+// order (v0 and the original triangle id as float bits, e1, e2), three
+// 16-byte loads each, so a leaf costs no index load, and hit ids are the
+// original ids: the triangle, material and emitter tables are not
+// reordered (scene/bvh.py:pack_nodes builds both tables).
 //
 // Exactness: the walk returns the sweep's (t, id) bit for bit.  A leaf's
-// triangles are tested by tri_hit, the sweep's own expressions; a tie in t
-// goes to the lower id (the sweep's ordered strict `<`); and a node box is
-// padded outward when it is packed (scene/bvh.py:BOX_PAD) and its slab exit
-// widened by 1 + 2 gamma(3), so that no box culls a triangle that the
-// sweep's rounding accepts.  Not carried over from the TPU: the one-hot
-// cluster fetch, the bf16 planes and their near-tie flips.
+// triangles are tested by tri_hit, the sweep's own expressions, on the
+// sweep's own bits (the records are copied from the triangle table); a tie
+// in t goes to the lower id (the sweep's ordered strict `<`); and a node
+// box is padded outward when it is packed (scene/bvh.py:BOX_PAD) and its
+// slab exit widened by 1 + 2 gamma(3), so that no box culls a triangle that
+// the sweep's rounding accepts.  Not carried over from the TPU: the
+// one-hot cluster fetch, the bf16 planes and their near-tie flips.
 #pragma once
 
 namespace drmlt {
@@ -39,9 +46,8 @@ __device__ __forceinline__ float slab_rcp(float d) {
   return 1.0f / (fabsf(d) < kDirEps ? copysignf(kDirEps, d) : d);
 }
 
-// Does the ray enter box n at some t in [0, min(exit, cap)]?
-__device__ __forceinline__ bool box_hit(const Tables& tb, int n, V3 o, V3 inv, float cap) {
-  const float4 lo = __ldg(tb.box + 2 * n), hi = __ldg(tb.box + 2 * n + 1);
+// Does the ray enter the node box (lo, hi) at some t in [0, min(exit, cap)]?
+__device__ __forceinline__ bool box_hit(float4 lo, float4 hi, V3 o, V3 inv, float cap) {
   const float tx0 = (lo.x - o.x) * inv.x, tx1 = (hi.x - o.x) * inv.x;
   const float ty0 = (lo.y - o.y) * inv.y, ty1 = (hi.y - o.y) * inv.y;
   const float tz0 = (lo.z - o.z) * inv.z, tz1 = (hi.z - o.z) * inv.z;
@@ -49,6 +55,15 @@ __device__ __forceinline__ bool box_hit(const Tables& tb, int n, V3 o, V3 inv, f
       fmaxf(fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1)), 0.0f);
   const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   return tnear <= fminf(tfar * kSlabRobust, cap);
+}
+
+// Triangle record r of the leaf-ordered table: the hit test, and its
+// original id in *id.
+__device__ __forceinline__ bool rec_hit(const float4* rec, int r, V3 o, V3 d, float* t_hit,
+                                        int* id) {
+  const float4 a = __ldg(rec + 3 * r), b = __ldg(rec + 3 * r + 1), c = __ldg(rec + 3 * r + 2);
+  *id = __float_as_int(a.w);
+  return tri_hit(v3(a.x, a.y, a.z), v3(b.x, b.y, b.z), v3(c.x, c.y, c.z), o, d, t_hit);
 }
 
 // Closest hit by the walk: a box entered beyond the best t so far is
@@ -59,23 +74,24 @@ static __device__ __noinline__ float bvh_closest(const Tables& tb, V3 o, V3 d, i
   int best = -1;
   int n = 0;
   while (n >= 0) {
-    const int4 ln = __ldg(tb.link + n);
-    if (box_hit(tb, n, o, inv, best_t)) {
-      if (ln.y == 0) {   // inner node: its left child is next
+    const float4 lo = __ldg(tb.node + 2 * n), hi = __ldg(tb.node + 2 * n + 1);
+    const int leaf = __float_as_int(hi.w);
+    if (box_hit(lo, hi, o, inv, best_t)) {
+      if (leaf == 0) {   // inner node: its left child is next
         ++n;
         continue;
       }
-      for (int k = 0; k < ln.y; ++k) {
-        const int id = __ldg(tb.order + ln.x + k);
+      const int first = leaf >> 4, end = first + (leaf & 15);
+      for (int r = first; r < end; ++r) {
         float tt;
-        if (tri_hit(tb.tri + id * kTriCols, o, d, &tt) &&
-            (tt < best_t || (tt == best_t && id < best))) {
+        int id;
+        if (rec_hit(tb.rec, r, o, d, &tt, &id) && (tt < best_t || (tt == best_t && id < best))) {
           best_t = tt;
           best = id;
         }
       }
     }
-    n = ln.z;
+    n = __float_as_int(lo.w);
   }
   *best_id = best;
   return best_t;
@@ -86,19 +102,21 @@ static __device__ __noinline__ bool bvh_occluded(const Tables& tb, V3 o, V3 d, f
   const V3 inv = v3(slab_rcp(d.x), slab_rcp(d.y), slab_rcp(d.z));
   int n = 0;
   while (n >= 0) {
-    const int4 ln = __ldg(tb.link + n);
-    if (box_hit(tb, n, o, inv, tmax)) {
-      if (ln.y == 0) {
+    const float4 lo = __ldg(tb.node + 2 * n), hi = __ldg(tb.node + 2 * n + 1);
+    const int leaf = __float_as_int(hi.w);
+    if (box_hit(lo, hi, o, inv, tmax)) {
+      if (leaf == 0) {
         ++n;
         continue;
       }
-      for (int k = 0; k < ln.y; ++k) {
-        const int id = __ldg(tb.order + ln.x + k);
+      const int first = leaf >> 4, end = first + (leaf & 15);
+      for (int r = first; r < end; ++r) {
         float tt;
-        if (tri_hit(tb.tri + id * kTriCols, o, d, &tt) && tt < tmax) return true;
+        int id;
+        if (rec_hit(tb.rec, r, o, d, &tt, &id) && tt < tmax) return true;
       }
     }
-    n = ln.z;
+    n = __float_as_int(lo.w);
   }
   return false;
 }

@@ -44,12 +44,12 @@ __global__ void intersect_kernel(Tables tb, const float* __restrict__ o,
 
 // any_mode 0: t_out (R,) f32 (kInf on a miss) and out (R,) int32 (-1);
 // any_mode 1: out (R,) uint8.
-extern "C" int intersect_launch(const float* tri, int n_tris, const float* box, const int* link,
-                                const int* order, int n_nodes, const float* o, const float* d,
+extern "C" int intersect_launch(const float* tri, int n_tris, const float* node, const float* rec,
+                                int n_nodes, const float* o, const float* d,
                                 const float* tmax, int R, int any_mode, float* t_out, void* out,
                                 void* stream) {
   drmlt::Tables tb{tri, nullptr, nullptr, nullptr, n_tris, 0, 0, 0, 0, 0, 0};
-  drmlt::set_bvh(tb, box, link, order, n_nodes);
+  drmlt::set_bvh(tb, node, rec, n_nodes);
   const int block = 128;
   int grid = (R + block - 1) / block;
   if (grid > 0) {

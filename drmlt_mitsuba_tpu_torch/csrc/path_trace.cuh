@@ -83,9 +83,8 @@ struct Tables {
   int max_depth, min_depth, rr_depth, use_nee;
   // the BVH's node table (scene/bvh.py:NodeTable); n_nodes = 0: no BVH,
   // every triangle is swept
-  const float4* box;  // (N, 2): lo.xyz, hi.xyz
-  const int4* link;   // (N,): first, count, skip
-  const int* order;   // (T,) triangle ids in leaf order
+  const float4* node;  // (N, 2): lo.xyz, skip; hi.xyz, first << 4 | count
+  const float4* rec;   // (T, 3): v0.xyz, id; e1; e2, in leaf order
   int n_nodes;
 };
 
@@ -137,11 +136,10 @@ __host__ inline TablesX with_ext(const Tables& tb, const float* sph, int n_sphs,
 }
 
 // The BVH arguments of every entry point, as they arrive from ctypes.
-__host__ __forceinline__ void set_bvh(Tables& tb, const float* box, const int* link,
-                                      const int* order, int n_nodes) {
-  tb.box = reinterpret_cast<const float4*>(box);
-  tb.link = reinterpret_cast<const int4*>(link);
-  tb.order = order;
+__host__ __forceinline__ void set_bvh(Tables& tb, const float* node, const float* rec,
+                                      int n_nodes) {
+  tb.node = reinterpret_cast<const float4*>(node);
+  tb.rec = reinterpret_cast<const float4*>(rec);
   tb.n_nodes = n_nodes;
 }
 
@@ -598,12 +596,12 @@ static __device__ __noinline__ EnvSample env_sample(const float* tab, const floa
           pmf * (float)(he * we) / (kTwoPiSq * fmaxf(st, 1e-6f))};
 }
 
-// Moller-Trumbore test of ray (o, d) against triangle row r: true on a hit
-// with t > kRayEps, its distance in *t_hit.  The sweeps below and the BVH
-// walk of bvh.cuh test with these expressions in this order, so they round
-// alike (ops/intersect.py:moller_trumbore is the twin).
-__device__ __forceinline__ bool tri_hit(const float* r, V3 o, V3 d, float* t_hit) {
-  V3 v0 = ld3(r), e1 = ld3(r + 3), e2 = ld3(r + 6);
+// Moller-Trumbore test of ray (o, d) against the triangle v0 + (b1 e1 +
+// b2 e2): true on a hit with t > kRayEps, its distance in *t_hit.  The
+// sweeps below and the BVH walk of bvh.cuh test with these expressions in
+// this order, so they round alike (ops/intersect.py:moller_trumbore is the
+// twin).
+__device__ __forceinline__ bool tri_hit(V3 v0, V3 e1, V3 e2, V3 o, V3 d, float* t_hit) {
   V3 p = cross(d, e2);
   float det = dot(e1, p);
   bool ok = fabsf(det) > 1e-12f;
@@ -615,6 +613,15 @@ __device__ __forceinline__ bool tri_hit(const float* r, V3 o, V3 d, float* t_hit
   float tt = dot(e2, q) * inv;
   *t_hit = tt;
   return ok && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > kRayEps;
+}
+
+// v0, e1 and e2 of triangle i from its row of the (T, 20) table: three
+// 16-byte loads (a row is 80 bytes, so each starts on a 16-byte boundary;
+// the wrappers check the table's alignment) instead of nine scalar ones.
+__device__ __forceinline__ bool tri_row_hit(const float* tri, int i, V3 o, V3 d, float* t_hit) {
+  const float4* r = reinterpret_cast<const float4*>(tri + i * kTriCols);
+  const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
+  return tri_hit(v3(a.x, a.y, a.z), v3(a.w, b.x, b.y), v3(b.z, b.w, c.x), o, d, t_hit);
 }
 
 }  // namespace drmlt
@@ -632,7 +639,7 @@ static __device__ float closest_hit(const Tables& tb, V3 o, V3 d, int* best_id) 
   int best = -1;
   for (int i = 0; i < tb.n_tris; ++i) {
     float tt;
-    if (tri_hit(tb.tri + i * kTriCols, o, d, &tt) && tt < best_t) {
+    if (tri_row_hit(tb.tri, i, o, d, &tt) && tt < best_t) {
       best_t = tt;
       best = i;
     }
@@ -646,7 +653,7 @@ static __device__ bool occluded(const Tables& tb, V3 o, V3 d, float tmax) {
   if (tb.n_nodes > 0) return bvh_occluded(tb, o, d, tmax);
   for (int i = 0; i < tb.n_tris; ++i) {
     float tt;
-    if (tri_hit(tb.tri + i * kTriCols, o, d, &tt) && tt < tmax) return true;
+    if (tri_row_hit(tb.tri, i, o, d, &tt) && tt < tmax) return true;
   }
   return false;
 }
@@ -741,27 +748,60 @@ __device__ __forceinline__ void camera_ray(const TabT<X>& tb, const PssView& u, 
   *o = ld3(cam + 9);
 }
 
-// The path radiance of one lane; in a gradient mode it also adds the
-// lane's Jacobian rows to g.  Inlined into each caller: the no-gradient
-// instantiation is the body trace_path has always had.  X: the full
-// scene scope (TablesX).
+// The state a path carries from one bounce to the next (the ray, the
+// throughput, the radiance so far, the previous vertex's BSDF pdf and
+// delta flag, the eta scale of Russian roulette; in albedo mode the
+// materials of its diffuse-like bounces).
+template <int G>
+struct PathState {
+  V3 o, d, tp, L;
+  float prev_pdf, eta_scale;
+  bool prev_delta;
+  int dl[G == kGradAlbedo ? kMaxGradDepth : 1];
+  int n_dl;
+};
+
+// A lane's state before its first bounce: the camera ray.
 template <int G, bool X>
-__device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, const GradRows g) {
+__device__ __forceinline__ PathState<G> path_start(const TabT<X>& tb, const PssView& u) {
   const float* cam = tb.cam;
   float cx = (2.0f * u(0) - 1.0f) * cam[12];
   float cy = (1.0f - 2.0f * u(1)) * cam[13];
-  V3 d, o;
-  camera_ray<X>(tb, u, cx, cy, &o, &d);
+  PathState<G> s;
+  camera_ray<X>(tb, u, cx, cy, &s.o, &s.d);
+  s.tp = v3(1.0f, 1.0f, 1.0f);
+  s.L = v3(0.0f, 0.0f, 0.0f);
+  s.prev_pdf = 0.0f;
+  s.prev_delta = true;
+  s.eta_scale = 1.0f;
+  s.n_dl = 0;
+  return s;
+}
 
-  V3 tp = v3(1.0f, 1.0f, 1.0f);
-  V3 L = v3(0.0f, 0.0f, 0.0f);
-  float prev_pdf = 0.0f;
-  bool prev_delta = true;
-  float eta_scale = 1.0f;
-  int dl[G == kGradAlbedo ? kMaxGradDepth : 1];
-  int n_dl = 0;
+// Bounces depth .. last of a path, each the closest hit, emission, NEE and
+// the BSDF sample, which moves the state to the next ray.  False when the
+// path has ended (escaped, dead throughput, Russian roulette or
+// max_depth), its radiance then final in s.L.  In a gradient mode it also
+// adds the lane's Jacobian rows to g.  trace_body runs every bounce in one
+// call; the path kernel one bounce a call.  The loop sits inside this one
+// inlined body: with it outside (a call per bounce, however inlined) the
+// trace body took 6 more registers and the chain kernel spilled (PERF.md
+// §6).
+template <int G, bool X>
+__device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, const GradRows& g,
+                                        PathState<G>& s, int depth, int last) {
+  const float* cam = tb.cam;
+  V3& o = s.o;
+  V3& d = s.d;
+  V3& tp = s.tp;
+  V3& L = s.L;
+  float& prev_pdf = s.prev_pdf;
+  bool& prev_delta = s.prev_delta;
+  float& eta_scale = s.eta_scale;
+  int* dl = s.dl;
+  int& n_dl = s.n_dl;
 
-  for (int depth = 1; depth <= tb.max_depth; ++depth) {
+  for (; depth <= last; ++depth) {
     const int base = kSensorDims + (depth - 1) * kBounceDims;
     int id;
     float t_hit = closest_hit(tb, o, d, &id);
@@ -791,7 +831,7 @@ __device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, con
           if constexpr (G == kGradAlbedo) albedo_rows(tb, g, dl, n_dl, c);
         }
       }
-      break;   // escaped
+      return false;   // escaped
     }
 
     V3 hp, ng, ns;
@@ -959,7 +999,7 @@ __device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, con
       if (survive) tp = tp * inv_q;
       alive = alive && survive;
     }
-    if (!alive) break;
+    if (!alive) return false;
 
     float eps_n = kRayEps * fmaxf(t_hit, 1.0f);
     o = hp + wo_w * eps_n;
@@ -967,7 +1007,18 @@ __device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, con
     prev_pdf = bs_pdf;
     prev_delta = delta_m;
   }
-  return L;
+  return true;
+}
+
+// The path radiance of one lane; in a gradient mode it also adds the
+// lane's Jacobian rows to g.  Inlined into each caller: the no-gradient
+// instantiation is the body trace_path has always had.  X: the full
+// scene scope (TablesX).
+template <int G, bool X>
+__device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, const GradRows g) {
+  PathState<G> s = path_start<G, X>(tb, u);
+  bounces<G, X>(tb, u, g, s, 1, tb.max_depth);
+  return s.L;
 }
 
 // The path radiance of one lane (the path kernel and the chain kernel).

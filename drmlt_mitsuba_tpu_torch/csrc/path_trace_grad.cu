@@ -59,12 +59,12 @@ __global__ void path_trace_alb_kernel(TabT<X> tb, const float* __restrict__ uT, 
 namespace {
 
 drmlt::Tables tables(const float* tri, int n_tris, const float* mat, int n_mats, const float* em,
-                     int n_ems, const float* cam, const float* box, const int* link,
-                     const int* order, int n_nodes, int max_depth, int min_depth, int rr_depth,
+                     int n_ems, const float* cam, const float* node, const float* rec,
+                     int n_nodes, int max_depth, int min_depth, int rr_depth,
                      int use_nee) {
   drmlt::Tables tb{tri, mat, em, cam, n_tris, n_mats, n_ems,
                    max_depth, min_depth, rr_depth, use_nee};
-  drmlt::set_bvh(tb, box, link, order, n_nodes);
+  drmlt::set_bvh(tb, node, rec, n_nodes);
   return tb;
 }
 
@@ -74,11 +74,11 @@ drmlt::Tables tables(const float* tri, int n_tris, const float* mat, int n_mats,
 // that of slices 1-4.
 extern "C" int path_trace_rad_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                      const float* em, int n_ems, const float* cam,
-                                     const float* box, const int* link, const int* order,
+                                     const float* node, const float* rec,
                                      int n_nodes, DRMLT_EXT_PARAMS, int max_depth, int min_depth,
                                      int rr_depth, int use_nee, const float* uT, int R,
                                      float* out, void* stream) {
-  const drmlt::Tables tb = tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order,
+  const drmlt::Tables tb = tables(tri, n_tris, mat, n_mats, em, n_ems, cam, node, rec,
                                   n_nodes, max_depth, min_depth, rr_depth, use_nee);
   const int block = 128;
   int grid = (R + block - 1) / block;
@@ -94,11 +94,11 @@ extern "C" int path_trace_rad_launch(const float* tri, int n_tris, const float* 
 
 extern "C" int path_trace_alb_launch(const float* tri, int n_tris, const float* mat, int n_mats,
                                      const float* em, int n_ems, const float* cam,
-                                     const float* box, const int* link, const int* order,
+                                     const float* node, const float* rec,
                                      int n_nodes, DRMLT_EXT_PARAMS, int max_depth, int min_depth,
                                      int rr_depth, int use_nee, const float* uT, int R,
                                      float* out, void* stream) {
-  const drmlt::Tables tb = tables(tri, n_tris, mat, n_mats, em, n_ems, cam, box, link, order,
+  const drmlt::Tables tb = tables(tri, n_tris, mat, n_mats, em, n_ems, cam, node, rec,
                                   n_nodes, max_depth, min_depth, rr_depth, use_nee);
   const int block = 128;
   int grid = (R + block - 1) / block;

@@ -65,7 +65,7 @@ _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C")
 _SCENE = [
     _P, _I, _P, _I, _P, _I, _P,                # tri, T, mat, M, em, E, cam
-    _P, _P, _P, _I,                            # node box, link, order, N
+    _P, _P, _I,                                # node, rec, N
     _P, _I, _P,                                # sph, S, tri_ext
     _P, _I, _I, _I,                            # tex, pages, height, width
     _P, _P, _P, _I, _I,                        # env_tab, env_col, env_row,
@@ -79,7 +79,11 @@ _PATH_TRACE = [
     _P, _I, _P, _P,                            # uT, R, out, stream
 ]
 _SIGNATURES = {
-    "path_trace_launch": _PATH_TRACE,
+    "path_trace_launch": [
+        *_PATH_TRACE[:-4],
+        _I,                                    # compact
+        *_PATH_TRACE[-4:],
+    ],
     "path_trace_rad_launch": _PATH_TRACE,
     "path_trace_alb_launch": _PATH_TRACE,
     "splat_add_launch": [
@@ -110,8 +114,7 @@ _SIGNATURES = {
         _P,                                    # stream
     ],
     "intersect_launch": [
-        _P, _I, _P, _P, _P, _I,                # tri, T, node box, link,
-        #                                        order, N
+        _P, _I, _P, _P, _I,                    # tri, T, node, rec, N
         _P, _P, _P, _I, _I,                    # o, d, tmax, R, any_mode
         _P, _P, _P,                            # t_out, out, stream
     ],
@@ -121,8 +124,8 @@ _lib = None
 build_info: dict = {}
 
 
-def _sources():
-    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+def _sources(csrc=CSRC):
+    return sorted(list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")))
 
 
 def _nvcc() -> str:
@@ -136,18 +139,19 @@ def _nvcc() -> str:
     return cand
 
 
-def library_path() -> Path:
+def library_path(csrc=CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in _sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libdrmlt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/ into the hashed library unless it already exists: one
-    nvcc per source, run in parallel, then one link."""
-    out = library_path()
+def build(csrc=CSRC) -> Path:
+    """Compile csrc/ (or another revision's sources, for an A/B) into the
+    hashed library unless it already exists: one nvcc per source, run in
+    parallel, then one link."""
+    out = library_path(csrc)
     log = out.with_suffix(".ptxas.txt")
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, cached=True,
@@ -158,7 +162,7 @@ def build() -> Path:
     nvcc = _nvcc()
     t0 = time.time()
     procs = []
-    for src in (p for p in _sources() if p.suffix == ".cu"):
+    for src in (p for p in _sources(csrc) if p.suffix == ".cu"):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         procs.append((cmd, obj, subprocess.Popen(

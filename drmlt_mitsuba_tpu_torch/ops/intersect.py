@@ -34,7 +34,7 @@ from drmlt_mitsuba_tpu_torch.core.math import (
     RAY_EPS, cross, dot, normalize, safe_sqrt,
 )
 from drmlt_mitsuba_tpu_torch.ops import build
-from drmlt_mitsuba_tpu_torch.scene.bvh import NodeTable, pack_nodes
+from drmlt_mitsuba_tpu_torch.scene.bvh import LEAF_BITS, NodeTable, pack_nodes
 from drmlt_mitsuba_tpu_torch.scene.types import Scene, prepare_scene
 
 INF = 3.0e38
@@ -75,20 +75,30 @@ def pack_tri_table(tris, device):
     ], 1)
 
 
-def scene_nodes(scene: Scene, device) -> NodeTable | None:
+def scene_nodes(scene: Scene, tri) -> NodeTable | None:
     """The node table of the scene's BVH (built by prepare_scene above
-    BVH_MIN_TRIS triangles), or None below it: the kernels then sweep."""
+    BVH_MIN_TRIS triangles) over its packed triangle table `tri`, on tri's
+    device, or None below it: the kernels then sweep."""
     scene = prepare_scene(scene)
-    return None if scene.bvh is None else pack_nodes(scene.bvh, device)
+    return None if scene.bvh is None else pack_nodes(scene.bvh, tri)
 
 
 def node_args(nodes: NodeTable | None):
-    """(box, link, order, N) as the C entry points take a node table;
-    (NULL, NULL, NULL, 0) without one."""
+    """(node, rec, N) as the C entry points take a node table; (NULL,
+    NULL, 0) without one."""
     if nodes is None:
-        return None, None, None, 0
-    return (nodes.box.data_ptr(), nodes.link.data_ptr(),
-            nodes.order.data_ptr(), nodes.n_nodes)
+        return None, None, 0
+    return nodes.node.data_ptr(), nodes.rec.data_ptr(), nodes.n_nodes
+
+
+def tri_ptr(tri) -> int:
+    """The address of a (T, 20) triangle table for a kernel, which reads a
+    row's v0, e1 and e2 as three 16-byte loads: contiguous and 16-byte
+    aligned, or ValueError."""
+    if not tri.is_contiguous() or tri.data_ptr() % 16:
+        raise ValueError("the triangle table must be contiguous and "
+                         "16-byte aligned")
+    return tri.data_ptr()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,24 +116,37 @@ class RayTables:
 def make_ray_tables(scene: Scene, device, walk: bool = True) -> RayTables:
     """The scene's tables on `device`; walk=False drops the BVH, so that
     the kernel sweeps every triangle (brute mode at any size)."""
-    return RayTables(tri=pack_tri_table(scene.tris, device).contiguous(),
-                     nodes=scene_nodes(scene, device) if walk else None)
+    tri = pack_tri_table(scene.tris, device).contiguous()
+    return RayTables(tri=tri, nodes=scene_nodes(scene, tri) if walk else None)
 
 
 # ---------------------------------------------------------------- twins
+def _components(a):
+    return [c.contiguous() for c in a.unbind(-1)]
+
+
 def moller_trumbore(v0, e1, e2, o, d):
     """Hit distance and hit mask (tt > RAY_EPS) of rays (o, d) against
     triangles (v0, e1, e2), broadcast over the leading axes, in the
     kernels' evaluation order (csrc/path_trace.cuh:tri_hit)."""
-    p = cross(d, e2)
-    det = dot(e1, p)
+    # written per component, each made contiguous, so that rays (R, 1, 3)
+    # against triangles (1, K, 3) broadcast without stacking (R, K, 3)
+    # temporaries; the same products and sums in the same order as cross
+    # and dot
+    dx, dy, dz = _components(d)
+    e1x, e1y, e1z = _components(e1)
+    e2x, e2y, e2z = _components(e2)
+    ox, oy, oz = _components(o)
+    vx, vy, vz = _components(v0)
+    px, py, pz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
     ok = torch.abs(det) > 1e-12
     inv = 1.0 / torch.where(ok, det, 1.0)
-    t = o - v0
-    b1 = dot(t, p) * inv
-    q = cross(t, e1)
-    b2 = dot(d, q) * inv
-    tt = dot(e2, q) * inv
+    tx, ty, tz = ox - vx, oy - vy, oz - vz
+    b1 = (tx * px + ty * py + tz * pz) * inv
+    qx, qy, qz = ty * e1z - tz * e1y, tz * e1x - tx * e1z, tx * e1y - ty * e1x
+    b2 = (dx * qx + dy * qy + dz * qz) * inv
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv
     hit = (ok & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
            & (tt > RAY_EPS))
     return tt, hit
@@ -192,7 +215,7 @@ def _inv_dir(d):
 
 
 def _box_hit(box, o, inv, cap):
-    """Slab test of rays against node boxes (R', 8), as csrc/bvh.cuh:
+    """Slab test of rays against node records (R', 8), as csrc/bvh.cuh:
     entered at or before min(exit * SLAB_ROBUST, cap), entry clamped to 0."""
     t0 = (box[:, 0:3] - o) * inv
     t1 = (box[:, 4:7] - o) * inv
@@ -204,24 +227,24 @@ def _box_hit(box, o, inv, cap):
     return tnear <= torch.minimum(tfar * SLAB_ROBUST, cap)
 
 
-def _leaf_tests(tri, nodes, o, d, lanes, link):
-    """Moller-Trumbore of rays `lanes` against the triangles of their
-    current leaves: (tt, hit, ids) (R', K), K the largest leaf."""
-    first, cnt = link[:, 0].long(), link[:, 1].long()
+def _leaf_tests(nodes, o, d, lanes, first, cnt):
+    """Moller-Trumbore of rays `lanes` against the triangle records of
+    their current leaves: (tt, hit, ids) (R', K), K the largest leaf."""
     K = int(cnt.max())
     k = torch.arange(K, device=o.device)
-    slot = torch.clamp(first[:, None] + k, max=nodes.order.shape[0] - 1)
-    ids = nodes.order[slot].long()
-    rows = tri[ids]
-    tt, hit = moller_trumbore(rows[..., 0:3], rows[..., 3:6], rows[..., 6:9],
+    slot = torch.clamp(first[:, None] + k, max=nodes.rec.shape[0] - 1)
+    rows = nodes.rec[slot]
+    ids = rows[..., 3].view(torch.int32).long()
+    tt, hit = moller_trumbore(rows[..., 0:3], rows[..., 4:7], rows[..., 8:11],
                               o[lanes][:, None, :], d[lanes][:, None, :])
     return tt, hit & (k < cnt[:, None]), ids
 
 
-def _walk(tri, nodes: NodeTable, o, d, tmax, closest, work):
+def _walk(nodes: NodeTable, o, d, tmax, closest, work):
     """The kernel's stackless walk for every ray at once: each step tests
-    every live ray's current node; a hit inner node goes to the next node,
-    a leaf or a missed box to its skip pointer, -1 ends the ray."""
+    every live ray's current node record; a hit inner node goes to the
+    next node, a leaf or a missed box to its skip pointer, -1 ends the
+    ray."""
     R = o.shape[0]
     dev = o.device
     inv = _inv_dir(d)
@@ -232,15 +255,19 @@ def _walk(tri, nodes: NodeTable, o, d, tmax, closest, work):
     node = torch.zeros(R, dtype=torch.int64, device=dev)
     n_node = n_tri = 0
     while lanes.numel():
-        link = nodes.link[node]
-        hitb = _box_hit(nodes.box[node], o[lanes], inv[lanes], best_t[lanes])
+        rec = nodes.node[node]
+        bits = rec.view(torch.int32)
+        cnt = (bits[:, 7] & ((1 << LEAF_BITS) - 1)).long()
+        hitb = _box_hit(rec, o[lanes], inv[lanes], best_t[lanes])
         n_node += lanes.numel()
-        leaf = hitb & (link[:, 1] > 0)
+        leaf = hitb & (cnt > 0)
         done = torch.zeros_like(leaf)
         if bool(leaf.any()):
             ll = lanes[leaf]
-            tt, hit, ids = _leaf_tests(tri, nodes, o, d, ll, link[leaf])
-            n_tri += int(link[leaf, 1].sum())
+            tt, hit, ids = _leaf_tests(nodes, o, d, ll,
+                                       (bits[leaf, 7] >> LEAF_BITS).long(),
+                                       cnt[leaf])
+            n_tri += int(cnt[leaf].sum())
             if closest:
                 bt, bi = best_t[ll], best[ll]
                 for j in range(ids.shape[1]):   # the kernel's order in a leaf
@@ -253,8 +280,7 @@ def _walk(tri, nodes: NodeTable, o, d, tmax, closest, work):
                 occ = (hit & (tt < tmax[ll][:, None])).any(1)
                 blocked[ll] = occ
                 done[leaf] = occ
-        nxt = torch.where(hitb & (link[:, 1] == 0), node + 1,
-                          link[:, 2].long())
+        nxt = torch.where(hitb & (cnt == 0), node + 1, bits[:, 3].long())
         keep = (nxt >= 0) & ~done
         lanes, node = lanes[keep], nxt[keep]
     _add(work, "node_tests", n_node)
@@ -263,15 +289,15 @@ def _walk(tri, nodes: NodeTable, o, d, tmax, closest, work):
 
 
 @torch.no_grad()
-def walk_closest(tri, nodes: NodeTable, o, d, work=None):
+def walk_closest(nodes: NodeTable, o, d, work=None):
     """(t, id) of the BVH walk; equal to sweep_closest's bit for bit."""
-    return _walk(tri, nodes, o, d, None, True, work)
+    return _walk(nodes, o, d, None, True, work)
 
 
 @torch.no_grad()
-def walk_any(tri, nodes: NodeTable, o, d, tmax, work=None):
+def walk_any(nodes: NodeTable, o, d, tmax, work=None):
     """Any hit with RAY_EPS < t < tmax by the BVH walk."""
-    return _walk(tri, nodes, o, d, tmax, False, work)
+    return _walk(nodes, o, d, tmax, False, work)
 
 
 def closest_reference(tables: RayTables, o, d, tmax=None, work=None):
@@ -280,7 +306,7 @@ def closest_reference(tables: RayTables, o, d, tmax=None, work=None):
     if tables.nodes is None:
         t, i = sweep_closest(tables.tri, o, d, work)
     else:
-        t, i = walk_closest(tables.tri, tables.nodes, o, d, work)
+        t, i = walk_closest(tables.nodes, o, d, work)
     if tmax is not None:
         ok = t < tmax
         t, i = torch.where(ok, t, INF), torch.where(ok, i, -1)
@@ -291,7 +317,7 @@ def any_reference(tables: RayTables, o, d, tmax, work=None):
     """Twin of the kernel's any-hit mode: (R,) bool."""
     if tables.nodes is None:
         return sweep_any(tables.tri, o, d, tmax, work)
-    return walk_any(tables.tri, tables.nodes, o, d, tmax, work)
+    return walk_any(tables.nodes, o, d, tmax, work)
 
 
 # ---------------------------------------------------------------- kernel
@@ -311,7 +337,7 @@ def _launch(tables: RayTables, o, d, tmax, any_mode, out_t, out_i):
     lib = build.load()
     stream = torch.cuda.current_stream(o.device).cuda_stream
     rc = lib.intersect_launch(
-        tables.tri.data_ptr(), tables.tri.shape[0], *node_args(tables.nodes),
+        tri_ptr(tables.tri), tables.tri.shape[0], *node_args(tables.nodes),
         o.data_ptr(), d.data_ptr(), tmax.data_ptr(), o.shape[0],
         int(any_mode), out_t.data_ptr() if out_t is not None else None,
         out_i.data_ptr(), stream)

@@ -118,7 +118,7 @@ def make_mmlt_tables(scene: Scene, cfg: BDPTConfig, device) -> MmltTables:
                       cam=cam.reshape(-1), max_depth=cfg.max_depth,
                       light_image=bool(cfg.light_image),
                       eye_dims=cfg.eye_dims, light_dims=cfg.light_dims,
-                      nodes=scene_nodes(scene, device),
+                      nodes=scene_nodes(scene, tri),
                       **scope_fields(scene, tabs, False))
 
 

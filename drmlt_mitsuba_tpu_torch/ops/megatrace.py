@@ -50,7 +50,7 @@ from drmlt_mitsuba_tpu_torch.integrators.layout import (
 from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.ops.intersect import (
     FLOP_PER_NODE_TEST, FLOP_PER_TRI_TEST, INF, node_args, pack_tri_table,
-    scene_nodes, sweep_any, sweep_closest, walk_any, walk_closest,
+    scene_nodes, sweep_any, sweep_closest, tri_ptr, walk_any, walk_closest,
 )
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     EXTRA_KINDS, SUPPORTED_KINDS, eval_bsdf, is_delta, material_rows,
@@ -80,6 +80,10 @@ _TEX_COLS = 4    # rgb pad (texels); rgb pmf (environment pixels)
 
 # environment modes of the kernels (csrc/path_trace.cuh: SceneExt)
 ENV_NONE, ENV_CONSTANT, ENV_IMAGE = 0, 1, 2
+
+# the path kernel's block (csrc/path_trace.cu:kPathBlock), the unit over
+# which it compacts live paths (warp_bounces)
+PATH_BLOCK = 256
 
 
 # ---------------------------------------------------------------- packing
@@ -304,20 +308,20 @@ def make_tables(scene: Scene, cfg, device) -> TraceTables:
     return TraceTables(tri=tri, mat=mat, em=emt, cam=cam.reshape(-1),
                        max_depth=cfg.max_depth, min_depth=cfg.min_depth,
                        rr_depth=cfg.rr_depth, use_nee=bool(cfg.use_nee),
-                       nodes=scene_nodes(scene, device),
+                       nodes=scene_nodes(scene, tri),
                        **scope_fields(scene, tabs,
                                       getattr(cfg, "thinlens", False)))
 
 
 def scene_args(tables):
     """The scene tables as the C entry points take them: tri, T, mat, M,
-    em, E, cam, the node table (box, link, order, N; N = 0 without a BVH),
+    em, E, cam, the node table (node, rec, N; N = 0 without a BVH),
     then the scene scope (sph, S, tri_ext, tex, pages, height, width,
     env_tab, env_col, env_row, He, We, env_mode, env_row_pick, thinlens,
     full; S = 0 without spheres, pages = 0 without bitmap albedo)."""
     pages, th, tw = tables.tex_shape or (0, 0, 0)
     he, we = tables.env_shape or (0, 0)
-    return (tables.tri.data_ptr(), tables.tri.shape[0],
+    return (tri_ptr(tables.tri), tables.tri.shape[0],
             tables.mat.data_ptr(), tables.mat.shape[0],
             tables.em.data_ptr(), tables.em.shape[0],
             tables.cam.data_ptr(), *node_args(tables.nodes),
@@ -348,7 +352,7 @@ def closest_hit(tri, o, d, nodes=None):
         if nodes is None:
             best_t, best_id = sweep_closest(tri, o, d)
         else:
-            best_t, best_id = walk_closest(tri, nodes, o, d)
+            best_t, best_id = walk_closest(nodes, o, d)
     if torch.is_grad_enabled() and (tri.requires_grad or o.requires_grad
                                     or d.requires_grad):
         w = tri[torch.clamp(best_id, min=0)]
@@ -365,7 +369,7 @@ def occluded(tri, o, d, tmax, nodes=None):
     """Any hit with RAY_EPS < t < tmax: the walk when `nodes` is given."""
     if nodes is None:
         return sweep_any(tri, o, d, tmax)
-    return walk_any(tri, nodes, o, d, tmax)
+    return walk_any(nodes, o, d, tmax)
 
 
 @torch.no_grad()
@@ -381,11 +385,28 @@ def count_sweeps(work, tri, mask, o, d, tmax=None, nodes=None):
             work["tri_tests"] = work.get("tri_tests", 0) + o.shape[0] \
                 * tri.shape[0]
         else:
-            walk_closest(tri, nodes, o, d, work)
+            walk_closest(nodes, o, d, work)
     elif nodes is None:
         sweep_any(tri, o, d, tmax[mask], work)
     else:
-        walk_any(tri, nodes, o, d, tmax[mask], work)
+        walk_any(nodes, o, d, tmax[mask], work)
+
+
+def warp_bounces(active, block=None) -> int:
+    """Warp-bounces a path kernel issues for the lanes live at each bounce,
+    `active` a list of (R,) bool masks (path_trace_reference's `live`).
+    block None:
+    one path per thread to its end, so a warp runs every bounce that any
+    of its 32 lanes runs; else paths compacted into full warps of
+    `block`-thread blocks between bounces, so a block runs ceil(live / 32)
+    warps at each bounce (csrc/path_trace.cu)."""
+    a = torch.stack(active)
+    size = 32 if block is None else block
+    a = torch.nn.functional.pad(a, (0, -a.shape[1] % size))
+    a = a.reshape(a.shape[0], -1, size)
+    if block is None:
+        return int(a.any(2).sum())
+    return int(((a.sum(2) + 31) // 32).sum())
 
 
 def work_flop(work) -> int:
@@ -407,12 +428,13 @@ def _albedo_rows(al, pw, mask, c):
     return torch.where(mask[:, None, None], c[:, None, :] * g, 0.0)
 
 
-def path_trace_reference(tables: TraceTables, uT, work=None):
+def path_trace_reference(tables: TraceTables, uT, work=None, live=None):
     """Plain-PyTorch twin of path_trace_kernel: uT (n_dims, R) -> (3, R).
-    With a dict `work`, adds the kernel's ray-triangle tests to it.
+    With a dict `work`, adds the kernel's ray-triangle tests to it; with a
+    list `live`, appends each bounce's mask of the lanes that run it.
     Differentiable in the tables (the replay backward of
     make_mega_trace_diff); its backward is free of inf and NaN."""
-    return _trace_reference(tables, uT, work)[0].T.contiguous()
+    return _trace_reference(tables, uT, work, live=live)[0].T.contiguous()
 
 
 def path_trace_rad_reference(tables: TraceTables, uT):
@@ -488,7 +510,7 @@ def materials_at(tables, mat_id, tu, tv):
     return material_rows(tables.mat, mat_id, albedo)
 
 
-def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
+def _trace_reference(tables: TraceTables, uT, work=None, grad=None, live=None):
     """The path trace of every lane, in the kernels' evaluation order:
     (L (R, 3), Jacobian rows (R, K, 3) in a gradient mode, else None).
 
@@ -528,6 +550,8 @@ def _trace_reference(tables: TraceTables, uT, work=None, grad=None):
         base = SENSOR_DIMS + (depth - 1) * BOUNCE_DIMS
         best_t, best_id = closest_hit(tri, o, d, tables.nodes)
         count_sweeps(work, tri, active, o, d, nodes=tables.nodes)
+        if live is not None:
+            live.append(active)
         if tables.n_sphs:
             best_t, s_id = sphere_closest(tables.sph, tables.n_sphs, o, d,
                                           best_t)
@@ -714,11 +738,14 @@ def _check_u(tables: TraceTables, uT):
         raise ValueError(f"uT on {uT.device}, tables on {tables.device}")
 
 
-def path_trace(tables: TraceTables, uT):
+def path_trace(tables: TraceTables, uT, compact: bool = True):
     """Path radiance (3, R) of the PSS vectors uT (n_dims, R).
 
-    A CUDA tensor launches path_trace_kernel; a CPU tensor runs
-    path_trace_reference."""
+    A CUDA tensor launches path_trace_kernel, which compacts a block's
+    live paths into full warps between bounces, or on a scene with a BVH
+    one path per thread to its end (compact=False: that on any scene, the
+    design the compacting launch is held to bit for bit); a CPU tensor
+    runs path_trace_reference."""
     _check_u(tables, uT)
     if uT.device.type == "cpu":
         return path_trace_reference(tables, uT)
@@ -729,8 +756,8 @@ def path_trace(tables: TraceTables, uT):
     out = torch.empty((3, R), dtype=torch.float32, device=uT.device)
     lib = build.load()
     stream = torch.cuda.current_stream(uT.device).cuda_stream
-    rc = lib.path_trace_launch(*table_args(tables), uT.data_ptr(), R,
-                               out.data_ptr(), stream)
+    rc = lib.path_trace_launch(*table_args(tables), int(compact),
+                               uT.data_ptr(), R, out.data_ptr(), stream)
     build.check(rc, "path_trace_kernel")
     build.LAUNCHES[build.scope_key("path_trace", tables)] += 1
     return out

@@ -130,8 +130,10 @@ def eval_bsdf(m, wi, wo):
     abs_co = torch.abs(cos_o)
     same_side = (wi[:, 2] * cos_o) > 0
     scale = _div_pi(abs_co)
-    scale = torch.where(kind == BSDF_ROUGH_DIFFUSE,
-                        scale * oren_nayar(wi, wo, m["rough"]), scale)
+    m_on = kind == BSDF_ROUGH_DIFFUSE
+    if bool(m_on.any()):
+        scale = torch.where(m_on, scale * oren_nayar(wi, wo, m["rough"]),
+                            scale)
     md = ((kind == BSDF_DIFFUSE) | (kind == BSDF_ROUGH_DIFFUSE)) & same_side
     f = torch.where(md[:, None], m["albedo"] * scale[:, None], 0.0)
     pdf = torch.where(md, _div_pi(torch.clamp(abs_co, min=0.0)), 0.0)
@@ -190,9 +192,11 @@ def sample_bsdf(m, wi, uc, ub):
     m_on = kind == BSDF_ROUGH_DIFFUSE
     m_d = (kind == BSDF_DIFFUSE) | m_on
     wo = torch.where(m_d[:, None], dw, zero3)
-    d_w = torch.where(m_on[:, None],
-                      albedo * oren_nayar(wi, dw, m["rough"])[:, None],
-                      albedo)
+    d_w = albedo
+    if bool(m_on.any()):
+        d_w = torch.where(m_on[:, None],
+                          albedo * oren_nayar(wi, dw, m["rough"])[:, None],
+                          albedo)
     weight = torch.where(m_d[:, None], d_w, zero3)
     pdf = torch.where(m_d, d_pdf, 0.0)
 
@@ -202,24 +206,27 @@ def sample_bsdf(m, wi, uc, ub):
     weight = torch.where(m_m, spec_refl, weight)
 
     # smooth dielectric: reflect with probability F, else refract
-    eta_d = eta[:, 0]
-    f_d, cos_t, _ = fresnel_dielectric(cos_i, eta_d)
-    pick_refl = uc < f_d
-    eta_ti = torch.where(cos_i > 0, 1.0 / eta_d, eta_d)
-    refr = torch.stack([-wi[:, 0] * eta_ti, -wi[:, 1] * eta_ti,
-                        torch.where(cos_i > 0, -cos_t, cos_t)], -1)
-    w_refr = spec_trans * eta_ti[:, None] * eta_ti[:, None]
     m_g = kind == BSDF_DIELECTRIC
-    wo = torch.where(m_g[:, None],
-                     torch.where(pick_refl[:, None], spec, refr), wo)
-    weight = torch.where(m_g[:, None],
-                         torch.where(pick_refl[:, None], spec_refl, w_refr),
-                         weight)
-    eta_out = torch.where(
-        m_g, torch.where(pick_refl, 1.0,
-                         torch.where(cos_i > 0, eta_d, 1.0 / eta_d)), 1.0)
+    eta_out = torch.ones_like(cos_i)
+    if bool(m_g.any()):
+        eta_d = eta[:, 0]
+        f_d, cos_t, _ = fresnel_dielectric(cos_i, eta_d)
+        pick_refl = uc < f_d
+        eta_ti = torch.where(cos_i > 0, 1.0 / eta_d, eta_d)
+        refr = torch.stack([-wi[:, 0] * eta_ti, -wi[:, 1] * eta_ti,
+                            torch.where(cos_i > 0, -cos_t, cos_t)], -1)
+        w_refr = spec_trans * eta_ti[:, None] * eta_ti[:, None]
+        wo = torch.where(m_g[:, None],
+                         torch.where(pick_refl[:, None], spec, refr), wo)
+        weight = torch.where(
+            m_g[:, None], torch.where(pick_refl[:, None], spec_refl, w_refr),
+            weight)
+        eta_out = torch.where(
+            m_g, torch.where(pick_refl, 1.0,
+                             torch.where(cos_i > 0, eta_d, 1.0 / eta_d)), 1.0)
 
-    # the kinds beyond slices 1-4, evaluated only where a lane has them
+    # the kinds beyond the diffuse one and the mirror, evaluated only where
+    # a lane has them
     m_c = kind == BSDF_CONDUCTOR
     if bool(m_c.any()):
         f_c = fresnel_conductor(torch.abs(cos_i), eta, m["k"])

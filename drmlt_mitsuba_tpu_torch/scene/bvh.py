@@ -3,8 +3,9 @@ copy of the native binned-SAH builder, csrc/bvh_builder.cpp, compiled
 with g++ into build/ at first use and called through ctypes.
 
 There is no median-split fallback: a missing compiler or a failed build
-raises.  `pack_nodes` turns the tree into the node tables the kernels and
-the plain walk of ops/intersect.py read.
+raises.  `pack_nodes` turns the tree and the triangle table into the node
+and triangle records the kernels and the plain walk of ops/intersect.py
+read.
 """
 from __future__ import annotations
 
@@ -77,29 +78,60 @@ def build_bvh(v0, e1, e2, max_leaf: int = MAX_LEAF) -> BVH:
                skip=t(skip[:n_nodes].copy()), order=t(order))
 
 
+# a leaf node's triangle count lives in the low bits of its record's last
+# word, the index of its first triangle record above them
+LEAF_BITS = 4
+
+
 @dataclasses.dataclass(frozen=True)
 class NodeTable:
-    """The BVH as the kernels read it.  box (N, 8) f32: lo.xyz, 0, hi.xyz,
-    0 (two 16-byte loads), padded by BOX_PAD; link (N, 4) int32: first,
-    count, skip, 0 (one 16-byte load); order (T,) int32."""
-    box: torch.Tensor
-    link: torch.Tensor
-    order: torch.Tensor
+    """The BVH as the kernels read it (csrc/bvh.cuh).  node (N, 8) f32, one
+    32-byte record a node: lo.xyz, skip, hi.xyz, first << LEAF_BITS |
+    count (0 for an inner node, whose left child is the next node), the
+    ints as float bits, the box padded by BOX_PAD.  rec (T, 12) f32, the
+    triangles in leaf order (a leaf's records are first ... first + count
+    - 1): v0.xyz and the original triangle id as float bits, e1.xyz, 0,
+    e2.xyz, 0, the bits of the triangle table's columns."""
+    node: torch.Tensor
+    rec: torch.Tensor
 
     @property
     def n_nodes(self) -> int:
-        return self.box.shape[0]
+        return self.node.shape[0]
+
+    def unpack(self):
+        """(first, count, skip, order), int32 on the table's device, as
+        `BVH` holds them (an inner node's first is its left child)."""
+        w = self.node.view(torch.int32)
+        leaf = w[:, 7]
+        count = leaf & ((1 << LEAF_BITS) - 1)
+        nxt = torch.arange(1, w.shape[0] + 1, dtype=torch.int32,
+                           device=w.device)
+        first = torch.where(count > 0, leaf >> LEAF_BITS, nxt)
+        return first, count, w[:, 3].clone(), self.rec.view(torch.int32)[:, 3]
 
 
-def pack_nodes(bvh: BVH, device) -> NodeTable:
+def pack_nodes(bvh: BVH, tri: torch.Tensor) -> NodeTable:
+    """The node and triangle records of `bvh` over the (T, 20) triangle
+    table `tri` (ops/intersect.py:pack_tri_table), on tri's device.  Built
+    on integer views, so every float keeps its bits."""
     lo, hi = bvh.nodes_min.float(), bvh.nodes_max.float()
     pad = BOX_PAD * float(torch.maximum(lo.abs().max(), hi.abs().max()))
-    N = lo.shape[0]
-    z = torch.zeros((N, 1), dtype=torch.float32)
-    box = torch.cat([lo - pad, z, hi + pad, z], 1)
-    link = torch.stack([bvh.first, bvh.count, bvh.skip,
-                        torch.zeros_like(bvh.skip)], 1).to(torch.int32)
-    return NodeTable(box=box.to(device).contiguous(),
-                     link=link.to(device).contiguous(),
-                     order=bvh.order.to(device=device,
-                                        dtype=torch.int32).contiguous())
+    count = bvh.count.to(torch.int32)
+    T = bvh.order.shape[0]
+    if int(count.max()) >= 1 << LEAF_BITS or T >= 1 << (31 - LEAF_BITS):
+        raise ValueError(f"a leaf of {int(count.max())} triangles or {T} "
+                         f"triangles do not fit a node record")
+    leaf = torch.where(count > 0, (bvh.first.to(torch.int32) << LEAF_BITS)
+                       | count, 0)
+    node = torch.cat([(lo - pad).view(torch.int32),
+                      bvh.skip.to(torch.int32)[:, None],
+                      (hi + pad).view(torch.int32), leaf[:, None]], 1)
+    order = bvh.order.to(device=tri.device, dtype=torch.int32)
+    rows = tri.detach()[order.long()].view(torch.int32)
+    z = torch.zeros((T, 1), dtype=torch.int32, device=tri.device)
+    rec = torch.cat([rows[:, 0:3], order[:, None], rows[:, 3:6], z,
+                     rows[:, 6:9], z], 1)
+    return NodeTable(node=node.to(tri.device).view(torch.float32)
+                     .contiguous(),
+                     rec=rec.view(torch.float32).contiguous())

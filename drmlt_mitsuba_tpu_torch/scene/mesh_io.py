@@ -16,62 +16,64 @@ def load_obj(path: str):
     Per-corner normals and uvs are welded to per-vertex ones by splitting
     vertices on distinct (v, vt, vn) triples, like the reference loader
     (mesh_io.py:19)."""
-    vs, vts, vns = [], [], []
-    corners = []   # one list of (vi, ti, ni) per face
-    with open(path, "r", errors="replace") as f:
-        for line in f:
-            if line.startswith("v "):
-                vs.append([float(x) for x in line.split()[1:4]])
-            elif line.startswith("vt "):
-                t = [float(x) for x in line.split()[1:3]]
-                vts.append(t if len(t) == 2 else t + [0.0])
-            elif line.startswith("vn "):
-                vns.append([float(x) for x in line.split()[1:4]])
-            elif line.startswith("f "):
-                face = []
-                for tok in line.split()[1:]:
-                    parts = tok.split("/")
-                    vi = int(parts[0])
-                    ti = int(parts[1]) if len(parts) > 1 and parts[1] else 0
-                    ni = int(parts[2]) if len(parts) > 2 and parts[2] else 0
-                    face.append((vi, ti, ni))
-                corners.append(face)
+    with open(path, "r", errors="replace") as fh:
+        lines = fh.read().splitlines()
 
-    vs = np.asarray(vs, np.float32)
-    vts = np.asarray(vts, np.float32) if vts else None
-    vns = np.asarray(vns, np.float32) if vns else None
+    def floats(prefix, n):   # the first n numbers of each `prefix` line
+        rows = [ln.split()[1:n + 1] for ln in lines if ln.startswith(prefix)]
+        return np.array(rows, np.float64).astype(np.float32) if rows else None
 
-    def resolve(idx, n):   # 1-based, negative counts from the end
-        return idx - 1 if idx > 0 else n + idx
+    vs = floats("v ", 3)
+    vns = floats("vn ", 3)
+    vts = [[float(x) for x in ln.split()[1:3]] for ln in lines
+           if ln.startswith("vt ")]
+    vts = (np.asarray([t if len(t) == 2 else t + [0.0] for t in vts],
+                      np.float32) if vts else None)
+    faces = [ln.split()[1:] for ln in lines if ln.startswith("f ")]
+    sizes = [len(toks) for toks in faces]
+    # (vi, ti, ni) of every face corner, 0 where absent
+    parts = [(tok.split("/") + ["", ""])[:3] for toks in faces for tok in toks]
+    corners = np.array([[p or "0" for p in c] for c in parts]
+                       ).reshape(-1, 3).astype(np.int64)
+    if vs is None:
+        vs = np.zeros((0, 3), np.float32)
 
-    key_to_new: dict = {}
-    new_v, new_n, new_t = [], [], []
-    faces = []
+    def resolve(idx, n):   # 1-based, negative counts from the end; 0: none
+        return np.where(idx > 0, idx - 1, np.where(idx < 0, n + idx, -1))
 
-    def corner_index(c):
-        vi = resolve(c[0], len(vs))
-        ti = resolve(c[1], len(vts) if vts is not None else 0) if c[1] else -1
-        ni = resolve(c[2], len(vns) if vns is not None else 0) if c[2] else -1
-        key = (vi, ti, ni)
-        if key not in key_to_new:
-            key_to_new[key] = len(new_v)
-            new_v.append(vs[vi])
-            new_t.append(vts[ti] if ti >= 0 and vts is not None else (0, 0))
-            new_n.append(vns[ni] if ni >= 0 and vns is not None
-                         else (0, 0, 0))
-        return key_to_new[key]
+    c = corners
+    keys = np.stack([
+        resolve(c[:, 0], len(vs)),
+        resolve(c[:, 1], len(vts)) if vts is not None else np.full(len(c), -1),
+        resolve(c[:, 2], len(vns)) if vns is not None else np.full(len(c), -1),
+    ], 1)
+    # one vertex per distinct (v, vt, vn), numbered in order of first use
+    _, first, inv = np.unique(keys, axis=0, return_index=True,
+                              return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
+    corner_vertex = rank[inv.reshape(-1)]
+    uniq = keys[np.sort(first)]
 
-    for face in corners:
-        idx = [corner_index(c) for c in face]
-        for k in range(1, len(idx) - 1):
-            faces.append([idx[0], idx[k], idx[k + 1]])
+    # fan triangulation: face corners (0, k, k + 1), k = 1 .. n - 2
+    sizes = np.asarray(sizes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    n_tri = np.maximum(sizes - 2, 0)
+    base = np.repeat(starts, n_tri)
+    k = np.arange(n_tri.sum()) - np.repeat(np.cumsum(n_tri) - n_tri, n_tri) + 1
+    f = corner_vertex[np.stack([base, base + k, base + k + 1], 1)]
+    f = f.reshape(-1, 3).astype(np.int32)
 
-    v = np.asarray(new_v, np.float32)
-    f = np.asarray(faces, np.int32)
-    n = np.asarray(new_n, np.float32) if vns is not None else None
-    t = np.asarray(new_t, np.float32)[:, :2] if vts is not None else None
-    if n is not None and not np.any(np.abs(n).sum(-1) > 0):
-        n = None
+    v = vs[uniq[:, 0]]
+    n = t = None
+    if vns is not None:
+        n = np.where((uniq[:, 2] >= 0)[:, None], vns[np.maximum(uniq[:, 2], 0)],
+                     np.float32(0)).astype(np.float32)
+        if not np.any(np.abs(n).sum(-1) > 0):
+            n = None
+    if vts is not None:
+        t = np.where((uniq[:, 1] >= 0)[:, None], vts[np.maximum(uniq[:, 1], 0)],
+                     np.float32(0)).astype(np.float32)[:, :2]
     return v, f, n, t
 
 

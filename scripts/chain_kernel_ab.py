@@ -1,27 +1,42 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's chain kernel and MMLT kernel against other
-builds of them, in turns, in one process on one GPU.
+"""Time the PyTorch port's trace kernels (the path kernel, its adjoints,
+the MMLT kernel, the chain kernel) and the BVH walk against other builds
+of them, in turns, in one process on one GPU.
 
     python3 scripts/chain_kernel_ab.py --other parent=DIR [--other NAME=DIR]
-        [--scene cornell const] [--type orbital green mira]
-        [--mode drmlt pssmlt] [--rounds 3]
+        [--scene cornell const large] [--type orbital green mira]
+        [--mode drmlt pssmlt] [--rounds 3] [--diagnose]
 
 Each DIR holds the `.cu` / `.cuh` sources of another revision's
-`drmlt_mitsuba_tpu_torch/csrc/` whose `drmlt_chain_launch` and
-`mmlt_trace_launch` take the checkout's arguments (ops/build.py), for
-example the parent commit's
+`drmlt_mitsuba_tpu_torch/csrc/`, for example the parent commit's
 
     git archive HEAD~1 drmlt_mitsuba_tpu_torch/csrc | tar -x -C build/base
     ... --other parent=build/base/drmlt_mitsuba_tpu_torch/csrc
 
 or a copy of the checkout's with one constant changed (for example
-`kChainBlock` in drmlt_chain.cu, the block of both modes).  Each is
-compiled with the port's nvcc flags in one `nvcc -shared` command into a
-library of its own under build/chain_ab/; the checkout's own kernels come
-from ops/build.py.
+`kChainBlock` in drmlt_chain.cu, the block of both chain-kernel modes, or
+`kPathBlock` in path_trace.cu).  Its entry points take the checkout's
+arguments (ops/build.py), or a build from before the node records (its
+path_trace.cu takes `const int* link`) the node table as (box, link,
+order, N) and no compact flag: `Legacy` passes it the same BVH in that
+layout.  Each is compiled by ops/build.py, as the checkout's kernels
+are, into a library of its own under build/torch_kernels/.
 
-On cornell_box(256, 256) (`cornell`, the instantiation of slices 1-4)
-and cornell_scope(256, 256, "const") (`const`, the full scene scope):
+The path kernel (65,536 lanes, rr_depth 100) on cornell_box(256, 256) at
+depths 8, 6 and 4, the veach door, cornell_scope(256, 256, "const") and
+tests/data/cornell.xml (the full scope) and cornell_large.xml (19,586
+triangles, the walk), each build and the checkout's one-path-per-thread
+launch (`lane`): bit for bit the checkout's, ms per launch in turns;
+the adjoint kernels (depth 6, rr 5) on the box and cornell_large.xml; the
+intersection kernel on 1,048,576 rays against raybench's 20,000-triangle
+sphere (the BVH mode, MRays/s), cornell_large.xml and the box (brute).
+--diagnose: the path kernel on the box at 65,536, 131,072 and 262,144
+lanes, depths 8 and 2, and each build's SASS of its path kernels
+(cuobjdump) in chiprun_out/chain_kernel_ab_sass_NAME.txt.
+
+On cornell_box(256, 256) (`cornell`, the instantiation of slices 1-4),
+cornell_scope(256, 256, "const") (`const`, the full scene scope) and
+cornell_large.xml (`large`, the walk):
 
   * the MMLT kernel on 65,536 lanes: the pooled depths
     1-6 (max_depth 6) and the depth pinned at k = 1 and k = 6 (the grouped
@@ -39,7 +54,7 @@ and cornell_scope(256, 256, "const") (`const`, the full scene scope):
     = 0); ms per launch of 64 mutations (CUDA events over 3 launches after
     one warm-up), in turns as above (--rounds 0: no timing);
 
-and each build's ptxas registers, stack and spills of both kernels.
+and each build's ptxas registers, stack and spills of every kernel.
 Prints one JSON line and writes chiprun_out/chain_kernel_ab.json, and each
 build's whole ptxas report to chiprun_out/chain_kernel_ab_ptxas_NAME.txt.
 """
@@ -74,41 +89,114 @@ from drmlt_mitsuba_tpu_torch.integrators.path import (  # noqa: E402
     make_path_trace,
 )
 from drmlt_mitsuba_tpu_torch.ops import build  # noqa: E402
+from drmlt_mitsuba_tpu_torch.ops import intersect as IX  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt as MD  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megammlt as MM  # noqa: E402
 from drmlt_mitsuba_tpu_torch.ops import megatrace as MT  # noqa: E402
 from drmlt_mitsuba_tpu_torch.scene.builders import (  # noqa: E402
-    cornell_box, cornell_scope,
+    cornell_box, cornell_scope, veach_door,
 )
+from drmlt_mitsuba_tpu_torch.utils import cli, raybench  # noqa: E402
 
 CHAINS = 65536
 SIZE = 256
 N_MUT = 64
 MMLT_RUNS = 20
+PATH_RUNS = 20
+RAYS = 1 << 20
 SHARE_CHAINS = 4096   # the twin's stage-2 share: chains x 2 mutations
-KERNELS = ("drmlt_chain_kernel", "mmlt_trace_kernel")
+DATA = ROOT / "tests" / "data"
 
 
-def ptxas(text):
-    """The chain and MMLT kernels' registers, stack, spills and shared
-    memory from ptxas -v output."""
-    return {k: v for k, v in ptxas_report(text).items()
-            if any(n in k for n in KERNELS)}
-
-
-def build_single(src: Path, out: Path):
-    """One `nvcc -shared` over every .cu of src: (library, ptxas text)."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out),
-           *sorted(str(p) for p in src.glob("*.cu"))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{res.stderr}")
+def load_other(src: Path):
+    """Another revision's csrc/ built by ops/build.py: (library path,
+    library, ptxas text); a build from before the node records comes
+    wrapped in Legacy."""
+    out = build.build(src)
     lib = ctypes.CDLL(str(out))
-    for name in ("drmlt_chain_launch", "mmlt_trace_launch"):
-        getattr(lib, name).argtypes = build._SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib, res.stdout + res.stderr
+    legacy = "const int* link" in (src / "path_trace.cu").read_text()
+    for fn, sig in build._SIGNATURES.items():
+        if legacy and fn in Legacy.NODE_AT:
+            sig = Legacy.signature(fn, sig)
+        getattr(lib, fn).argtypes = sig
+        getattr(lib, fn).restype = ctypes.c_int
+    return (out, Legacy(lib) if legacy else lib,
+            out.with_suffix(".ptxas.txt").read_text())
+
+
+# the node tables made in this process, by the address of their node
+# records, in the layout before the records: (box, link, order, table)
+LEGACY_NODES = {}
+_pack_nodes = IX.pack_nodes
+
+
+def _pack_and_keep(bvh, tri):
+    nodes = _pack_nodes(bvh, tri)
+    first, count, skip, order = nodes.unpack()
+    box = nodes.node.clone()
+    box.view(torch.int32)[:, [3, 7]] = 0
+    link = torch.stack([first, count, skip, torch.zeros_like(skip)], 1)
+    LEGACY_NODES[nodes.node.data_ptr()] = (box, link.contiguous(),
+                                           order.contiguous(), nodes)
+    return nodes
+
+
+# every table below is packed through here (ops/intersect.py:scene_nodes)
+IX.pack_nodes = _pack_and_keep
+
+
+class Legacy:
+    """A build from before the node records, called with the checkout's
+    arguments: the node table (node, rec, N) becomes (box, link, order,
+    N) of the same tree, and path_trace_launch's compact flag goes."""
+
+    NODE_AT = {"path_trace_launch": 7, "path_trace_rad_launch": 7,
+               "path_trace_alb_launch": 7, "mmlt_trace_launch": 7,
+               "drmlt_chain_launch": 7, "intersect_launch": 2}
+    COMPACT_AT = 30   # in the checkout's path_trace_launch
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    @classmethod
+    def signature(cls, name, sig):
+        k = cls.NODE_AT[name]
+        sig = [*sig[:k], ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int, *sig[k + 3:]]
+        if name == "path_trace_launch":
+            del sig[cls.COMPACT_AT + 1]
+        return sig
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in self.NODE_AT:
+            return fn
+        k = self.NODE_AT[name]
+
+        def call(*args):
+            args = list(args)
+            if name == "path_trace_launch":
+                del args[self.COMPACT_AT]
+            node, _, n = args[k:k + 3]
+            old = ((None, None, None) if not node else
+                   tuple(t.data_ptr() for t in LEGACY_NODES[node][:3]))
+            return fn(*args[:k], *old, n, *args[k + 3:])
+        return call
+
+
+class Lane:
+    """The checkout's library with path_trace_launch's compact flag off:
+    one path per thread to its end."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name != "path_trace_launch":
+            return fn
+        at = Legacy.COMPACT_AT
+        return lambda *a: fn(*a[:at], 0, *a[at + 1:])
 
 
 class using:
@@ -179,8 +267,108 @@ def fmt_ms(ms):
 
 
 def scene_of(name):
-    return (cornell_box(SIZE, SIZE) if name == "cornell"
-            else cornell_scope(SIZE, SIZE, "const"))
+    if name == "cornell":
+        return cornell_box(SIZE, SIZE)
+    if name == "veach":
+        return veach_door(SIZE, SIZE)
+    if name == "const":
+        return cornell_scope(SIZE, SIZE, "const")
+    xml = ("cornell.xml" if name == "cornell_xml"
+           else "large/cornell_large.xml")
+    return cli.load_scene(str(DATA / xml), {"integrator": "drmlt"})[0]
+
+
+def same(a, b):
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def compare(libs, rounds, run, runs, label, timed_run=None):
+    """Each build's outputs of `run` against the checkout's, bit for bit,
+    and ms per call of `timed_run` (default `run`) in turns; prints one
+    line, returns the row."""
+    outs = {}
+    for name, lib in libs.items():
+        with using(lib):
+            outs[name] = run()
+    ref = outs["checkout"]
+    row = dict(equal_to_checkout={
+        n: all(same(a, b) for a, b in zip(o, ref)) for n, o in outs.items()})
+
+    def timed(lib):
+        def once(i=0):
+            with using(lib):
+                (timed_run or run)()
+        return events_ms(once, runs)
+    row["ms_per_launch"] = in_turns(libs, rounds, timed)
+    print(f"{label}: equal to the checkout's {row['equal_to_checkout']}; "
+          f"ms per launch: {fmt_ms(row['ms_per_launch'])}", flush=True)
+    return row
+
+
+PATH_CASES = (("cornell", 8), ("cornell", 6), ("cornell", 4), ("veach", 8),
+              ("const", 8), ("cornell_xml", 4), ("large", 8))
+
+
+def path_cases(libs, rounds, dev, g, report):
+    """The path kernel, the adjoints and the intersection kernel."""
+    path_libs = dict(libs, lane=Lane(libs["checkout"]))
+    for sname, depth in PATH_CASES:
+        scene = scene_of(sname)
+        tb = MT.make_tables(scene, PathConfig(max_depth=depth, rr_depth=100),
+                            dev)
+        uT = torch.rand((tb.n_dims, CHAINS), device=dev, generator=g)
+        case = f"{sname}/path_trace/d{depth}" + ("[full]" if tb.full else "")
+        report["cases"][case] = compare(
+            path_libs, rounds, lambda: (MT.path_trace(tb, uT),), PATH_RUNS,
+            case)
+    for sname in ("cornell", "large"):
+        tb = MT.make_tables(scene_of(sname), PathConfig(max_depth=6,
+                                                        rr_depth=5), dev)
+        uT = torch.rand((tb.n_dims, CHAINS), device=dev, generator=g)
+        for mode, fn in (("rad", MT.path_trace_rad),
+                         ("alb", MT.path_trace_alb)):
+            case = f"{sname}/path_trace_{mode}/d6"
+            report["cases"][case] = compare(
+                libs, rounds, lambda: (fn(tb, uT),), PATH_RUNS, case)
+    for sname in ("sphere-20000", "large", "cornell"):
+        if sname == "sphere-20000":
+            scene = raybench.bumpy_sphere(20000)
+            o, d = raybench.rays(RAYS, dev)
+        else:
+            scene = scene_of(sname)
+            o = torch.rand((RAYS, 3), device=dev, generator=g) * 554.0 + 1.0
+            d = torch.randn((RAYS, 3), device=dev, generator=g)
+            d = d / d.norm(dim=1, keepdim=True)
+        tb = IX.make_ray_tables(scene, dev)
+        tmax = torch.rand(RAYS, device=dev, generator=g) * 600.0
+        mode = "bvh" if tb.nodes is not None else "brute"
+        case = f"{sname}/intersect/{mode} (timed: closest)"
+        row = compare(libs, rounds, lambda: (*IX.closest(tb, o, d),
+                                             IX.any_hit(tb, o, d, tmax)),
+                      PATH_RUNS if mode == "bvh" else 2, case,
+                      lambda: IX.closest(tb, o, d))
+        row["mrays_per_s"] = {n: RAYS / (sum(v) / len(v)) / 1e3 for n, v in
+                              row["ms_per_launch"].items()}
+        report["cases"][case] = row
+
+
+def diagnose(libs, dev, g, report):
+    """The path kernel on the box at 65,536, 131,072 and 262,144 lanes,
+    depths 8 and 2 (each build and the one-path-per-thread launch, in
+    turns), and each build's SASS of its path kernels."""
+    path_libs = dict(libs, lane=Lane(libs["checkout"]))
+    scene = scene_of("cornell")
+    for depth in (8, 2):
+        tb = MT.make_tables(scene, PathConfig(max_depth=depth, rr_depth=100),
+                            dev)
+        for R in (CHAINS, 2 * CHAINS, 4 * CHAINS):
+            uT = torch.rand((tb.n_dims, R), device=dev, generator=g)
+            case = f"diagnose/cornell/path_trace/d{depth}/R{R}"
+            report["cases"][case] = compare(
+                path_libs, 1, lambda: (MT.path_trace(tb, uT),), PATH_RUNS,
+                case)
 
 
 def starts(scene, dev, g):
@@ -220,8 +408,12 @@ def main():
     ap.add_argument("--other", action="append", default=[],
                     metavar="NAME=DIR", help="another revision's csrc/")
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--scene", nargs="+", choices=("cornell", "const"),
+    ap.add_argument("--scene", nargs="+",
+                    choices=("cornell", "const", "large"),
                     default=["cornell"])
+    ap.add_argument("--diagnose", action="store_true",
+                    help="the path kernel at 1, 2 and 4 x 65,536 lanes, "
+                         "depths 8 and 2, and its SASS")
     ap.add_argument("--type", nargs="+", choices=("orbital", "green", "mira"),
                     default=["orbital"])
     ap.add_argument("--mode", nargs="+", choices=("drmlt", "pssmlt"),
@@ -239,14 +431,14 @@ def main():
     report = dict(device=smi, cases={})
 
     libs = {"checkout": build.load()}
-    report["ptxas"] = {"checkout": ptxas(build.build_info["ptxas"])}
+    report["ptxas"] = {"checkout": ptxas_report(build.build_info["ptxas"])}
     others = [s.split("=", 1) for s in args.other]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     texts = {"checkout": build.build_info["ptxas"]}
+    paths = {"checkout": build.build_info["path"]}
     for name, d in others:
-        libs[name], texts[name] = build_single(
-            Path(d), build.BUILD_DIR.parent / "chain_ab" / f"{name}.so")
-        report["ptxas"][name] = ptxas(texts[name])
+        paths[name], libs[name], texts[name] = load_other(Path(d))
+        report["ptxas"][name] = ptxas_report(texts[name])
     for name, text in texts.items():   # every function's figures, in full
         (ROOT / "chiprun_out" / f"chain_kernel_ab_ptxas_{name}.txt"
          ).write_text(text)
@@ -254,6 +446,23 @@ def main():
         print(f"ptxas {name}: {p}", flush=True)
 
     g = torch.Generator(device=dev).manual_seed(3)
+    if args.diagnose:
+        for name, path in paths.items():
+            sass = subprocess.run(
+                [str(Path(build._nvcc()).with_name("cuobjdump")), "-sass",
+                 str(path)], capture_output=True, text=True).stdout
+            keep, out = False, []
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    keep = any(f in line for f in (
+                        "path_trace_kernel", "path_lane_kernel",
+                        "trace_path", "bvh_"))
+                if keep:
+                    out.append(line)
+            (ROOT / "chiprun_out" / f"chain_kernel_ab_sass_{name}.txt"
+             ).write_text("\n".join(out))
+        diagnose(libs, dev, g, report)
+    path_cases(libs, args.rounds, dev, g, report)
     for scene_name in args.scene:
         scene = scene_of(scene_name)
         for form, (tb, uT) in mmlt_cases(scene, dev, g).items():

@@ -90,9 +90,22 @@ def test_bvh_matches_reference_builder(tmp_path):
         got.order.numpy(), v0, e1, e2)
     tri = ix.pack_tri_table(cornell_box(32, 32, tessellate=12).tris, "cpu")
     o, d = _cornell_rays(1024, 1)
-    a = ix.walk_closest(tri, pack_nodes(mine, "cpu"), o, d)
-    b = ix.walk_closest(tri, pack_nodes(got, "cpu"), o, d)
+    a = ix.walk_closest(pack_nodes(mine, tri), o, d)
+    nodes = pack_nodes(got, tri)
+    b = ix.walk_closest(nodes, o, d)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # the 32-byte node records and the leaf-ordered triangle records give
+    # back the tree's first / count / skip and the triangle ids, and each
+    # record holds its triangle's v0, e1, e2 bits
+    assert (got.count < 16).all() and nodes.node.shape == (len(got.skip), 8)
+    for x, y in zip(nodes.unpack(), (got.first, got.count, got.skip,
+                                     got.order)):
+        assert torch.equal(x, y.to(torch.int32))
+    rec = nodes.rec.view(torch.int32)
+    rows = tri[got.order.long()].view(torch.int32)
+    for c in range(3):
+        assert torch.equal(rec[:, 4 * c:4 * c + 3], rows[:, 3 * c:3 * c + 3])
+    assert not rec[:, [7, 11]].any()
 
 
 def _cornell_rays(n, seed):
@@ -123,17 +136,17 @@ def test_walk_equals_sweep(which):
             0, 6, R).astype(np.float32))
     brute = ix.make_ray_tables(scene, "cpu")
     assert brute.nodes is None
-    walk = ix.RayTables(tri=brute.tri,
-                        nodes=pack_nodes(build_bvh(*_arrays(scene)), "cpu"))
+    walk = ix.RayTables(tri=brute.tri, nodes=pack_nodes(
+        build_bvh(*_arrays(scene)), brute.tri))
     wk, sw = {}, {}
-    t_w, i_w = ix.walk_closest(walk.tri, walk.nodes, o, d, wk)
+    t_w, i_w = ix.walk_closest(walk.nodes, o, d, wk)
     t_s, i_s = ix.sweep_closest(brute.tri, o, d, sw)
     assert (i_s >= 0).float().mean() > 0.05
     np.testing.assert_array_equal(t_w.numpy().view(np.uint32),
                                   t_s.numpy().view(np.uint32))
     assert torch.equal(i_w, i_s)
     assert wk["tri_tests"] < sw["tri_tests"] / 20
-    any_w = ix.walk_any(walk.tri, walk.nodes, o, d, tmax)
+    any_w = ix.walk_any(walk.nodes, o, d, tmax)
     any_s = ix.sweep_any(brute.tri, o, d, tmax)
     assert torch.equal(any_w, any_s)
     assert 0.01 < float(any_s.float().mean()) < 0.99
@@ -203,11 +216,27 @@ def test_hits_equal_reference_with_spheres():
 
 def test_hits_equal_reference_on_large_scene():
     """cornell_large.xml (19,586 triangles): the port walks its BVH, the
-    reference sweeps every triangle; the records are equal."""
+    reference sweeps every triangle; the records are equal.  The walk
+    over the node and triangle records returns the port's sweep's (t, id)
+    bit for bit, and makes the box and triangle tests the walk over the
+    separate box / link / order tables made before them (counted on these
+    rays), so the kernels' bounds do not move."""
     scene = prepare_scene(load_scene_xml(LARGE)[0])
     ref_scene = jax_load_xml(LARGE)[0]
     assert scene.bvh is not None
     o, d = _cornell_rays(512, 8)
-    hit = ix.intersect(scene, o, d)
+    tables = ix.make_ray_tables(scene, "cpu")
+    hit = ix.intersect(scene, o, d, tables=tables)
     _assert_hits_equal(hit, jax_intersect(ref_scene, *_jax_rays(o, d)))
     assert float(hit.valid.float().mean()) > 0.5
+    wc, wa = {}, {}
+    t_w, i_w = ix.walk_closest(tables.nodes, o, d, wc)
+    t_s, i_s = ix.sweep_closest(tables.tri, o, d)
+    assert torch.equal(t_w.view(torch.int32), t_s.view(torch.int32))
+    assert torch.equal(i_w, i_s)
+    tmax = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 900, 512).astype(np.float32))
+    assert torch.equal(ix.walk_any(tables.nodes, o, d, tmax, wa),
+                       ix.sweep_any(tables.tri, o, d, tmax))
+    assert wc == {"node_tests": 15750, "tri_tests": 2305}
+    assert wa == {"node_tests": 8511, "tri_tests": 1119}

@@ -83,6 +83,55 @@ def test_path_kernel_matches_twin(cuda, tall):
     _lanes_agree(k, MT.path_trace_reference(tables, uT))
 
 
+def _compact_scene(name):
+    """The scenes the compacting path kernel is held on: the 36-triangle
+    box, the veach door (no path ends early), the full-scope const
+    configuration, tests/data/cornell.xml (full scope) and
+    cornell_large.xml (19,586 triangles, the walk)."""
+    import os
+
+    from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
+    from drmlt_mitsuba_tpu_torch.utils import cli
+    data = os.path.join(os.path.dirname(__file__), "data")
+    if name == "box":
+        return cornell_box(256, 256)
+    if name == "veach":
+        return veach_door(256, 256)
+    if name == "const":
+        return cornell_scope(256, 256, "const")
+    if name == "cornell_xml":
+        return cli.load_scene(os.path.join(data, "cornell.xml"),
+                              {"integrator": "drmlt"})[0]
+    return cli.load_scene(os.path.join(data, "large", "cornell_large.xml"),
+                          {"integrator": "drmlt"})[0]
+
+
+@pytest.mark.parametrize("scene", ["box", "veach", "const", "cornell_xml",
+                                   "large"])
+@pytest.mark.parametrize("depth", [8, 6, 4])
+def test_compacting_path_kernel_equals_one_path_per_thread(cuda, scene,
+                                                           depth):
+    """65,536 lanes: the kernel that compacts live paths into full warps
+    between bounces returns, bit for bit, the rgb of one path per thread
+    and of the twin."""
+    cfg = PathConfig(max_depth=depth, rr_depth=100)
+    tables = MT.make_tables(_compact_scene(scene), cfg, cuda)
+    assert tables.full == (scene in ("const", "cornell_xml"))
+    assert (tables.nodes is not None) == (scene == "large")
+    uT = torch.rand((cfg.n_dims, 65536), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(depth))
+    key = build.scope_key("path_trace", tables)
+    n0 = build.LAUNCHES[key]
+    k = MT.path_trace(tables, uT)
+    lane = MT.path_trace(tables, uT, compact=False)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[key] == n0 + 2
+    assert torch.equal(k.view(torch.int32), lane.view(torch.int32))
+    t = MT.path_trace_reference(tables, uT)
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32))
+    assert float((k.sum(0) > 0).float().mean()) > 0.01
+
+
 @pytest.mark.parametrize("scene", ["diffuse", "mirror", "glass", "veach"])
 @pytest.mark.parametrize("depth", [1, 3, 6])
 def test_mmlt_kernel_matches_twin(cuda, scene, depth):

@@ -126,3 +126,30 @@ def test_twin_matches_trace_paths_veach_door():
                                rtol=5e-3)
     assert (va[~bad].sum(-1) > 0).mean() > 0.02     # the door gap is lit
     assert MT.mega_eligible(veach_door(8, 8), cfg)
+
+
+def test_twin_counts_the_warp_bounces_compaction_saves():
+    """The twin's live masks on the box at depth 8 (65,536 lanes, uniform
+    dims from torch's CPU generator seeded 0): one path per thread runs
+    16,384 warp-bounces (every warp has a lane that lasts eight bounces)
+    for 9,823 warps' worth of path bounces; compacted into full warps of
+    128- or 256-thread blocks between bounces (csrc/path_trace.cu), the
+    kernel runs 11,413 or 10,643.  NEE adds radiance and never ends a
+    path, so the masks are those of the kernels' configuration (NEE on,
+    checked on the first 4,096 lanes) and the count runs without NEE,
+    which skips its shadow sweeps."""
+    uT = torch.rand((PathConfig(max_depth=8).n_dims, 65536),
+                    generator=torch.Generator().manual_seed(0))
+    masks = {}
+    for nee, lanes in ((True, 4096), (False, 65536)):
+        cfg = PathConfig(max_depth=8, rr_depth=100, use_nee=nee)
+        tables = MT.make_tables(cornell_box(256, 256), cfg, "cpu")
+        masks[nee] = []
+        MT.path_trace_reference(tables, uT[:, :lanes].contiguous(),
+                                live=masks[nee])
+    assert all(torch.equal(m, n[:4096]) for m, n in zip(*masks.values()))
+    a = masks[False]
+    assert len(a) == 8
+    assert int(torch.stack(a).sum()) // 32 == 9823
+    assert [MT.warp_bounces(a, b) for b in (None, 128, 256)] == [
+        16384, 11413, 10643]

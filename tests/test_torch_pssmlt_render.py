@@ -5,6 +5,8 @@ samples, 400 steps on cornell_box(32, 32) at depth 3, channel means to
 0.15, acceptance in (0.1, 0.9).  A file of its own so that each file runs
 in at most 25 s.
 """
+import hashlib
+
 import jax
 import numpy as np
 import pytest
@@ -24,6 +26,26 @@ from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box
 
 torch.set_num_threads(1)
 
+PCFG = PathConfig(max_depth=3, rr_depth=100)
+
+
+@pytest.fixture(scope="module")
+def box_trace():
+    """The path twin of the 32x32 box, remembering what it traced.  The
+    weights change only the splats, not the chain: from the same seed the
+    Veach and Kelemen renders trace the same vectors, so the second takes
+    the first's results (the same tensors) instead of tracing again."""
+    trace = make_path_trace(cornell_box(32, 32), PCFG, "cpu")
+    seen = {}
+
+    def remembered(u):
+        key = (tuple(u.shape), hashlib.blake2b(
+            u.contiguous().numpy().tobytes(), digest_size=16).digest())
+        if key not in seen:
+            seen[key] = trace(u)
+        return seen[key]
+    return remembered
+
 
 @pytest.fixture(scope="module")
 def mc_reference():
@@ -37,15 +59,14 @@ def mc_reference():
 
 
 @pytest.mark.parametrize("kelemen", [False, True], ids=["veach", "kelemen"])
-def test_render_pssmlt_matches_mc(mc_reference, kelemen):
+def test_render_pssmlt_matches_mc(mc_reference, box_trace, kelemen):
     """render_pssmlt over the path technique's twin: 512 chains, 8192
     bootstrap samples, 400 steps, as tests/test_mcmc.py:108-128."""
-    pcfg = PathConfig(max_depth=3, rr_depth=100)
-    trace = make_path_trace(cornell_box(32, 32), pcfg, "cpu")
     cfg = PSSMLTConfig(n_chains=512, n_bootstrap=8192,
                        kelemen_style_weights=kelemen)
-    img, aux = render_pssmlt(trace, cfg, film.make_film_config(32, 32, "box"),
-                             torch.Generator().manual_seed(1), pcfg.n_dims,
+    img, aux = render_pssmlt(box_trace, cfg,
+                             film.make_film_config(32, 32, "box"),
+                             torch.Generator().manual_seed(1), PCFG.n_dims,
                              n_steps=400)
     img = img.numpy()
     assert np.all(np.isfinite(img)) and aux["steps"] == 400
