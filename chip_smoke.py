@@ -75,8 +75,9 @@ non-zero):
      rays: brute mode (bumpy sphere, 4,000 triangles) and BVH mode (bumpy
      sphere at 20,000 and 65,826, cornell_large.xml): t bit-equal, id and
      any-hit equal on every ray, and in BVH mode the walk equal to the
-     brute kernel; times, MRays/s, bounds; then raybench (the kernel's
-     entry point) at 20,000 and 4,000 triangles with the counters reset;
+     brute kernel; times, MRays/s, bounds (the brute mode's in both
+     closest and any-hit mode); then raybench (the kernel's entry point)
+     at 20,000 and 4,000 triangles with the counters reset;
  16. every trace kernel on cornell_large.xml (19,586 triangles, the walk)
      vs its twin: the path kernel (65,536 lanes, depth 8), the MMLT kernel
      at depths 1-6 and both adjoints (65,536 lanes, the twins on the
@@ -281,13 +282,18 @@ def device_ms(fn, runs):
     return sum(t for t, _ in per.values()) / runs, busy
 
 
-def bound(n_bytes, tri_tests, node_tests=0):
+def bound(n_bytes, tri_tests, node_tests=0, past_b1=None):
     """(least ms for the work on the card, which side binds it): the bytes
     each input read once and each output written once over the HBM rate,
     against the ray-triangle and ray-box tests the run's data needed times
-    their FP32 operations over the FP32 peak."""
+    their FP32 operations over the FP32 peak.  past_b1 (the brute sweep,
+    which ends a test at b1 unless 0 <= b1 <= 1): the tests count up to b1
+    and only past_b1 of them in full."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = (tri_tests * MT.FLOP_PER_TRI_TEST
+    tri_ops = (tri_tests * MT.FLOP_PER_TRI_TEST if past_b1 is None else
+               tri_tests * IX.FLOP_TRI_TO_B1
+               + past_b1 * (MT.FLOP_PER_TRI_TEST - IX.FLOP_TRI_TO_B1))
+    t_ops = (tri_ops
              + node_tests * MT.FLOP_PER_NODE_TEST) / PEAK_FP32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -822,13 +828,13 @@ def box_rays(n, gen, dev):
     return o, d / d.norm(dim=1, keepdim=True)
 
 
-def ray_bytes(tables, n):
+def ray_bytes(tables, n, out_bytes=8):
     """Bytes the intersection kernel must move: o, d, tmax read, t and id
-    written, and the tables read once."""
+    written (any hit: one byte), and the tables read once."""
     nd = tables.nodes
     tab = nbytes(tables.tri) + (0 if nd is None else
                                 nbytes(nd.node, nd.rec))
-    return n * (28 + 8) + tab
+    return n * (28 + out_bytes) + tab
 
 
 def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
@@ -857,7 +863,8 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
         work = {}
         (rt, ri), plain_s = sync_time(lambda: IX.closest_reference(
             tables, o, d, work=work))
-        ra = IX.any_reference(tables, o, d, tmax)
+        awork = {}
+        ra = IX.any_reference(tables, o, d, tmax, work=awork)
         t_eq = float((t.view(torch.int32) == rt.view(torch.int32))
                      .double().mean())
         i_eq = float((i == ri).double().mean())
@@ -868,9 +875,19 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
                    hit_share=float((i >= 0).double().mean()))
         ms = event_ms(lambda: IX.closest(tables, o, d), runs=10)
         bnd = bound(ray_bytes(tables, RAYS), work.get("tri_tests", 0),
-                    work.get("node_tests", 0))
+                    work.get("node_tests", 0), work.get("tri_past_b1"))
         row.update(ms=ms, mrays_per_s=RAYS / ms / 1e3, plain_ms=plain_s * 1e3,
                    bound_ms=bnd[0], bound_by=bnd[1], **work)
+        if mode == "brute":
+            # the brute mode's any-hit sweep, timed and bounded apart
+            ms_a = event_ms(lambda: IX.any_hit(tables, o, d, tmax), runs=10)
+            bnd_a = bound(ray_bytes(tables, RAYS, 1), awork["tri_tests"],
+                          past_b1=awork["tri_past_b1"])
+            row["any"] = dict(ms=ms_a, mrays_per_s=RAYS / ms_a / 1e3,
+                              bound_ms=bnd_a[0], bound_by=bnd_a[1],
+                              tri_tests=awork["tri_tests"],
+                              tri_past_b1=awork["tri_past_b1"],
+                              blocked_share=float(hit.double().mean()))
         if mode == "bvh":
             brute = IX.make_ray_tables(sc, dev, walk=False)
             bt, bi = IX.closest(brute, o, d)
@@ -891,7 +908,12 @@ def slice4(name, dev, gen, fc, report, b_path, b_mmlt):
               f"({work.get('node_tests', 0)} box tests, "
               f"{work.get('tri_tests', 0)} triangle tests)"
               + (f"; the walk equals the brute kernel "
-                 f"({row['brute_ms']:.2f} ms)" if mode == "bvh" else ""))
+                 f"({row['brute_ms']:.2f} ms)" if mode == "bvh" else
+                 f"; any hit {row['any']['ms']:.3f} ms "
+                 f"({row['any']['mrays_per_s']:.1f} MRays/s), bound "
+                 f"{row['any']['bound_ms']:.4f} ms by "
+                 f"{row['any']['bound_by']} "
+                 f"({row['any']['tri_tests']} triangle tests)"))
         need(t_eq == 1.0 and i_eq == 1.0 and a_eq == 1.0,
              f"{cname}: intersection kernel differs from its plain version")
     # raybench, the entry point of the intersection kernel, in both modes
@@ -2143,7 +2165,8 @@ def main():
               "splat_add_kernel",
               "path_trace_rad_kernelILb0E", "path_trace_rad_kernelILb1E",
               "path_trace_alb_kernelILb0E", "path_trace_alb_kernelILb1E",
-              "intersect_kernel"):
+              "intersect_kernel", "brute_sweep_kernelILb0E",
+              "brute_sweep_kernelILb1E"):
         need(any(k in n for n in regs), f"ptxas reported no {k}")
     print(f"[2 build] {name}: nvcc {build.build_info['seconds']:.1f} s "
           f"(cached={build.build_info['cached']}); " + "; ".join(

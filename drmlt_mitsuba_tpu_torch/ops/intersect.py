@@ -47,9 +47,14 @@ RAY_CHUNK = 65536          # and rays: (RAY_CHUNK, TRI_CHUNK) temporaries
 # b1 + b2 sum) is 46 FP32 operations; a ray-box test (two slab products
 # of three subtractions and three multiplies each, three min, three max,
 # three max for the entry, two min for the exit, the robust factor, the
-# cap and the compare) is 26.
+# cap and the compare) is 26.  The brute kernel ends a test after b1 where
+# no ray of a warp can still hit the triangle: the test up to b1 (a cross,
+# two dots, the reciprocal, the origin shift and the b1 product) is
+# FLOP_TRI_TO_B1 of the 46, and only a ray with 0 <= b1 <= 1 needs the
+# rest (the twins count those pairs as "tri_past_b1").
 FLOP_PER_TRI_TEST = 46
 FLOP_PER_NODE_TEST = 26
+FLOP_TRI_TO_B1 = 24
 
 # csrc/bvh.cuh: a slab exit is widened by 1 + 2 gamma(3) (Ize, "Robust BVH
 # ray traversal"), and a direction component below 1e-12 in magnitude is
@@ -125,10 +130,12 @@ def _components(a):
     return [c.contiguous() for c in a.unbind(-1)]
 
 
-def moller_trumbore(v0, e1, e2, o, d):
+def moller_trumbore(v0, e1, e2, o, d, near=False):
     """Hit distance and hit mask (tt > RAY_EPS) of rays (o, d) against
     triangles (v0, e1, e2), broadcast over the leading axes, in the
-    kernels' evaluation order (csrc/path_trace.cuh:tri_hit)."""
+    kernels' evaluation order (csrc/path_trace.cuh:tri_hit); near=True
+    adds the mask of the pairs whose b1 lies in [0, 1], those the brute
+    kernel tests past b1."""
     # written per component, each made contiguous, so that rays (R, 1, 3)
     # against triangles (1, K, 3) broadcast without stacking (R, K, 3)
     # temporaries; the same products and sums in the same order as cross
@@ -149,6 +156,8 @@ def moller_trumbore(v0, e1, e2, o, d):
     tt = (e2x * qx + e2y * qy + e2z * qz) * inv
     hit = (ok & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
            & (tt > RAY_EPS))
+    if near:
+        return tt, hit, ok & (b1 >= 0.0) & (b1 <= 1.0)
     return tt, hit
 
 
@@ -157,10 +166,10 @@ def _add(work, key, n):
         work[key] = work.get(key, 0) + int(n)
 
 
-def _chunk_tests(tri, o, d, start):
+def _chunk_tests(tri, o, d, start, near):
     rows = tri[None, start:start + TRI_CHUNK]
     return moller_trumbore(rows[..., 0:3], rows[..., 3:6], rows[..., 6:9],
-                           o[:, None, :], d[:, None, :])
+                           o[:, None, :], d[:, None, :], near)
 
 
 @torch.no_grad()
@@ -171,11 +180,15 @@ def sweep_closest(tri, o, d, work=None):
     R, T = o.shape[0], tri.shape[0]
     best_t = torch.full((R,), INF, device=o.device)
     best = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    past = 0
     for r0 in range(0, R, RAY_CHUNK):
         rs = slice(r0, r0 + RAY_CHUNK)
         bt, bi = best_t[rs], best[rs]
         for start in range(0, T, TRI_CHUNK):
-            tt, hit = _chunk_tests(tri, o[rs], d[rs], start)
+            tt, hit, *near = _chunk_tests(tri, o[rs], d[rs], start,
+                                          work is not None)
+            if near:
+                past += near[0].sum()
             t_m = torch.where(hit, tt, INF)
             m = t_m.min(1).values
             j = (hit & (t_m == m[:, None])).to(torch.int8).argmax(1)
@@ -184,6 +197,7 @@ def sweep_closest(tri, o, d, work=None):
             bt = torch.where(better, m, bt)
         best_t[rs], best[rs] = bt, bi
     _add(work, "tri_tests", R * T)
+    _add(work, "tri_past_b1", past)
     return best_t, best
 
 
@@ -194,17 +208,23 @@ def sweep_any(tri, o, d, tmax, work=None):
     R, T = o.shape[0], tri.shape[0]
     blocked = torch.zeros(R, dtype=torch.bool, device=o.device)
     tests = torch.full((R,), T, dtype=torch.int64, device=o.device)
+    past = 0
     for r0 in range(0, R, RAY_CHUNK):
         rs = slice(r0, r0 + RAY_CHUNK)
         bl, ts = blocked[rs], tests[rs]
         for start in range(0, T, TRI_CHUNK):
-            tt, hit = _chunk_tests(tri, o[rs], d[rs], start)
+            tt, hit, *near = _chunk_tests(tri, o[rs], d[rs], start,
+                                          work is not None)
             occ = hit & (tt < tmax[rs][:, None])
             first = start + occ.to(torch.int8).argmax(1) + 1
             ts = torch.where(~bl & occ.any(1), first, ts)
+            if near:   # the pairs up to each ray's occluder
+                k = start + torch.arange(hit.shape[1], device=o.device)
+                past += (near[0] & ~bl[:, None] & (k < ts[:, None])).sum()
             bl = bl | occ.any(1)
         blocked[rs], tests[rs] = bl, ts
     _add(work, "tri_tests", tests.sum())
+    _add(work, "tri_past_b1", past)
     return blocked
 
 

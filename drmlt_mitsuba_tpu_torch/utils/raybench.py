@@ -63,6 +63,31 @@ def rays(n: int, device, seed: int = 0):
     return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
 
+def edge_case(n_tris: int, n_rays: int, device, seed: int = 0):
+    """(RayTables without a BVH, o, d, tmax): random triangles and rays
+    that meet the brute sweep's edge cases.  Every 5th triangle lies in a
+    plane z = const and every 6th ray is parallel to such planes (dz = 0,
+    so det is exactly 0); every 7th triangle repeats the one before it (a
+    tie in t, which the lower id wins); tmax is uniform in [0, 4], which
+    cuts many hits, or INF on every 4th ray."""
+    rng = np.random.default_rng(seed)
+    tri = np.zeros((n_tris, 20), np.float32)
+    tri[:, 0:3] = rng.uniform(-1, 1, (n_tris, 3))
+    tri[:, 3:9] = rng.uniform(-0.5, 0.5, (n_tris, 6))
+    tri[::5, [5, 8]] = 0.0
+    tri[7::7] = tri[6:-1:7]
+    o = rng.uniform(-2, 2, (n_rays, 3)).astype(np.float32)
+    d = rng.uniform(-1, 1, (n_rays, 3)) - o
+    d[::6, 2] = 0.0
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = rng.uniform(0, 4, n_rays).astype(np.float32)
+    tmax[::4] = ix.INF
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+    return ix.RayTables(tri=dev(tri), nodes=None), dev(o), dev(d), dev(tmax)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="drmlt-torch-raybench")
     ap.add_argument("--tris", type=int, default=20000)

@@ -4,6 +4,7 @@ the MMLT kernel, the chain kernel) and the BVH walk against other builds
 of them, in turns, in one process on one GPU.
 
     python3 scripts/chain_kernel_ab.py --other parent=DIR [--other NAME=DIR]
+        [--set NAME=CONST:VALUE[,CONST:VALUE]] [--brute-only]
         [--scene cornell const large] [--type orbital green mira]
         [--mode drmlt pssmlt] [--rounds 3] [--diagnose]
 
@@ -20,7 +21,11 @@ arguments (ops/build.py), or a build from before the node records (its
 path_trace.cu takes `const int* link`) the node table as (box, link,
 order, N) and no compact flag: `Legacy` passes it the same BVH in that
 layout.  Each is compiled by ops/build.py, as the checkout's kernels
-are, into a library of its own under build/torch_kernels/.
+are, into a library of its own under build/torch_kernels/.  --set makes
+such a copy itself, under build/ab/NAME: the checkout's sources with each
+`constexpr int CONST = ...;` set to VALUE (for example
+`rpt1=kBruteRPT:1` or `block256=kBruteBlock:256`, the intersection
+kernel's brute mode).
 
 The path kernel (65,536 lanes, rr_depth 100) on cornell_box(256, 256) at
 depths 8, 6 and 4, the veach door, cornell_scope(256, 256, "const") and
@@ -28,11 +33,26 @@ tests/data/cornell.xml (the full scope) and cornell_large.xml (19,586
 triangles, the walk), each build and the checkout's one-path-per-thread
 launch (`lane`): bit for bit the checkout's, ms per launch in turns;
 the adjoint kernels (depth 6, rr 5) on the box and cornell_large.xml; the
-intersection kernel on 1,048,576 rays against raybench's 20,000-triangle
-sphere (the BVH mode, MRays/s), cornell_large.xml and the box (brute).
+intersection kernel's BVH mode on 1,048,576 rays against raybench's
+20,000-triangle sphere (MRays/s) and cornell_large.xml.
 --diagnose: the path kernel on the box at 65,536, 131,072 and 262,144
 lanes, depths 8 and 2, and each build's SASS of its path kernels
 (cuobjdump) in chiprun_out/chain_kernel_ab_sass_NAME.txt.
+
+The intersection kernel's brute mode (every run; --brute-only: nothing
+else): each build's t, id and any hit bit for bit the checkout's and the
+plain sweep's on raybench.edge_case at R in BRUTE_EDGE_R and T in
+BRUTE_EDGE_T; then, on 1,048,576 rays, closest and any hit timed in
+turns on raybench's 3,784-triangle sphere (`--tris 4000`), the
+36-triangle box (rays from inside it, and camera rays through its open
+side) and raybench's 19,800-triangle sphere without its BVH.
+--diagnose adds the 3,784-triangle sphere at 262,144 / 1,048,576 /
+4,194,304 rays and its first 36 / 512 triangles at 1,048,576 rays, in
+both modes, and each build's SASS instructions per triangle test: every
+innermost loop of the intersection kernels with a MUFU.RCP (one per
+test), split into FP32, loads, integer and control.  nvidia-smi's SM
+clock and power draw are sampled through the run and summarised over the
+samples where the card was busy.
 
 On cornell_box(256, 256) (`cornell`, the instantiation of slices 1-4),
 cornell_scope(256, 256, "const") (`const`, the full scene scope) and
@@ -65,6 +85,9 @@ import ctypes
 import dataclasses
 import json
 import os
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -106,6 +129,11 @@ PATH_RUNS = 20
 RAYS = 1 << 20
 SHARE_CHAINS = 4096   # the twin's stage-2 share: chains x 2 mutations
 DATA = ROOT / "tests" / "data"
+# the brute mode's edge cases: rays that leave a block, a thread's rays or
+# a warp part-filled; triangles below, at and one past a staged tile
+# (kBruteTile = 256), up to BVH_MIN_TRIS - 1
+BRUTE_EDGE_R = (1, 33, 1000, 65537)
+BRUTE_EDGE_T = (1, 36, 257, 3784, 4095)
 
 
 def load_other(src: Path):
@@ -122,6 +150,27 @@ def load_other(src: Path):
         getattr(lib, fn).restype = ctypes.c_int
     return (out, Legacy(lib) if legacy else lib,
             out.with_suffix(".ptxas.txt").read_text())
+
+
+def set_constants(name, spec):
+    """A copy of the checkout's csrc/ under build/ab/NAME with each
+    `constexpr int CONST = ...;` of spec ("CONST:VALUE,...") changed."""
+    out = ROOT / "build" / "ab" / name
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(build.CSRC, out)
+    for item in spec.split(","):
+        key, val = item.split(":")
+        hits = 0
+        for f in out.iterdir():
+            text = f.read_text()
+            new, n = re.subn(rf"constexpr int {key} = [^;]+;",
+                             f"constexpr int {key} = {val};", text)
+            if n:
+                f.write_text(new)
+                hits += n
+        if hits != 1:
+            raise SystemExit(f"--set {name}: {key} defined {hits} times")
+    return out
 
 
 # the node tables made in this process, by the address of their node
@@ -332,7 +381,7 @@ def path_cases(libs, rounds, dev, g, report):
             case = f"{sname}/path_trace_{mode}/d6"
             report["cases"][case] = compare(
                 libs, rounds, lambda: (fn(tb, uT),), PATH_RUNS, case)
-    for sname in ("sphere-20000", "large", "cornell"):
+    for sname in ("sphere-20000", "large"):
         if sname == "sphere-20000":
             scene = raybench.bumpy_sphere(20000)
             o, d = raybench.rays(RAYS, dev)
@@ -343,15 +392,183 @@ def path_cases(libs, rounds, dev, g, report):
             d = d / d.norm(dim=1, keepdim=True)
         tb = IX.make_ray_tables(scene, dev)
         tmax = torch.rand(RAYS, device=dev, generator=g) * 600.0
-        mode = "bvh" if tb.nodes is not None else "brute"
-        case = f"{sname}/intersect/{mode} (timed: closest)"
+        case = f"{sname}/intersect/bvh (timed: closest)"
         row = compare(libs, rounds, lambda: (*IX.closest(tb, o, d),
                                              IX.any_hit(tb, o, d, tmax)),
-                      PATH_RUNS if mode == "bvh" else 2, case,
-                      lambda: IX.closest(tb, o, d))
+                      PATH_RUNS, case, lambda: IX.closest(tb, o, d))
         row["mrays_per_s"] = {n: RAYS / (sum(v) / len(v)) / 1e3 for n, v in
                               row["ms_per_launch"].items()}
         report["cases"][case] = row
+
+
+def brute_rays(sname, n, dev, g):
+    """(tables without a BVH, o, d, tmax) of a brute-mode case: raybench's
+    sphere (`sphere-N`: its --tris N) and rays, the box's 36 triangles
+    and rays from inside it (`cornell`), or camera rays: from the box's
+    eye through a square grid of n points over its open side, row by row,
+    so a warp's rays are neighbours (`cornell-camera`)."""
+    if sname == "cornell-camera":
+        side = int(n ** 0.5)
+        y, x = torch.meshgrid(torch.linspace(0.0, 548.0, side, device=dev),
+                              torch.linspace(0.0, 556.0, side, device=dev),
+                              indexing="ij")
+        eye = torch.tensor([278.0, 273.0, -800.0], device=dev)
+        d = torch.stack([x, y, torch.zeros_like(x)], -1).reshape(-1, 3) - eye
+        d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+        o = eye.expand_as(d).contiguous()
+        tmax = torch.rand(d.shape[0], device=dev, generator=g) * 1400.0
+        return (IX.make_ray_tables(scene_of("cornell"), dev, walk=False),
+                o, d, tmax)
+    if sname == "cornell":
+        scene = scene_of("cornell")
+        o = torch.rand((n, 3), device=dev, generator=g) * 554.0 + 1.0
+        d = torch.randn((n, 3), device=dev, generator=g)
+        d = d / d.norm(dim=1, keepdim=True)
+        tmax = torch.rand(n, device=dev, generator=g) * 600.0
+    else:
+        scene = raybench.bumpy_sphere(int(sname.split("-")[1]))
+        o, d = raybench.rays(n, dev)
+        tmax = torch.rand(n, device=dev, generator=g) * 6.0
+    return IX.make_ray_tables(scene, dev, walk=False), o, d, tmax
+
+
+def brute_timed(libs, rounds, case, tb, o, d, tmax, runs):
+    """Closest and any hit of every build: equal to the checkout's, ms per
+    launch in turns, MRays/s."""
+    rows = {}
+    for mode, fn in (("closest", lambda: IX.closest(tb, o, d)),
+                     ("any", lambda: (IX.any_hit(tb, o, d, tmax),))):
+        row = compare(libs, rounds, fn, runs,
+                      f"{case}/{mode} ({tb.tri.shape[0]} triangles, "
+                      f"{o.shape[0]} rays)")
+        row["mrays_per_s"] = {n: o.shape[0] / (sum(v) / len(v)) / 1e3
+                              for n, v in row["ms_per_launch"].items()}
+        rows[mode] = row
+    return rows
+
+
+def brute_cases(libs, rounds, dev, g, report):
+    """The brute mode: the edge cases bit for bit, then the timed cases."""
+    ok = {n: True for n in libs}
+    twin_ok = True
+    for T in BRUTE_EDGE_T:
+        for R in BRUTE_EDGE_R:
+            tb, o, d, tmax = raybench.edge_case(T, R, dev, seed=T + R)
+            outs = {}
+            for name, lib in libs.items():
+                with using(lib):
+                    outs[name] = (*IX.closest(tb, o, d, tmax),
+                                  IX.any_hit(tb, o, d, tmax))
+            twin = (*IX.closest_reference(tb, o, d, tmax),
+                    IX.any_reference(tb, o, d, tmax))
+            for name, out in outs.items():
+                ok[name] &= all(same(a, b) for a, b in
+                                zip(out, outs["checkout"]))
+            twin_ok &= all(same(a, b) for a, b in zip(outs["checkout"], twin))
+    report["cases"]["brute/edges"] = dict(equal_to_checkout=ok,
+                                          checkout_equal_to_twin=twin_ok,
+                                          ms_per_launch={})
+    print(f"brute/edges (R in {BRUTE_EDGE_R}, T in {BRUTE_EDGE_T}, both "
+          f"modes): equal to the checkout's {ok}; the checkout equal to the "
+          f"plain sweep {twin_ok}", flush=True)
+    for sname, runs in (("sphere-4000", 10), ("cornell", PATH_RUNS),
+                        ("cornell-camera", PATH_RUNS), ("sphere-20000", 2)):
+        tb, o, d, tmax = brute_rays(sname, RAYS, dev, g)
+        for mode, row in brute_timed(libs, rounds, f"{sname}/brute", tb, o,
+                                     d, tmax, runs).items():
+            report["cases"][f"{sname}/brute/{mode}"] = row
+
+
+def brute_diagnose(libs, dev, g, report):
+    """The brute mode's scaling in rays and triangles (raybench's sphere,
+    its first T triangles; each build once in turns, both modes)."""
+    for T, R in ((3784, RAYS // 4), (3784, RAYS), (3784, 4 * RAYS),
+                 (36, RAYS), (512, RAYS)):
+        tb, o, d, tmax = brute_rays("sphere-4000", R, dev, g)
+        tb = IX.RayTables(tri=tb.tri[:T].contiguous(), nodes=None)
+        case = f"diagnose/sphere-4000/brute/T{T}/R{R}"
+        for mode, row in brute_timed(libs, 1, case, tb, o, d, tmax,
+                                     3).items():
+            report["cases"][f"{case}/{mode}"] = row
+
+
+SASS_CLASSES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK",
+             "MUFU", "FSET"),
+    "loads": ("LDG", "LDS", "LDL", "LD", "LDC"),
+    # integer arithmetic and moves (HFMA2.MMA -RZ, RZ, ... is a move)
+    "integer": ("IADD3", "IMAD", "ISETP", "LEA", "LOP3", "SHF", "SEL",
+                "HFMA2", "IMNMX", "IABS", "MOV", "PRMT", "S2R", "CS2R", "I2F",
+                "F2I", "SHL", "SHR", "IADD", "UIADD3", "UMOV", "ULDC", "ULEA",
+                "UISETP", "USHF", "ULOP3", "UIMAD", "USEL", "R2UR", "P2R",
+                "R2P"),
+    "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BAR", "VOTE",
+                "VOTEU", "WARPSYNC", "NOP", "PLOP3", "YIELD", "BREAK", "BPT"),
+}
+
+
+def sass_loops(sass):
+    """{function: [loop, ...]} of a cuobjdump -sass listing: every innermost
+    loop (a backward branch's span holding no other) with a MUFU.RCP, its
+    instructions and MUFU.RCPs (tests) and, per test, its instructions by
+    SASS_CLASSES (the rest under "other")."""
+    out = {}
+    fn, ins, labels, pending = None, [], {}, []
+
+    def flush():
+        if fn is None:
+            return
+        spans = []
+        for addr, op, args in ins:
+            if op != "BRA":
+                continue
+            m = re.search(r"\.L_x_\d+|0x[0-9a-f]+", args)
+            if not m:
+                continue
+            tgt = (labels.get(m.group(0)) if m.group(0).startswith(".L")
+                   else int(m.group(0), 16))
+            if tgt is not None and tgt <= addr:
+                spans.append((tgt, addr))
+        spans = [s for s in spans if not any(
+            o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+        rows = []
+        for lo, hi in sorted(set(spans)):
+            body = [op for a, op, _ in ins if lo <= a <= hi]
+            tests = sum(op == "MUFU" and ".RCP" in args
+                        for a, op, args in ins if lo <= a <= hi)
+            if not tests:
+                continue
+            cls = {c: 0 for c in (*SASS_CLASSES, "other")}
+            for op in body:
+                cls[next((c for c, ops in SASS_CLASSES.items() if op in ops),
+                         "other")] += 1
+            rows.append(dict(start=hex(lo), end=hex(hi),
+                             instructions=len(body), tests=tests,
+                             per_test=len(body) / tests,
+                             **{c: v / tests for c, v in cls.items()}))
+        if rows:
+            out[fn] = rows
+
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            flush()
+            fn, ins, labels, pending = m.group(1), [], {}, []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);", line)
+        if m and fn is not None:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            ins.append((addr, m.group(2), m.group(3) + " " + m.group(4)))
+    flush()
+    return out
 
 
 def diagnose(libs, dev, g, report):
@@ -411,9 +628,15 @@ def main():
     ap.add_argument("--scene", nargs="+",
                     choices=("cornell", "const", "large"),
                     default=["cornell"])
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="NAME=CONST:VALUE[,CONST:VALUE]",
+                    help="the checkout's csrc/ with constants changed")
+    ap.add_argument("--brute-only", action="store_true",
+                    help="only the intersection kernel's brute mode")
     ap.add_argument("--diagnose", action="store_true",
                     help="the path kernel at 1, 2 and 4 x 65,536 lanes, "
-                         "depths 8 and 2, and its SASS")
+                         "depths 8 and 2, the brute mode's scaling, and "
+                         "their SASS")
     ap.add_argument("--type", nargs="+", choices=("orbital", "green", "mira"),
                     default=["orbital"])
     ap.add_argument("--mode", nargs="+", choices=("drmlt", "pssmlt"),
@@ -429,11 +652,55 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     report = dict(device=smi, cases={})
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    clocks = ROOT / "chiprun_out" / "chain_kernel_ab_clocks.csv"
+    with open(clocks, "w") as f:
+        sampler = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "500"], stdout=f)
+    try:
+        run(args, dev, report)
+    finally:
+        sampler.terminate()
+        sampler.wait(timeout=60)
+    # the samples of a busy card: a kernel ran through >= 90% of the period
+    sm, watts = [], []
+    for line in clocks.read_text().splitlines():
+        try:
+            a, b, busy = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        if busy >= 90:
+            sm.append(a)
+            watts.append(b)
+    if sm:
+        report["clocks_busy"] = dict(
+            sm_mhz_min=min(sm), sm_mhz_median=statistics.median(sm),
+            sm_mhz_max=max(sm), power_w_max=max(watts), samples=len(sm))
+        print(f"nvidia-smi while the card was busy: "
+              f"{report['clocks_busy']}", flush=True)
+    report["seconds"] = time.perf_counter() - t0
 
+    with open(ROOT / "chiprun_out" / "chain_kernel_ab.json", "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({
+        "equal_to_checkout": {c: r["equal_to_checkout"]
+                              for c, r in report["cases"].items()},
+        "ms_mean": {c: {n: sum(v) / len(v) for n, v in
+                        r["ms_per_launch"].items() if v}
+                    for c, r in report["cases"].items()},
+        "clocks_busy": report.get("clocks_busy"),
+        "seconds": report["seconds"]}))
+    return 0
+
+
+def run(args, dev, report):
+    """Every build, then the cases the arguments ask for, into report."""
     libs = {"checkout": build.load()}
     report["ptxas"] = {"checkout": ptxas_report(build.build_info["ptxas"])}
     others = [s.split("=", 1) for s in args.other]
-    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    others += [(name, set_constants(name, spec)) for name, spec in
+               (s.split("=", 1) for s in args.set)]
     texts = {"checkout": build.build_info["ptxas"]}
     paths = {"checkout": build.build_info["path"]}
     for name, d in others:
@@ -452,16 +719,35 @@ def main():
                 [str(Path(build._nvcc()).with_name("cuobjdump")), "-sass",
                  str(path)], capture_output=True, text=True).stdout
             keep, out = False, []
+            wanted = ("intersect_kernel", "brute_sweep_kernel")
+            if not args.brute_only:
+                wanted += ("path_trace_kernel", "path_lane_kernel",
+                           "trace_path", "bvh_")
             for line in sass.splitlines():
                 if "Function :" in line:
-                    keep = any(f in line for f in (
-                        "path_trace_kernel", "path_lane_kernel",
-                        "trace_path", "bvh_"))
+                    keep = any(f in line for f in wanted)
                 if keep:
                     out.append(line)
             (ROOT / "chiprun_out" / f"chain_kernel_ab_sass_{name}.txt"
              ).write_text("\n".join(out))
-        diagnose(libs, dev, g, report)
+            loops = {f: v for f, v in sass_loops("\n".join(out)).items()
+                     if "intersect_kernel" in f or "brute_sweep" in f}
+            report.setdefault("sass_per_test", {})[name] = loops
+            for f, rows in loops.items():
+                for r in rows:
+                    print(f"SASS {name}: {f} loop {r['start']}-{r['end']}: "
+                          f"{r['instructions']} instructions, {r['tests']} "
+                          f"tests, {r['per_test']:.2f} a test (fp32 "
+                          f"{r['fp32']:.2f}, loads {r['loads']:.2f}, "
+                          f"integer {r['integer']:.2f}, control "
+                          f"{r['control']:.2f}, other {r['other']:.2f})",
+                          flush=True)
+        if not args.brute_only:
+            diagnose(libs, dev, g, report)
+        brute_diagnose(libs, dev, g, report)
+    brute_cases(libs, args.rounds, dev, g, report)
+    if args.brute_only:
+        return
     path_cases(libs, args.rounds, dev, g, report)
     for scene_name in args.scene:
         scene = scene_of(scene_name)
@@ -529,18 +815,6 @@ def main():
                              f"{row['no_stage2_stats']}" if pss else "")
                           + f"; ms per {N_MUT} mutations x {CHAINS} chains: "
                           + fmt_ms(row["ms_per_launch"]), flush=True)
-    report["seconds"] = time.perf_counter() - t0
-
-    with open(ROOT / "chiprun_out" / "chain_kernel_ab.json", "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps({
-        "equal_to_checkout": {c: r["equal_to_checkout"]
-                              for c, r in report["cases"].items()},
-        "ms_mean": {c: {n: sum(v) / len(v) for n, v in
-                        r["ms_per_launch"].items() if v}
-                    for c, r in report["cases"].items()},
-        "seconds": report["seconds"]}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -20,17 +20,17 @@ import torch
 from drmlt_mitsuba_tpu.ops import intersect as jax_ix
 from drmlt_mitsuba_tpu.scene.builders import cornell_box as jax_cornell
 from drmlt_mitsuba_tpu.scene.bvh import build_bvh_native, validate_bvh
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml as jax_load_xml
 from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.ops import intersect as ix
 from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box
 from drmlt_mitsuba_tpu_torch.scene.bvh import build_bvh, pack_nodes
 from drmlt_mitsuba_tpu_torch.scene.convert import scene_from_arrays
 from drmlt_mitsuba_tpu_torch.scene.types import BVH, prepare_scene
-from drmlt_mitsuba_tpu_torch.scene.xml import load_scene_xml
-from drmlt_mitsuba_tpu_torch.utils.raybench import bumpy_sphere, rays
+from drmlt_mitsuba_tpu_torch.utils.raybench import (
+    bumpy_sphere, edge_case, rays,
+)
 from test_torch_scene import _subset, jax_leaves
-from test_torch_xml import LARGE
+from test_torch_xml import large_scenes
 
 torch.set_num_threads(1)
 
@@ -106,6 +106,42 @@ def test_bvh_matches_reference_builder(tmp_path):
     for c in range(3):
         assert torch.equal(rec[:, 4 * c:4 * c + 3], rows[:, 3 * c:3 * c + 3])
     assert not rec[:, [7, 11]].any()
+
+
+def test_edge_case_meets_the_sweeps_edge_cases():
+    """raybench.edge_case, which the GPU tests and the A/B script hold the
+    brute kernel on: through the plain sweep, some rays tie on a
+    duplicated triangle (the lower id wins), rays parallel to the z-planar
+    triangles never hit them (det = 0), and tmax cuts some hits."""
+    tables, o, d, tmax = edge_case(40, 3000, "cpu", seed=1)
+    tri = tables.tri
+    t, i = ix.closest_reference(tables, o, d)
+    tc, ic = ix.closest_reference(tables, o, d, tmax)
+    hit = i >= 0
+    dup = torch.zeros(40, dtype=torch.bool)
+    dup[1:] = (tri[1:, :9] == tri[:-1, :9]).all(1)
+    assert dup.sum() == 5 and not dup[i[hit].long()].any()
+    assert dup[(i[hit] + 1).clamp(max=39).long()].any()     # ties happened
+    planar = (tri[:, 5] == 0) & (tri[:, 8] == 0)
+    flat = d[:, 2] == 0
+    assert flat.sum() == 500 and (flat & hit).any()
+    assert not planar[i[flat & hit].long()].any()
+    assert ((ic < 0) & hit).any() and torch.equal(ic >= 0, hit & (t < tmax))
+    assert torch.equal(ix.any_reference(tables, o, d, tmax), ic >= 0)
+    # the pairs the brute kernel tests past b1, as the twins count them
+    # (any hit: up to each ray's first occluder in index order)
+    tt, h, near = ix.moller_trumbore(tri[None, :, 0:3], tri[None, :, 3:6],
+                                     tri[None, :, 6:9], o[:, None],
+                                     d[:, None], near=True)
+    occ = h & (tt < tmax[:, None])
+    stop = torch.where(occ.any(1), occ.to(torch.int8).argmax(1) + 1, 40)
+    wc, wa = {}, {}
+    ix.sweep_closest(tri, o, d, wc)
+    ix.sweep_any(tri, o, d, tmax, wa)
+    assert wc == {"tri_tests": 3000 * 40, "tri_past_b1": int(near.sum())}
+    assert wa == {"tri_tests": int(stop.sum()), "tri_past_b1": int(
+        (near & (torch.arange(40) < stop[:, None])).sum())}
+    assert 0 < wa["tri_past_b1"] < wc["tri_past_b1"]
 
 
 def _cornell_rays(n, seed):
@@ -221,8 +257,8 @@ def test_hits_equal_reference_on_large_scene():
     bit for bit, and makes the box and triangle tests the walk over the
     separate box / link / order tables made before them (counted on these
     rays), so the kernels' bounds do not move."""
-    scene = prepare_scene(load_scene_xml(LARGE)[0])
-    ref_scene = jax_load_xml(LARGE)[0]
+    (scene, _), (ref_scene, _) = large_scenes()
+    scene = prepare_scene(scene)
     assert scene.bvh is not None
     o, d = _cornell_rays(512, 8)
     tables = ix.make_ray_tables(scene, "cpu")

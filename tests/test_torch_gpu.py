@@ -496,17 +496,23 @@ def _large():
     return prepare_scene(cornell_box(64, 64, tessellate=12))
 
 
-@pytest.mark.parametrize("mesh", ["sphere-brute", "sphere-bvh", "cornell"])
+@pytest.mark.parametrize("mesh", ["sphere-brute", "sphere-bvh", "cornell",
+                                  "cornell_large"])
 def test_intersect_kernel_matches_twin(cuda, mesh):
     """Both modes of the intersection kernel against the plain sweep / walk
     on 65,536 rays: t bit-equal, id and any-hit equal on every ray; in BVH
     mode also the walk against the brute kernel."""
-    scene = (_large() if mesh == "cornell" else prepare_scene(
-        raybench.bumpy_sphere(3000 if mesh == "sphere-brute" else 20000)))
+    if mesh == "cornell_large":
+        scene = _compact_scene("large")
+    elif mesh == "cornell":
+        scene = _large()
+    else:
+        scene = prepare_scene(raybench.bumpy_sphere(
+            3000 if mesh == "sphere-brute" else 20000))
     tables = IX.make_ray_tables(scene, cuda)
     assert (tables.nodes is None) == (mesh == "sphere-brute")
     o, d = raybench.rays(65536, cuda, seed=3)
-    if mesh == "cornell":
+    if mesh.startswith("cornell"):
         o = o * 90.0 + 278.0
     tmax = torch.rand(65536, device=cuda,
                       generator=torch.Generator(cuda).manual_seed(4)) * 600
@@ -526,6 +532,30 @@ def test_intersect_kernel_matches_twin(cuda, mesh):
         assert torch.equal(bt.view(torch.int32), t.view(torch.int32))
         assert torch.equal(bi, i)
         assert torch.equal(IX.any_hit(brute, o, d, tmax), hit)
+
+
+@pytest.mark.parametrize("T", [1, 36, 257, 3784, 4095])
+def test_brute_sweep_matches_twin_at_edges(cuda, T):
+    """The brute mode against the plain sweep at ray counts that leave a
+    block, a thread's rays or a warp part-filled, and triangle counts
+    below, at and one past a staged tile (257 = kBruteTile + 1): t
+    bit-equal, id and any-hit equal on every ray, on raybench.edge_case's
+    rays cut by tmax, rays parallel to triangles (det = 0) and duplicated
+    triangles, whose tie the lower id wins."""
+    for R in (1, 33, 1000, 65537):
+        tables, o, d, tmax = raybench.edge_case(T, R, cuda, seed=T + R)
+        n0 = build.LAUNCHES["intersect"]
+        t, i = IX.closest(tables, o, d, tmax)
+        hit = IX.any_hit(tables, o, d, tmax)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["intersect"] == n0 + 2
+        rt, ri = IX.closest_reference(tables, o, d, tmax)
+        assert torch.equal(t.view(torch.int32), rt.view(torch.int32)), R
+        assert torch.equal(i, ri), R
+        assert torch.equal(hit, IX.any_reference(tables, o, d, tmax)), R
+        dup = torch.zeros(T, dtype=torch.bool, device=cuda)
+        dup[1:] = (tables.tri[1:, :9] == tables.tri[:-1, :9]).all(1)
+        assert not dup[i[i >= 0].long()].any(), R
 
 
 def test_walk_in_trace_kernels_matches_twins(cuda):

@@ -21,7 +21,6 @@ from drmlt_mitsuba_tpu.integrators.layout import PathConfig as JPathConfig
 from drmlt_mitsuba_tpu.integrators.mmlt import make_mmlt_trace as jax_mmlt
 from drmlt_mitsuba_tpu.integrators.path import trace_paths as jax_trace
 from drmlt_mitsuba_tpu.scene.builders import cornell_box as jax_cornell
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml as jax_load_xml
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
 from drmlt_mitsuba_tpu_torch.integrators.mmlt import (
@@ -31,22 +30,21 @@ from drmlt_mitsuba_tpu_torch.integrators.path import trace_paths
 from drmlt_mitsuba_tpu_torch.ops import megatrace as MT
 from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box
 from drmlt_mitsuba_tpu_torch.scene.types import prepare_scene
-from drmlt_mitsuba_tpu_torch.scene.xml import load_scene_xml
 from drmlt_mitsuba_tpu_torch.utils import cli
 from drmlt_mitsuba_tpu.utils.exr import read_exr
-from test_torch_xml import DATA, LARGE
+from test_torch_xml import DATA, LARGE, large_scenes
 
 torch.set_num_threads(1)
 
 
 def test_path_twin_walks_bvh_and_matches_trace_paths():
     """256 lanes at depth 3 on the XML scene (19,586 triangles)."""
-    scene = prepare_scene(load_scene_xml(LARGE)[0])
+    (scene, _), (jscene, _) = large_scenes()
+    scene = prepare_scene(scene)
     cfg = PathConfig(max_depth=3, rr_depth=100)
     tables = MT.make_tables(scene, cfg, "cpu")
     assert tables.nodes is not None          # the twin walks the BVH
     u = np.random.default_rng(11).random((256, cfg.n_dims), dtype=np.float32)
-    jscene = jax_load_xml(LARGE)[0]
     jcfg = JPathConfig(max_depth=3, rr_depth=100)
     ref = jax.jit(lambda x: jax_trace(jscene, jcfg, x))(jnp.asarray(u))
     got = trace_paths(scene, cfg, torch.from_numpy(u))

@@ -8,6 +8,7 @@ only to the 6 decimals of its OBJ text (rtol 1e-4; the reference's own
 tests/test_cli.py holds it to the same order).
 """
 import dataclasses
+import functools
 import os
 
 import jax.numpy as jnp  # noqa: F401  (both frameworks in one process)
@@ -43,9 +44,17 @@ def _assert_scenes_equal(got, want):
             assert v == w[k], k
 
 
+@functools.lru_cache(maxsize=None)
+def large_scenes():
+    """cornell_large.xml through both loaders, ((scene, settings),
+    (jscene, jsettings)), loaded once a process: test_torch_bvh.py and
+    test_torch_large_scene.py compare against the same two loads."""
+    return load_scene_xml(LARGE), jax_load_xml(LARGE)
+
+
 @pytest.fixture(scope="module")
 def large():
-    return load_scene_xml(LARGE), jax_load_xml(LARGE)
+    return large_scenes()
 
 
 def test_load_obj_equals_reference():
