@@ -61,8 +61,10 @@ non-zero):
      max_depth 6, rr_depth 5, on the Cornell box with each tall box and on
      the veach door (rgb bit-equal on >= 99.8% of lanes, Jacobian rows to
      rtol 1e-5 there, the gradient of mean(lum) through the kernels vs the
-     twins' rows), each kernel's time, and grad-paths/s as the JAX bench
-     defines it (forward + backward, 16 calls);
+     twins' rows; the compacting kernels bit for bit their one-path-per-
+     thread launches, both timed in turns on each scene), each kernel's
+     time, and grad-paths/s as the JAX bench defines it (forward +
+     backward, 16 calls);
  13. the replay gradient (path kernel forward, autograd of the twin
      backward) at rr_depth 100 against the adjoint kernels' gradients (rtol
      1e-3), grad_replay_paths_per_sec and the replay's peak memory;
@@ -313,14 +315,14 @@ def warp_bounce_row(active):
                 compacted=MT.warp_bounces(active, MT.PATH_BLOCK))
 
 
-def path_turns(tables, uT, rounds=2):
-    """ms per launch of the path kernel (compact) and of one path per
-    thread (lane), in turns lane, compact, compact, lane, `rounds` times:
-    {"compact": [...], "lane": [...]}."""
+def path_turns(tables, uT, rounds=2, fn=MT.path_trace):
+    """ms per launch of a path or adjoint kernel `fn` (compact) and of one
+    path per thread (lane), in turns lane, compact, compact, lane,
+    `rounds` times: {"compact": [...], "lane": [...]}."""
     ms = {"compact": [], "lane": []}
     for _ in range(rounds):
         for m in ("lane", "compact", "compact", "lane"):
-            ms[m].append(event_ms(lambda: MT.path_trace(
+            ms[m].append(event_ms(lambda: fn(
                 tables, uT, compact=m == "compact"), runs=10))
     return ms
 
@@ -605,6 +607,8 @@ def slice3(name, dev, gen, fc, report):
                                ("alb", MT.path_trace_alb,
                                 MT.path_trace_alb_reference)):
             kk = fn(tables, uT)
+            lane_eq = same_bits(kk, fn(tables, uT, compact=False))
+            turns = path_turns(tables, uT, fn=fn)
             torch.cuda.synchronize()
             tt = twin(tables, uT)
             same = (kk[:3] == tt[:3]).all(0)
@@ -619,10 +623,15 @@ def slice3(name, dev, gen, fc, report):
             r = dict(rgb_bit_equal=float(same.double().mean()),
                      rows_rtol_1e5=float(rows_ok.double().mean()),
                      rows_max_abs=err, grad_rel=g_rel,
-                     finite=bool(torch.isfinite(kk).all()))
+                     finite=bool(torch.isfinite(kk).all()),
+                     equal_to_lane_kernel=lane_eq, turns_ms=turns)
             report["adjoint_vs_twin"][f"{sname}/{mode}"] = r
             row.append(f"{mode}: rgb bit-equal {r['rgb_bit_equal']:.5f}, "
-                       f"rows {r['rows_rtol_1e5']:.5f}, grad rel {g_rel:.1e}")
+                       f"rows {r['rows_rtol_1e5']:.5f}, grad rel {g_rel:.1e}, "
+                       f"bit-equal to one path per thread {lane_eq}, in "
+                       f"turns {fmt_turns(turns)}")
+            need(lane_eq, f"{sname}/{mode}: the compacting adjoint differs "
+                 f"from one path per thread")
             need(r["finite"], f"{sname}/{mode}: non-finite rows")
             need(r["rgb_bit_equal"] >= 1.0 - MAX_BAD_LANES,
                  f"{sname}/{mode}: rgb rows differ")
@@ -2165,6 +2174,8 @@ def main():
               "splat_add_kernel",
               "path_trace_rad_kernelILb0E", "path_trace_rad_kernelILb1E",
               "path_trace_alb_kernelILb0E", "path_trace_alb_kernelILb1E",
+              "path_lane_rad_kernelILb0E", "path_lane_rad_kernelILb1E",
+              "path_lane_alb_kernelILb0E", "path_lane_alb_kernelILb1E",
               "intersect_kernel", "brute_sweep_kernelILb0E",
               "brute_sweep_kernelILb1E"):
         need(any(k in n for n in regs), f"ptxas reported no {k}")

@@ -684,35 +684,32 @@ struct PssView {
 constexpr int kGradNone = 0;
 constexpr int kGradEmit = 1;
 constexpr int kGradAlbedo = 2;
-// Diffuse-like bounces a path may take in albedo mode (its max_depth);
-// ops/megatrace.py checks the config against it.
-constexpr int kMaxGradDepth = 16;
 
-// A lane's Jacobian rows: row k of the lane lives at rows[k * stride]
-// (a (3K, R) block, dim-major, so a warp's adds are coalesced).  Rows 3e+c
-// hold d value[c] / d radiance[e, c] (emit) or 3m+c d value[c] / d
-// albedo[m, c] (albedo).
+// A path's Jacobian rows: row k at rows[k * stride], rows 3e+c holding d
+// value[c] / d radiance[e, c] (emit) or 3m+c d value[c] / d albedo[m, c]
+// (albedo); in albedo mode pw[m * stride] is the power of material m in
+// the path so far (its diffuse-like bounces there), as the reference's
+// per-material counts.  Where they live is the adjoint kernels' choice
+// (path_trace_grad.cu: a column of a block's shared array, or of the
+// (3K, R) output and a (K, R) scratch); the no-gradient body never reads
+// them.
 struct GradRows {
   float* rows;
+  float* pw;
   long stride;
   __device__ __forceinline__ void add(int k, float v) const { rows[(long)k * stride] += v; }
 };
 
 // Albedo mode: a contribution c is a polynomial in the albedos, with power
-// pw_m of material m (its diffuse-like bounces on the path so far), so
-// d c / d al_m = c * pw_m / al_m; a black channel (al <= 1e-12) gets 0, as
-// in the reference.  dl[0..n) are the materials of those bounces.
-__device__ __forceinline__ void albedo_rows(const Tables& tb, const GradRows& g, const int* dl,
-                                            int n, V3 c) {
-  for (int i = 0; i < n; ++i) {
-    const int m = dl[i];
-    bool seen = false;
-    for (int j = 0; j < i; ++j) seen = seen || dl[j] == m;
-    if (seen) continue;
-    float pw = 0.0f;
-    for (int j = i; j < n; ++j) pw += dl[j] == m ? 1.0f : 0.0f;
+// pw_m of material m, so d c / d al_m = c * pw_m / al_m; a black channel
+// (al <= 1e-12) gets 0, as in the reference.  Materials not on the path
+// (pw_m = 0) are skipped: their rows would gain c * 0.
+__device__ __forceinline__ void albedo_rows(const Tables& tb, const GradRows& g, V3 c) {
+  const float cc[3] = {c.x, c.y, c.z};
+  for (int m = 0; m < tb.n_mats; ++m) {
+    const float pw = g.pw[(long)m * g.stride];
+    if (pw == 0.0f) continue;
     const float* al = tb.mat + m * kMatCols + 1;
-    const float cc[3] = {c.x, c.y, c.z};
     for (int ch = 0; ch < 3; ++ch) {
       float a = __ldg(al + ch);
       float gm = a > 1e-12f ? pw / fmaxf(a, 1e-12f) : 0.0f;
@@ -750,31 +747,27 @@ __device__ __forceinline__ void camera_ray(const TabT<X>& tb, const PssView& u, 
 
 // The state a path carries from one bounce to the next (the ray, the
 // throughput, the radiance so far, the previous vertex's BSDF pdf and
-// delta flag, the eta scale of Russian roulette; in albedo mode the
-// materials of its diffuse-like bounces).
-template <int G>
+// delta flag, the eta scale of Russian roulette): 15 words, in every
+// gradient mode (the rows and counts stay where GradRows points).
 struct PathState {
   V3 o, d, tp, L;
   float prev_pdf, eta_scale;
   bool prev_delta;
-  int dl[G == kGradAlbedo ? kMaxGradDepth : 1];
-  int n_dl;
 };
 
 // A lane's state before its first bounce: the camera ray.
-template <int G, bool X>
-__device__ __forceinline__ PathState<G> path_start(const TabT<X>& tb, const PssView& u) {
+template <bool X>
+__device__ __forceinline__ PathState path_start(const TabT<X>& tb, const PssView& u) {
   const float* cam = tb.cam;
   float cx = (2.0f * u(0) - 1.0f) * cam[12];
   float cy = (1.0f - 2.0f * u(1)) * cam[13];
-  PathState<G> s;
+  PathState s;
   camera_ray<X>(tb, u, cx, cy, &s.o, &s.d);
   s.tp = v3(1.0f, 1.0f, 1.0f);
   s.L = v3(0.0f, 0.0f, 0.0f);
   s.prev_pdf = 0.0f;
   s.prev_delta = true;
   s.eta_scale = 1.0f;
-  s.n_dl = 0;
   return s;
 }
 
@@ -789,7 +782,7 @@ __device__ __forceinline__ PathState<G> path_start(const TabT<X>& tb, const PssV
 // §6).
 template <int G, bool X>
 __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, const GradRows& g,
-                                        PathState<G>& s, int depth, int last) {
+                                        PathState& s, int depth, int last) {
   const float* cam = tb.cam;
   V3& o = s.o;
   V3& d = s.d;
@@ -798,8 +791,6 @@ __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, con
   float& prev_pdf = s.prev_pdf;
   bool& prev_delta = s.prev_delta;
   float& eta_scale = s.eta_scale;
-  int* dl = s.dl;
-  int& n_dl = s.n_dl;
 
   for (; depth <= last; ++depth) {
     const int base = kSensorDims + (depth - 1) * kBounceDims;
@@ -828,7 +819,7 @@ __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, con
             c = tp * env_bilinear(x.env_tab, x.env_h, x.env_w, eu, ev) * w;
           }
           L = L + c;
-          if constexpr (G == kGradAlbedo) albedo_rows(tb, g, dl, n_dl, c);
+          if constexpr (G == kGradAlbedo) albedo_rows(tb, g, c);
         }
       }
       return false;   // escaped
@@ -898,7 +889,7 @@ __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, con
         g.add(3 * erow + 1, t_e.y);
         g.add(3 * erow + 2, t_e.z);
       }
-      if constexpr (G == kGradAlbedo) albedo_rows(tb, g, dl, n_dl, tp * ld3(er) * w_bsdf);
+      if constexpr (G == kGradAlbedo) albedo_rows(tb, g, tp * ld3(er) * w_bsdf);
     }
 
     const Frame fr = make_frame(ns);
@@ -906,7 +897,7 @@ __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, con
     const bool delta_m = is_delta<X>(kind);
     if constexpr (G == kGradAlbedo) {
       // this vertex's albedo enters its NEE term and every later one
-      if (kind == kDiffuse || kind == kRoughDiffuse) dl[n_dl++] = mat_id;
+      if (kind == kDiffuse || kind == kRoughDiffuse) g.pw[(long)mat_id * g.stride] += 1.0f;
     }
 
     // ---- NEE: one emitter sample, immediate shadow sweep
@@ -975,7 +966,7 @@ __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, con
             }
           }
           if constexpr (G == kGradAlbedo) {
-            albedo_rows(tb, g, dl, n_dl, tp * f * (env_row ? l_rad : ld3(lr)) * inv_pdf);
+            albedo_rows(tb, g, tp * f * (env_row ? l_rad : ld3(lr)) * inv_pdf);
           }
         }
       }
@@ -1016,7 +1007,7 @@ __device__ __forceinline__ bool bounces(const TabT<X>& tb, const PssView& u, con
 // scene scope (TablesX).
 template <int G, bool X>
 __device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, const GradRows g) {
-  PathState<G> s = path_start<G, X>(tb, u);
+  PathState s = path_start<X>(tb, u);
   bounces<G, X>(tb, u, g, s, 1, tb.max_depth);
   return s.L;
 }
@@ -1024,7 +1015,7 @@ __device__ __forceinline__ V3 trace_body(const TabT<X>& tb, const PssView u, con
 // The path radiance of one lane (the path kernel and the chain kernel).
 template <bool X>
 static __device__ __noinline__ V3 trace_path(const TabT<X>& tb, const PssView u) {
-  return trace_body<kGradNone, X>(tb, u, GradRows{nullptr, 0});
+  return trace_body<kGradNone, X>(tb, u, GradRows{});
 }
 
 }  // namespace drmlt

@@ -78,14 +78,20 @@ _PATH_TRACE = [
     _I, _I, _I, _I,                            # max/min/rr depth, use_nee
     _P, _I, _P, _P,                            # uT, R, out, stream
 ]
+_COMPACT_TRACE = [
+    *_PATH_TRACE[:-4],
+    _I,                                        # compact
+    *_PATH_TRACE[-4:],
+]
+_ADJOINT = [
+    *_COMPACT_TRACE[:-1],
+    _P,                                        # scratch (albedo counts)
+    _P,                                        # stream
+]
 _SIGNATURES = {
-    "path_trace_launch": [
-        *_PATH_TRACE[:-4],
-        _I,                                    # compact
-        *_PATH_TRACE[-4:],
-    ],
-    "path_trace_rad_launch": _PATH_TRACE,
-    "path_trace_alb_launch": _PATH_TRACE,
+    "path_trace_launch": _COMPACT_TRACE,
+    "path_trace_rad_launch": _ADJOINT,
+    "path_trace_alb_launch": _ADJOINT,
     "splat_add_launch": [
         _P, _I, _I, _P, _P, _P, _I, _P,        # film, H, W, py, px, vals,
         #                                        N, stream

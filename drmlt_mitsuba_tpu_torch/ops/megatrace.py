@@ -764,53 +764,59 @@ def path_trace(tables: TraceTables, uT, compact: bool = True):
 
 
 
-# Diffuse-like bounces the albedo kernel keeps per lane
-# (csrc/path_trace.cuh:kMaxGradDepth)
-MAX_GRAD_DEPTH = 16
-
-
-def _grad_launch(tables: TraceTables, uT, n_rows, entry, kernel):
+def _grad_launch(tables: TraceTables, uT, K, entry, kernel, compact,
+                 counts):
+    """Launch an adjoint kernel: (3 + 3K, R), with a (K, R) scratch for the
+    albedo kernel's power counts (`counts`), which it uses one path per
+    thread and where a lane's rows and counts do not fit in its block's
+    shared memory."""
     uT = uT.contiguous()
     R = uT.shape[1]
-    out = torch.empty((3 + n_rows, R), dtype=torch.float32, device=uT.device)
+    out = torch.empty((3 + 3 * K, R), dtype=torch.float32, device=uT.device)
+    scratch = (torch.empty((K, R), dtype=torch.float32, device=uT.device)
+               if counts else None)
     lib = build.load()
     stream = torch.cuda.current_stream(uT.device).cuda_stream
-    rc = getattr(lib, entry)(*table_args(tables), uT.data_ptr(), R,
-                             out.data_ptr(), stream)
+    rc = getattr(lib, entry)(*table_args(tables), int(compact), uT.data_ptr(),
+                             R, out.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(),
+                             stream)
     build.check(rc, kernel)
     build.LAUNCHES[build.scope_key(kernel.removesuffix("_kernel"), tables)] += 1
     return out
 
 
-def path_trace_rad(tables: TraceTables, uT):
+def path_trace_rad(tables: TraceTables, uT, compact: bool = True):
     """(3 + 3E, R): path radiance and its Jacobian rows with respect to
-    each emitter's radiance.  A CUDA tensor launches path_trace_rad_kernel;
-    a CPU tensor runs path_trace_rad_reference."""
+    each emitter's radiance.  A CUDA tensor launches path_trace_rad_kernel,
+    which compacts a block's live paths between bounces, or on a scene
+    with a BVH one path per thread (compact=False: that on any scene, bit
+    for bit the same); a CPU tensor runs path_trace_rad_reference."""
     _check_u(tables, uT)
     if uT.device.type == "cpu":
         return path_trace_rad_reference(tables, uT)
     if uT.device.type != "cuda":
         raise NotImplementedError(f"no path kernel for {uT.device}")
-    return _grad_launch(tables, uT, 3 * tables.em.shape[0],
-                        "path_trace_rad_launch", "path_trace_rad_kernel")
+    return _grad_launch(tables, uT, tables.em.shape[0],
+                        "path_trace_rad_launch", "path_trace_rad_kernel",
+                        compact, counts=False)
 
 
-def path_trace_alb(tables: TraceTables, uT):
+def path_trace_alb(tables: TraceTables, uT, compact: bool = True):
     """(3 + 3M, R): path radiance and its Jacobian rows with respect to
-    each material's albedo.  A CUDA tensor launches path_trace_alb_kernel;
-    a CPU tensor runs path_trace_alb_reference."""
+    each material's albedo, at any max_depth.  A CUDA tensor launches
+    path_trace_alb_kernel (compact as path_trace_rad); a CPU tensor runs
+    path_trace_alb_reference."""
     _check_u(tables, uT)
     if tables.tex_shape is not None:
         raise ValueError("the albedo adjoint takes constant albedos only")
-    if tables.max_depth > MAX_GRAD_DEPTH:
-        raise ValueError(f"max_depth {tables.max_depth}: the albedo kernel "
-                         f"keeps at most {MAX_GRAD_DEPTH} bounces")
     if uT.device.type == "cpu":
         return path_trace_alb_reference(tables, uT)
     if uT.device.type != "cuda":
         raise NotImplementedError(f"no path kernel for {uT.device}")
-    return _grad_launch(tables, uT, 3 * tables.mat.shape[0],
-                        "path_trace_alb_launch", "path_trace_alb_kernel")
+    return _grad_launch(tables, uT, tables.mat.shape[0],
+                        "path_trace_alb_launch", "path_trace_alb_kernel",
+                        compact, counts=True)
 
 
 # ------------------------------------------------------ differentiable traces

@@ -16,24 +16,28 @@ Each DIR holds the `.cu` / `.cuh` sources of another revision's
 
 or a copy of the checkout's with one constant changed (for example
 `kChainBlock` in drmlt_chain.cu, the block of both chain-kernel modes, or
-`kPathBlock` in path_trace.cu).  Its entry points take the checkout's
-arguments (ops/build.py), or a build from before the node records (its
-path_trace.cu takes `const int* link`) the node table as (box, link,
-order, N) and no compact flag: `Legacy` passes it the same BVH in that
-layout.  Each is compiled by ops/build.py, as the checkout's kernels
-are, into a library of its own under build/torch_kernels/.  --set makes
-such a copy itself, under build/ab/NAME: the checkout's sources with each
+`kPathBlock` in path_block.cuh).  Its entry points take the checkout's
+arguments (ops/build.py), or, a build from before the compacting
+adjoints (its path_trace_grad.cu takes no `int compact`), the adjoints'
+without the compact flag and the scratch: `OldAdjoint` drops them.  Each
+is compiled by ops/build.py, as the checkout's kernels are, into a
+library of its own under build/torch_kernels/.  --set makes such a copy
+itself, under build/ab/NAME: the checkout's sources with each
 `constexpr int CONST = ...;` set to VALUE (for example
 `rpt1=kBruteRPT:1` or `block256=kBruteBlock:256`, the intersection
-kernel's brute mode).
+kernel's brute mode, or `global=kGradShmWords:0`, the adjoints' rows in
+global memory whatever their size).
 
 The path kernel (65,536 lanes, rr_depth 100) on cornell_box(256, 256) at
 depths 8, 6 and 4, the veach door, cornell_scope(256, 256, "const") and
 tests/data/cornell.xml (the full scope) and cornell_large.xml (19,586
 triangles, the walk), each build and the checkout's one-path-per-thread
 launch (`lane`): bit for bit the checkout's, ms per launch in turns;
-the adjoint kernels (depth 6, rr 5) on the box and cornell_large.xml; the
-intersection kernel's BVH mode on 1,048,576 rays against raybench's
+the adjoint kernels (depth 6, rr 5) on the box, the veach door, [full]
+(cornell_scope "const" for the radiance kernel, "kinds" for the albedo
+one) and cornell_large.xml, each build and the checkout's one path per
+thread alike, with the bound of the work (the twin's tests on the same
+lanes) and the share each build reaches; the intersection kernel's BVH mode on 1,048,576 rays against raybench's
 20,000-triangle sphere (MRays/s) and cornell_large.xml.
 --diagnose: the path kernel on the box at 65,536, 131,072 and 262,144
 lanes, depths 8 and 2, and each build's SASS of its path kernels
@@ -98,7 +102,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import ptxas_report  # noqa: E402
+from chip_smoke import bound, nbytes, ptxas_report  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.drmlt import DRMLTConfig  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig  # noqa: E402
@@ -138,17 +142,17 @@ BRUTE_EDGE_T = (1, 36, 257, 3784, 4095)
 
 def load_other(src: Path):
     """Another revision's csrc/ built by ops/build.py: (library path,
-    library, ptxas text); a build from before the node records comes
-    wrapped in Legacy."""
+    library, ptxas text); a build from before the compacting adjoints
+    comes wrapped in OldAdjoint."""
     out = build.build(src)
     lib = ctypes.CDLL(str(out))
-    legacy = "const int* link" in (src / "path_trace.cu").read_text()
+    old = "int compact" not in (src / "path_trace_grad.cu").read_text()
     for fn, sig in build._SIGNATURES.items():
-        if legacy and fn in Legacy.NODE_AT:
-            sig = Legacy.signature(fn, sig)
+        if old and fn in OldAdjoint.ENTRIES:
+            sig = build._PATH_TRACE
         getattr(lib, fn).argtypes = sig
         getattr(lib, fn).restype = ctypes.c_int
-    return (out, Legacy(lib) if legacy else lib,
+    return (out, OldAdjoint(lib) if old else lib,
             out.with_suffix(".ptxas.txt").read_text())
 
 
@@ -173,79 +177,41 @@ def set_constants(name, spec):
     return out
 
 
-# the node tables made in this process, by the address of their node
-# records, in the layout before the records: (box, link, order, table)
-LEGACY_NODES = {}
-_pack_nodes = IX.pack_nodes
+# the compact flag of path_trace_launch and of the adjoints' entry points
+COMPACT_AT = 30
 
 
-def _pack_and_keep(bvh, tri):
-    nodes = _pack_nodes(bvh, tri)
-    first, count, skip, order = nodes.unpack()
-    box = nodes.node.clone()
-    box.view(torch.int32)[:, [3, 7]] = 0
-    link = torch.stack([first, count, skip, torch.zeros_like(skip)], 1)
-    LEGACY_NODES[nodes.node.data_ptr()] = (box, link.contiguous(),
-                                           order.contiguous(), nodes)
-    return nodes
+class OldAdjoint:
+    """A build from before the compacting adjoints (one path per thread,
+    rows in global memory), called with the checkout's arguments: the
+    adjoints' compact flag and scratch go."""
 
-
-# every table below is packed through here (ops/intersect.py:scene_nodes)
-IX.pack_nodes = _pack_and_keep
-
-
-class Legacy:
-    """A build from before the node records, called with the checkout's
-    arguments: the node table (node, rec, N) becomes (box, link, order,
-    N) of the same tree, and path_trace_launch's compact flag goes."""
-
-    NODE_AT = {"path_trace_launch": 7, "path_trace_rad_launch": 7,
-               "path_trace_alb_launch": 7, "mmlt_trace_launch": 7,
-               "drmlt_chain_launch": 7, "intersect_launch": 2}
-    COMPACT_AT = 30   # in the checkout's path_trace_launch
+    ENTRIES = ("path_trace_rad_launch", "path_trace_alb_launch")
 
     def __init__(self, lib):
         self.lib = lib
 
-    @classmethod
-    def signature(cls, name, sig):
-        k = cls.NODE_AT[name]
-        sig = [*sig[:k], ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-               ctypes.c_int, *sig[k + 3:]]
-        if name == "path_trace_launch":
-            del sig[cls.COMPACT_AT + 1]
-        return sig
-
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
-        if name not in self.NODE_AT:
+        if name not in self.ENTRIES:
             return fn
-        k = self.NODE_AT[name]
-
-        def call(*args):
-            args = list(args)
-            if name == "path_trace_launch":
-                del args[self.COMPACT_AT]
-            node, _, n = args[k:k + 3]
-            old = ((None, None, None) if not node else
-                   tuple(t.data_ptr() for t in LEGACY_NODES[node][:3]))
-            return fn(*args[:k], *old, n, *args[k + 3:])
-        return call
+        return lambda *a: fn(*a[:COMPACT_AT], *a[COMPACT_AT + 1:-2], a[-1])
 
 
 class Lane:
-    """The checkout's library with path_trace_launch's compact flag off:
-    one path per thread to its end."""
+    """The checkout's library with the compact flag of the path kernel and
+    the adjoints off: one path per thread to its end."""
+
+    ENTRIES = ("path_trace_launch", *OldAdjoint.ENTRIES)
 
     def __init__(self, lib):
         self.lib = lib
 
     def __getattr__(self, name):
         fn = getattr(self.lib, name)
-        if name != "path_trace_launch":
+        if name not in self.ENTRIES:
             return fn
-        at = Legacy.COMPACT_AT
-        return lambda *a: fn(*a[:at], 0, *a[at + 1:])
+        return lambda *a: fn(*a[:COMPACT_AT], 0, *a[COMPACT_AT + 1:])
 
 
 class using:
@@ -320,8 +286,8 @@ def scene_of(name):
         return cornell_box(SIZE, SIZE)
     if name == "veach":
         return veach_door(SIZE, SIZE)
-    if name == "const":
-        return cornell_scope(SIZE, SIZE, "const")
+    if name in ("const", "kinds"):
+        return cornell_scope(SIZE, SIZE, name)
     xml = ("cornell.xml" if name == "cornell_xml"
            else "large/cornell_large.xml")
     return cli.load_scene(str(DATA / xml), {"integrator": "drmlt"})[0]
@@ -372,15 +338,7 @@ def path_cases(libs, rounds, dev, g, report):
         report["cases"][case] = compare(
             path_libs, rounds, lambda: (MT.path_trace(tb, uT),), PATH_RUNS,
             case)
-    for sname in ("cornell", "large"):
-        tb = MT.make_tables(scene_of(sname), PathConfig(max_depth=6,
-                                                        rr_depth=5), dev)
-        uT = torch.rand((tb.n_dims, CHAINS), device=dev, generator=g)
-        for mode, fn in (("rad", MT.path_trace_rad),
-                         ("alb", MT.path_trace_alb)):
-            case = f"{sname}/path_trace_{mode}/d6"
-            report["cases"][case] = compare(
-                libs, rounds, lambda: (fn(tb, uT),), PATH_RUNS, case)
+    adjoint_cases(libs, rounds, dev, g, report)
     for sname in ("sphere-20000", "large"):
         if sname == "sphere-20000":
             scene = raybench.bumpy_sphere(20000)
@@ -399,6 +357,50 @@ def path_cases(libs, rounds, dev, g, report):
         row["mrays_per_s"] = {n: RAYS / (sum(v) / len(v)) / 1e3 for n, v in
                               row["ms_per_launch"].items()}
         report["cases"][case] = row
+
+
+# the adjoint kernels' scenes, per mode: the box, the veach door, [full]
+# (cornell_scope "const"; "kinds" for the albedo kernel, since "const" has
+# a bitmap albedo) and cornell_large.xml (one path per thread there)
+ADJOINT_CASES = (("rad", ("cornell", "veach", "const", "large")),
+                 ("alb", ("cornell", "veach", "kinds", "large")))
+
+
+def adjoint_cases(libs, rounds, dev, g, report):
+    """The adjoint kernels (depth 6, rr 5), each build and the checkout's
+    one-path-per-thread launch (`lane`): bit for bit the checkout's, ms per
+    launch in turns, and the work's bound (chip_smoke.bound over the
+    twin's ray-triangle and box tests on the same lanes) with the share of
+    it each build reaches."""
+    adj_libs = dict(libs, lane=Lane(libs["checkout"]))
+    cfg = PathConfig(max_depth=6, rr_depth=5)
+    for mode, names in ADJOINT_CASES:
+        fn = MT.path_trace_rad if mode == "rad" else MT.path_trace_alb
+        for sname in names:
+            tb = MT.make_tables(scene_of(sname), cfg, dev)
+            uT = torch.rand((tb.n_dims, CHAINS), device=dev, generator=g)
+            case = (f"{sname}/path_trace_{mode}/d6"
+                    + ("[full]" if tb.full else ""))
+            row = compare(adj_libs, rounds, lambda: (fn(tb, uT),),
+                          PATH_RUNS, case)
+            work = {}
+            MT.path_trace_reference(tb, uT, work)
+            K = tb.em.shape[0] if mode == "rad" else tb.mat.shape[0]
+            nodes = tb.nodes
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes(uT, tb.tri, tb.mat, tb.em, tb.cam, tb.sph,
+                       tb.tri_ext, *((nodes.node, nodes.rec) if nodes
+                                     else ()))
+                + (3 + 3 * K) * CHAINS * 4, work.get("tri_tests", 0),
+                work.get("node_tests", 0))
+            row["share_of_bound"] = {
+                n: row["bound_ms"] / (sum(v) / len(v))
+                for n, v in row["ms_per_launch"].items()}
+            print(f"{case}: bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} ({work}); share reached "
+                  + ", ".join(f"{n} {x:.4f}" for n, x in
+                              row["share_of_bound"].items()), flush=True)
+            report["cases"][case] = row
 
 
 def brute_rays(sname, n, dev, g):

@@ -12,6 +12,8 @@ the CUDA math library and PyTorch disagree in a last bit on an edge, so the
 tolerances are the reference's own kernel-vs-XLA ones (0.2% of lanes,
 channel means to 5e-3).
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -478,15 +480,109 @@ def test_inverse_rendering_runs_through_the_kernels(cuda):
 
 
 def test_adjoint_wrappers_reject_bad_inputs(cuda):
-    deep = PathConfig(max_depth=MT.MAX_GRAD_DEPTH + 1)
+    """Mismatched devices and bitmap albedos raise; a max_depth above 16
+    (the cap of the kernel before per-material counts) does not."""
+    deep = PathConfig(max_depth=17)
     tables = MT.make_tables(cornell_box(16, 16), deep, cuda)
-    with pytest.raises(ValueError, match="max_depth"):
-        MT.path_trace_alb(tables, torch.rand((deep.n_dims, 8), device=cuda))
+    assert MT.path_trace_alb(tables, torch.rand((deep.n_dims, 8),
+                                                device=cuda)).shape == (18, 8)
     with pytest.raises(ValueError, match="tables on"):
         MT.path_trace_rad(tables, torch.rand((deep.n_dims, 8)))
     with pytest.raises(ValueError, match="on cuda"):
         MT.make_mega_trace_diff(cornell_box(16, 16), PathConfig())(
             {}, torch.rand((8, PathConfig().n_dims)))
+    from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
+    tex = MT.make_tables(cornell_scope(16, 16, "const"), PathConfig(), cuda)
+    with pytest.raises(ValueError, match="constant albedos"):
+        MT.path_trace_alb(tex, torch.rand((tex.n_dims, 8), device=cuda))
+
+
+def _adjoint_tables(scene, mode, cfg, dev):
+    """The tables of an adjoint case: the box (`diffuse`, `mirror`,
+    `glass`), the veach door, or [full] (cornell_scope "const" for the
+    radiance kernel, "kinds" for the albedo one, whose "const" has a
+    bitmap albedo)."""
+    if scene == "full":
+        from drmlt_mitsuba_tpu_torch.scene.builders import cornell_scope
+        sc = cornell_scope(64, 64, "const" if mode == "rad" else "kinds")
+    else:
+        sc = _scene(scene)
+    return MT.make_tables(sc, cfg, dev)
+
+
+def _adjoint(mode):
+    return ((MT.path_trace_rad, MT.path_trace_rad_reference) if mode == "rad"
+            else (MT.path_trace_alb, MT.path_trace_alb_reference))
+
+
+def _pad_tables(tables, mode, k):
+    """The same scene with k more emitters (never picked: cdf 2) or
+    materials (never hit): its rows and counts no longer fit in shared
+    memory (path_trace_grad.cu:kGradShmWords)."""
+    if mode == "rad":
+        extra = tables.em[-1:].repeat(k, 1)
+        extra[:, 5] = 2.0
+        return dataclasses.replace(tables, em=torch.cat([tables.em, extra]))
+    return dataclasses.replace(
+        tables, mat=torch.cat([tables.mat, tables.mat[-1:].repeat(k, 1)]))
+
+
+@pytest.mark.parametrize("mode", ["rad", "alb"])
+@pytest.mark.parametrize("scene", ["diffuse", "mirror", "glass", "veach",
+                                   "full"])
+@pytest.mark.parametrize("R", [1, 33, 8193])
+def test_compacting_adjoint_equals_one_path_per_thread(cuda, mode, scene, R):
+    """The adjoint kernel that compacts live paths between bounces returns,
+    bit for bit, the rgb and every Jacobian row of one path per thread
+    (compact=False), at lane counts that leave a block and a warp part
+    filled."""
+    cfg = PathConfig(max_depth=6, rr_depth=5)
+    tables = _adjoint_tables(scene, mode, cfg, cuda)
+    assert tables.full == (scene == "full")
+    uT = torch.rand((cfg.n_dims, R), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(R))
+    fn, _ = _adjoint(mode)
+    key = build.scope_key(f"path_trace_{mode}", tables)
+    n0 = build.LAUNCHES[key]
+    k = fn(tables, uT)
+    lane = fn(tables, uT, compact=False)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[key] == n0 + 2
+    assert torch.equal(k.view(torch.int32), lane.view(torch.int32))
+    assert bool(torch.isfinite(k).all())
+    if R > 1000:
+        assert float(k[3:].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["rad", "alb"])
+@pytest.mark.parametrize("depth,pad", [(20, 0), (6, 16)])
+def test_adjoint_kernel_deep_and_wide(cuda, mode, depth, pad):
+    """Past the old depth cap (20 bounces, no Russian roulette before 18)
+    and past the shared-memory cap (16 padded emitters or materials, whose
+    rows stay in global memory): compacting kernel == one path per thread
+    bit for bit, against the twin as test_adjoint_kernel_matches_twin, and
+    the padded launch's rows are the unpadded launch's, bit for bit, with
+    zeros in the padding."""
+    cfg = PathConfig(max_depth=depth, rr_depth=18)
+    base = _adjoint_tables("diffuse", mode, cfg, cuda)
+    tables = _pad_tables(base, mode, pad) if pad else base
+    uT = torch.rand((cfg.n_dims, 8192), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(depth))
+    fn, twin = _adjoint(mode)
+    k = fn(tables, uT)
+    lane = fn(tables, uT, compact=False)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), lane.view(torch.int32))
+    t = twin(tables, uT)
+    same = (k[:3] == t[:3]).all(0)
+    assert float(same.float().mean()) >= 0.998
+    torch.testing.assert_close(k[3:, same], t[3:, same], rtol=1e-5, atol=0.0)
+    assert bool(torch.isfinite(k).all()) and float(k[3:].abs().sum()) > 0
+    if pad:
+        n = fn(base, uT)
+        assert torch.equal(k[:n.shape[0]].view(torch.int32),
+                           n.view(torch.int32))
+        assert not bool(k[n.shape[0]:].any())
 
 
 # ---------------------------------------------------------------- slice 4

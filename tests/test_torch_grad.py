@@ -5,7 +5,9 @@ The port's adjoint twins (`ops/megatrace.py:path_trace_rad_reference` /
 kernels) must give the same per-lane Jacobian rows as `jax.jacfwd` of the
 reference's XLA `trace_paths`, and the port's three differentiable entry
 points (`make_mega_trace_rad`, `_alb`, `_diff`, through their twins here)
-the same gradients as `jax.grad` of it, at the reference's own tolerance
+the same gradients of mean(lum) as it (the lane mean of those
+`jax.jacfwd` rows, the derivative `jax.grad` gives in reverse mode; one
+compile serves both), at the reference's own tolerance
 for its kernels (tests/test_gradients.py:286-361: rtol 5e-3).  The albedo
 rows detach Russian-roulette survival, as the reference's kernel does, so
 they are held to the reference at rr_depth > max_depth only.
@@ -43,21 +45,26 @@ def _u(seed, n, n_dims):
     return np.random.default_rng(seed).random((n, n_dims), dtype=np.float32)
 
 
-def _jax_fn(rr, leaf, u):
-    """The reference's value (R, 3) as a function of one leaf."""
+def _jax_jacfwd(rr, leaves, u):
+    """Per leaf of `leaves` ("radiance", "albedo"), jax.jacfwd (R, 3, K, 3)
+    of the reference's value (R, 3) on the Cornell box 32x32 at depth 4,
+    one compile for them all; and the leaves' values."""
     scene = jax_cornell(32, 32)
     cfg = JPathConfig(max_depth=4, rr_depth=rr)
 
-    def f(p):
-        if leaf == "radiance":
-            s = scene.replace(emitters=scene.emitters.replace(radiance=p))
-        else:
-            s = scene.replace(materials=scene.materials.replace(albedo=p))
+    def f(*ps):
+        kw = dict(zip(leaves, ps))
+        s = scene
+        if "radiance" in kw:
+            s = s.replace(emitters=s.emitters.replace(radiance=kw["radiance"]))
+        if "albedo" in kw:
+            s = s.replace(materials=s.materials.replace(albedo=kw["albedo"]))
         return jax_trace(s, cfg, jnp.asarray(u)).value[:, 0, :]
 
-    p0 = (scene.emitters.radiance if leaf == "radiance"
-          else scene.materials.albedo)
-    return f, p0
+    p0 = [scene.emitters.radiance if leaf == "radiance"
+          else scene.materials.albedo for leaf in leaves]
+    J = jax.jit(jax.jacfwd(f, argnums=tuple(range(len(leaves)))))(*p0)
+    return [np.asarray(j) for j in J], [np.asarray(p) for p in p0]
 
 
 def test_torch_packer_matches_numpy_packer():
@@ -89,16 +96,16 @@ def test_torch_packer_matches_numpy_packer():
 
 @pytest.fixture(scope="module")
 def jacobians():
-    """Per mode: the lanes u and the per-lane jax.jacfwd (R, 3, K, 3) of
-    the reference's value with respect to the mode's leaf, on the Cornell
-    box 32x32 at depth 4."""
-    out = {}
-    for mode, (rr, leaf) in ROWS.items():
-        u = _u(11, R, PathConfig(max_depth=4).n_dims)
-        f, p0 = _jax_fn(rr, leaf, u)
-        out[mode] = (u, np.asarray(jax.jit(jax.jacfwd(f))(p0)),
-                     np.asarray(p0))
-    return out
+    """Per mode: the lanes u, the per-lane jax.jacfwd (R, 3, K, 3) of the
+    reference's value with respect to the mode's leaf at the mode's
+    rr_depth, and the leaf, on the Cornell box 32x32 at depth 4; under
+    "alb_rr3" the albedo's at rr_depth 3, from the radiance's compile."""
+    u = _u(11, R, PathConfig(max_depth=4).n_dims)
+    (j_rad, j_alb3), (rad, alb) = _jax_jacfwd(ROWS["rad"][0],
+                                              ("radiance", "albedo"), u)
+    (j_alb,), _ = _jax_jacfwd(ROWS["alb"][0], ("albedo",), u)
+    return {"rad": (u, j_rad, rad), "alb": (u, j_alb, alb),
+            "alb_rr3": (u, j_alb3, alb)}
 
 
 @pytest.mark.parametrize("mode", sorted(ROWS))
@@ -135,33 +142,25 @@ def test_adjoint_twin_rows_match_jacfwd(mode, jacobians):
 
 
 @pytest.fixture(scope="module")
-def jax_grad_rr3():
-    """jax.grad of mean(lum) of the reference's trace_paths (depth 4,
-    rr_depth 3) with respect to (radiance, albedo), on the lanes of
-    `jacobians`."""
-    cfg = JPathConfig(max_depth=4, rr_depth=3)
-    u = _u(11, R, cfg.n_dims)
-    scene = jax_cornell(32, 32)
-
-    def loss(rad, alb):
-        s = scene.replace(emitters=scene.emitters.replace(radiance=rad),
-                          materials=scene.materials.replace(albedo=alb))
-        return jnp.mean(jax_trace(s, cfg, jnp.asarray(u)).lum)
-
-    g = jax.jit(jax.grad(loss, argnums=(0, 1)))(scene.emitters.radiance,
-                                                 scene.materials.albedo)
-    return np.asarray(g[0]), np.asarray(g[1])
+def jax_grad_rr3(jacobians):
+    """The reference's d mean(lum) / d (radiance, albedo) of trace_paths
+    (depth 4, rr_depth 3) on the lanes of `jacobians`: the lane mean of
+    its luminance-weighted jax.jacfwd (the derivative jax.grad takes in
+    reverse mode)."""
+    assert ROWS["rad"][0] == 3
+    return tuple(np.einsum("rckd,c->kd", jacobians[k][1], LUM_W) / R
+                 for k in ("rad", "alb_rr3"))
 
 
 @pytest.mark.parametrize("entry", ["rad", "alb", "diff"])
 def test_entry_point_gradients_match_jax_grad(entry, jacobians, jax_grad_rr3):
     """d mean(lum) / d radiance and / d albedo through the port's entry
     points (their twins on the CPU) against the reference's derivative of
-    trace_paths, rtol 5e-3 (tests/test_gradients.py:286-361): jax.grad at
-    rr_depth 3 for the radiance adjoint and for the replay, which
-    differentiates Russian roulette too, in both leaves; for the albedo
-    adjoint, RR-free (rr_depth 100), the lane mean of the luminance-weighted
-    jax.jacfwd, the same derivative in forward mode."""
+    trace_paths, rtol 5e-3 (tests/test_gradients.py:286-361), the lane
+    mean of its luminance-weighted jax.jacfwd: at rr_depth 3 for the
+    radiance adjoint and for the replay, which differentiates Russian
+    roulette too, in both leaves; for the albedo adjoint RR-free (rr_depth
+    100)."""
     scene = cornell_box(32, 32)
     rr = ROWS["alb"][0] if entry == "alb" else 3
     cfg = PathConfig(max_depth=4, rr_depth=rr)

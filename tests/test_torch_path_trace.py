@@ -7,6 +7,8 @@ mode, lane for lane: the same tolerance the reference holds its own
 kernel to against trace_paths (tests/test_megatrace.py): per-lane rtol
 1e-3 (with a 1e-3 floor) on at least 99% of lanes, channel means to 5e-3.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +155,35 @@ def test_twin_counts_the_warp_bounces_compaction_saves():
     assert int(torch.stack(a).sum()) // 32 == 9823
     assert [MT.warp_bounces(a, b) for b in (None, 128, 256)] == [
         16384, 11413, 10643]
+
+
+def test_adjoint_twins_take_depths_above_16():
+    """The adjoint wrappers take any max_depth (the albedo kernel keeps a
+    power count per material, not a list of its bounces): on the CPU, at
+    depth 18 on the veach door, where every lane lives to the last bounce,
+    the radiance and albedo rows, weighted by a cotangent, equal autograd
+    of the path twin in the emitters' radiance and the materials' albedo
+    (no Russian roulette: the rows are exact there), and the rgb rows are
+    the twin's bit for bit."""
+    cfg = PathConfig(max_depth=18, rr_depth=100)
+    tables = MT.make_tables(veach_door(16, 16), cfg, "cpu")
+    rng = np.random.default_rng(18)
+    n = 128
+    uT = torch.from_numpy(rng.random((cfg.n_dims, n), dtype=np.float32))
+    w = torch.from_numpy(rng.random((n, 3), dtype=np.float32))
+    live = []
+    MT.path_trace_reference(tables, uT, live=live)
+    assert bool(live[-1].all())
+    for fn, leaf, cols in ((MT.path_trace_rad, "em", slice(0, 3)),
+                           (MT.path_trace_alb, "mat", slice(1, 4))):
+        out = fn(tables, uT)
+        tab = getattr(tables, leaf).clone().requires_grad_()
+        value = MT.path_trace_reference(
+            dataclasses.replace(tables, **{leaf: tab}), uT)
+        assert torch.equal(out[:3], value.detach())
+        (g,) = torch.autograd.grad((value.T * w).sum(), tab)
+        K = out.shape[0] // 3 - 1
+        got = torch.einsum("kcr,rc->kc", out[3:].view(K, 3, n), w)
+        np.testing.assert_allclose(got.numpy(), g[:, cols].numpy(), rtol=1e-5,
+                                   atol=0.0)
+        assert float(g[:, cols].abs().max()) > 0
