@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's six slices once on one GPU: the DRMLT path
+"""Drive the PyTorch/CUDA port's seven slices once on one GPU: the DRMLT path
 render, the depth-grouped DRMLT-over-MMLT render, differentiable
 rendering (inverse rendering through the adjoint and splat kernels),
 asset-scale scenes (the XML loader, the BVH walk in every trace kernel,
 the intersection kernel), the trace kernels' full scene scope (analytic
 spheres, the conductor / rough-conductor / null kinds, bitmap albedo,
-constant and image environments, the thin lens) and PSSMLT (the chain
+constant and image environments, the thin lens), PSSMLT (the chain
 kernel's pssmlt mode, the host PSSMLT integrator, the CLI's
-integrator=pssmlt).
+integrator=pssmlt) and the generic DRMLT step (the mixture, the
+acceptance map, the pooled MMLT route, every reconstruction filter and
+the CLI routes they open).
 
     python3 chip_smoke.py
 
@@ -142,7 +144,28 @@ non-zero):
      render's channel means / MC, and Kelemen / Veach on the same chains
      in this process; and a -D averageLuminance render (Veach weights: the
      image scales by it over b).  The counters are reset before each
-     render of (b)-(d) and read after it.
+     render of (b)-(d) and read after it;
+ 24. slice 7, the generic DRMLT step: (a) one drmlt_step_from_uniforms
+     step of 16,384 chains (green, mira, orbital, each with the acceptance
+     map, and the green mixture) through the path kernel and through its
+     twin on the CPU, on the same starts and uniforms (>= 99% of chains
+     with equal state, the film within 5e-3 of its max); (b) render_drmlt
+     on the box (65,536 chains, 256 mutations per pixel): green with the
+     acceptance map, mira, orbital, green with the mixture, each against
+     phase 5's MC render (MC_GATE["path"] and the shape check), the
+     accmap's R / G sums equal to the summed accept counts, and the green
+     render's mutations/s and device-busy share beside render_drmlt_path's;
+     (c) the CLI's pooled MMLT route (grouped=false, fixEmitterPath) and
+     the grouped route with acceptanceMap on the box at max_depth 6
+     against phase 9's MC (MC_GATE["cornell"]); (d) the splat kernel
+     against its twin on 1,048,576 splats of each of the six filters
+     (per pixel within 1e-5 of the sum of |tap| there), and a copy of
+     tests/data/cornell.xml without its <rfilter> (the gaussian default)
+     through the CLI's drmlt path route, the grouped MMLT route,
+     integrator=path and drmlt with twoStage and with separateDirect,
+     each within phase 22's gate of the box-filter MC.  The counters are
+     reset before each render of (b)-(d) and read after it; the kernels
+     line adds those launches to #4, #5 and #9.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -168,11 +191,13 @@ sys.path.insert(0, ROOT)
 
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.drmlt import (  # noqa: E402
-    DRMLTConfig, render_drmlt_path,
+    DRMLTConfig, DRMLTUniforms, draw_drmlt_uniforms,
+    drmlt_mixture_step_from_uniforms, drmlt_step_from_uniforms,
+    render_drmlt, render_drmlt_path,
 )
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig  # noqa: E402
 from drmlt_mitsuba_tpu_torch.integrators.mcmc import (  # noqa: E402
-    bootstrap, state_from_splats,
+    ChainState, bootstrap, state_from_splats,
 )
 from drmlt_mitsuba_tpu_torch.integrators.mmlt import (  # noqa: E402
     make_mmlt_trace, mmlt_masks, mmlt_n_dims,
@@ -2138,6 +2163,263 @@ def slice6(name, dev, gen, report, mc_refs, s5):
     return out
 
 
+# ---------------------------------------------------------------- slice 7
+# phase 24: the generic DRMLT step (integrators/drmlt.py) over the trace
+# kernels, the acceptance map, the pooled MMLT route, the five other filters
+GEN_CHAINS = 16384      # 24a: chains of one step, kernel against twin
+FILTERS = ("box", "tent", "gaussian", "mitchell", "catmullrom", "lanczos")
+SPLATS = 1 << 20        # 24d: splats per filter, kernel against twin
+SPLAT_RTOL = 1e-5       # 24d: per pixel, of the sum of |tap| landing there
+
+
+def slice7(name, dev, gen, report, mc_refs, s5):
+    """Phase 24: the generic DRMLT step and what it unlocks.  Returns the
+    launches of the main-path renders of (b)-(d)."""
+    fc = filmlib.make_film_config(SIZE, SIZE, "box")
+    pcfg = PathConfig(max_depth=DEPTH, rr_depth=100)
+    D = pcfg.n_dims + pcfg.n_dims % 2
+    cornell = cornell_box(SIZE, SIZE)
+    trace = make_path_trace(cornell, pcfg, dev)
+    launches7 = dict.fromkeys(build.LAUNCHES, 0)
+
+    def count():
+        for key, c in build.LAUNCHES.items():
+            launches7[key] += c
+
+    # ---- 24a. one generic step on the card against its twin on the CPU ----
+    report["generic_step_vs_twin"] = {}
+    twin = make_path_trace(cornell, pcfg, "cpu")
+    cand = torch.rand((8 * GEN_CHAINS, D), generator=gen, device=dev)
+    u0 = cand[torch.nonzero(trace(cand).lum > 0)[:GEN_CHAINS, 0]]
+    need(u0.shape[0] == GEN_CHAINS, "too few valid starting states")
+    st_k = state_from_splats(u0, trace(u0))
+    st_t = ChainState(*(t.cpu() for t in (st_k.u, st_k.lum, st_k.pos,
+                                          st_k.value)))
+    frozen = torch.zeros(D, dtype=torch.bool)
+    for kind, mixture in (("green", False), ("mira", False),
+                          ("orbital", False), ("green", True)):
+        cfg = DRMLTConfig(type=kind, n_chains=GEN_CHAINS,
+                          acceptance_map=not mixture)
+        draws = draw_drmlt_uniforms(gen, GEN_CHAINS, D, kind)
+        runs = []
+        for tr, st, dv, dr in (
+                (trace, st_k, dev, draws),
+                (twin, st_t, "cpu", DRMLTUniforms(*(
+                    getattr(draws, f.name).cpu()
+                    for f in dataclasses.fields(DRMLTUniforms))))):
+            carry = (st, filmlib.new_film(fc, dv), filmlib.new_film(fc, dv))
+            step = (drmlt_mixture_step_from_uniforms if mixture
+                    else drmlt_step_from_uniforms)
+            (st2, film, acc), stats = sync_time(lambda: step(
+                tr, cfg, fc, frozen.to(dv), carry, dr))[0]
+            runs.append((st2, film, acc, stats))
+        (sk, fk, ak, tk), (sr, fr, ar, trs) = runs
+        ok = (sk.u.cpu() - sr.u).abs().max(1).values <= 2e-5
+        share = float(ok.double().mean())
+        film_err = float((fk.cpu() - fr).abs().max() / fr.abs().max())
+        acc_err = float((ak.cpu() - ar).abs().sum())
+        tag = f"{kind}{' mixture' if mixture else ''}"
+        report["generic_step_vs_twin"][tag] = dict(
+            chains_equal=share, film_err_over_max=film_err,
+            accmap_abs_diff=acc_err, a1=[float(tk["a1"]), float(trs["a1"])])
+        print(f"[24a generic step vs twin] {name}: {tag}, {GEN_CHAINS} "
+              f"chains, depth {DEPTH}: chains with equal state {share:.5f}, "
+              f"film max |d| / max {film_err:.2e}, accmap |d| sum "
+              f"{acc_err:.1f}, a1 {float(tk['a1']):.5f} vs "
+              f"{float(trs['a1']):.5f}")
+        need(share >= 0.99, f"generic step {tag}: {share} of chains agree")
+        need(film_err <= 5e-3, f"generic step {tag}: film differs {film_err}")
+
+    # ---- 24b. render_drmlt on the box against MC ---------------------------
+    n_steps = SIZE * SIZE * 256 // CHAINS
+    gen.manual_seed(90)
+    refb = filmlib.develop(fc, render_pt(cornell, pcfg, gen, SIZE * SIZE * 64,
+                                         fc, mode="accum"), mode="accum")
+    report["render_drmlt"] = {}
+    for tag, kw in (("green/accmap", dict(type="green",
+                                          acceptance_map=True)),
+                    ("mira", dict(type="mira")),
+                    ("orbital", dict(type="orbital")),
+                    ("green/mixture", dict(type="green", use_mixture=True))):
+        cfg = DRMLTConfig(n_chains=CHAINS, n_bootstrap=100_000, **kw)
+        gen.manual_seed(91)
+        img0, _ = render_drmlt(trace, cfg, fc, gen, D, n_steps)
+        gen.manual_seed(92)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: render_drmlt(
+            trace, cfg, fc, gen, D, n_steps))
+        count()
+        row = mcmc_vs_mc(f"render_drmlt {tag}", img, img0, mc_refs["path"],
+                         refb, MC_GATE["path"])
+        muts = CHAINS * n_steps
+        row.update(b=float(aux["b"]), wall_s=wall, mutations=muts,
+                   mutations_per_s=muts / wall,
+                   a1=float(aux["stats"]["a1"].mean()))
+        if not cfg.use_mixture:
+            row.update(accept2=float(aux["stats"]["accept2"].mean()))
+        if cfg.acceptance_map:
+            am = aux["accmap"].double()
+            r_sum, g_sum = float(am[..., 0].sum()), float(am[..., 1].sum())
+            n1 = int(aux["stats"]["n_accept1"].sum())
+            n2 = int(aux["stats"]["n_accept2"].sum())
+            row.update(accmap_r=r_sum, accmap_g=g_sum, n_accept1=n1,
+                       n_accept2=n2)
+            need(r_sum == n1 and g_sum == n2 and n2 > 0,
+                 f"accmap R / G sums {r_sum} / {g_sum} are not the accept "
+                 f"counts {n1} / {n2}")
+        report["render_drmlt"][tag] = row
+        print(f"[24b render_drmlt, {tag}] {name}: cornell, depth {DEPTH}, "
+              f"{CHAINS} chains x {n_steps} steps: warm {wall:.3f} s "
+              f"({muts / wall:.4e} mutations/s, bootstrap included); b "
+              f"{row['b']:.6f}; vs MC mean rel {row['mean_rel_err']:.4f} "
+              f"(gate {MC_GATE['path']}), shape L1 {row['shape_l1']:.4f} "
+              f"against {row['shape_expected']:.4f}"
+              + (f"; accmap R {row['accmap_r']:.0f} = accept1 of small steps "
+                 f"{row['n_accept1']}, G {row['accmap_g']:.0f} = accept2 "
+                 f"{row['n_accept2']}" if cfg.acceptance_map else ""))
+    # the generic step beside the chain kernel on one configuration
+    cfg_g = DRMLTConfig(type="green", n_chains=CHAINS, n_bootstrap=100_000)
+    prof_rows = {}
+    for route, fn in (
+            ("render_drmlt", lambda: render_drmlt(trace, cfg_g, fc, gen, D,
+                                                  n_steps)),
+            ("render_drmlt_path", lambda: render_drmlt_path(
+                cornell, pcfg, cfg_g, fc, gen, n_steps))):
+        gen.manual_seed(93)
+        _, wall = sync_time(fn)
+        gen.manual_seed(94)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = sync_time(fn)
+        busy, per = device_profile(prof.events(), prof_wall)
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])
+        prof_rows[route] = dict(
+            wall_s=wall, mutations_per_s=CHAINS * n_steps / wall,
+            busy_share=busy, profile_wall_s=prof_wall,
+            ms_per_step=wall / n_steps * 1e3,
+            kernels_ms=[[k, t, c] for k, (t, c) in top[:8]])
+        need(busy > 0, "the profiler saw no device activity")
+    report["generic_vs_chain_kernel"] = prof_rows
+    g, c = prof_rows["render_drmlt"], prof_rows["render_drmlt_path"]
+    print(f"[24b generic step vs chain kernel] {name}: cornell, green, "
+          f"three-state splat, {CHAINS} chains x {n_steps} steps: "
+          f"render_drmlt {g['wall_s']:.3f} s ({g['mutations_per_s']:.4e} "
+          f"mutations/s, {g['ms_per_step']:.3f} ms a step), device busy "
+          f"{g['busy_share']:.4f}; render_drmlt_path {c['wall_s']:.3f} s "
+          f"({c['mutations_per_s']:.4e} mutations/s), device busy "
+          f"{c['busy_share']:.4f}; generic top kernels " + "; ".join(
+              f"{k.split('(')[0][:40]} {t:.3f} ms x{n}"
+              for k, t, n in g["kernels_ms"][:4]))
+
+    # ---- 24c. the CLI's pooled and grouped MMLT routes against MC ----------
+    report["mmlt_generic_cli"] = {}
+    ref_c, _ = mc_refs["cornell"]
+    for tag, d in (("pooled/fixEmitterPath",
+                    ["grouped=false", "fixEmitterPath=true"]),
+                   ("grouped/acceptanceMap", ["acceptanceMap=true"])):
+        defs = ["technique=mmlt", f"maxDepth={MMLT_DEPTH}", "variant=orbital",
+                "luminanceSamples=100000"] + d
+        sc, xs = cli.load_scene("cornell", dict(kv.split("=", 1)
+                                                for kv in defs))
+        args = argparse.Namespace(D=defs, chains=CHAINS, spp=256, seed=95)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: cli.render(args, sc, xs, dev))
+        count()
+        mean_rel, block_l1 = mc_compare(img, ref_c)
+        row = dict(wall_s=wall, mutations=aux["mutations"],
+                   mutations_per_s=aux["mutations"] / wall,
+                   b=float(aux["b"]), mean_rel_err=mean_rel,
+                   block_rel_l1=block_l1, gate=MC_GATE["cornell"])
+        if aux["accmap"] is not None:
+            am = aux["accmap"].double()
+            n1 = sum(int(st["n_accept1"].sum())
+                     for st in aux["stats"].values())
+            row.update(accmap_r=float(am[..., 0].sum()), n_accept1=n1)
+            need(row["accmap_r"] == n1 and n1 > 0, f"{tag}: accmap R sum "
+                 f"{row['accmap_r']} is not the accept count {n1}")
+        report["mmlt_generic_cli"][tag] = row
+        print(f"[24c CLI drmlt mmlt {tag}] {name}: cornell, max_depth "
+              f"{MMLT_DEPTH}, {CHAINS} chains, spp 256: {wall:.3f} s "
+              f"({row['mutations_per_s']:.4e} mutations/s, bootstrap "
+              f"included); b {row['b']:.6f}; vs MC mean rel {mean_rel:.4f} "
+              f"(gate {MC_GATE['cornell']}), 16x16-block rel L1 "
+              f"{block_l1:.4f}")
+        need(bool(torch.isfinite(img).all()), f"{tag}: image not finite")
+        need(mean_rel < MC_GATE["cornell"], f"CLI mmlt {tag}: differs from "
+             f"MC by {mean_rel}")
+
+    # ---- 24d. the splat kernel at every footprint; the gaussian scene ------
+    report["splat_filters"] = {}
+    for fname in FILTERS:
+        fcf = filmlib.make_film_config(SIZE, SIZE, fname)
+        r = fcf.filter.radius
+        # positions a radius inside the film: no footprint total near 0
+        pos = r + torch.rand((SPLATS, 2), generator=gen, device=dev) * (
+            SIZE - 2 * r)
+        val = torch.rand((SPLATS, 3), generator=gen, device=dev)
+        w = torch.rand((SPLATS,), generator=gen, device=dev)
+        py, px, vals = filmlib.taps(fcf, pos, val, w, mode="splat")
+        film_k = SP.splat_add_(filmlib.new_film(fcf, dev), py, px, vals)
+        film_t = SP.splat_add_reference_(filmlib.new_film(fcf, dev), py, px,
+                                         vals)
+        mag = SP.splat_add_reference_(filmlib.new_film(fcf, dev), py, px,
+                                      vals.abs())
+        err = float(((film_k - film_t).abs() / mag.clamp(min=1e-30)).max())
+        ms = event_ms(lambda: SP.splat_add_(film_k, py, px, vals), runs=5)
+        report["splat_filters"][fname] = dict(
+            footprint=fcf.filter.footprint, taps=int(py.shape[0]),
+            max_rel_err=err, ms=ms)
+        print(f"[24d splat kernel, {fname}] {name}: {SPLATS} splats x "
+              f"{fcf.filter.footprint}^2 taps: per-pixel |kernel - twin| / "
+              f"sum |tap| {err:.2e} (gate {SPLAT_RTOL}); {ms:.4f} ms a launch")
+        need(err <= SPLAT_RTOL, f"splat kernel, {fname}: per-pixel error "
+             f"{err}")
+    xml = os.path.join(ROOT, "chiprun_out", "cornell_gaussian.xml")
+    os.makedirs(os.path.dirname(xml), exist_ok=True)
+    with open(CORNELL_XML) as f:
+        text = f.read()
+    need('<rfilter type="box"/>' in text, "cornell.xml has no box rfilter")
+    with open(xml, "w") as f:
+        f.write(text.replace('<rfilter type="box"/>', ""))
+    report["gaussian_xml"] = {}
+    for tag, tech, d in (
+            ("drmlt path", "path", ["integrator=drmlt"]),
+            ("drmlt grouped mmlt", "mmlt",
+             ["integrator=drmlt", "technique=mmlt"]),
+            ("integrator=path", "path", ["integrator=path"]),
+            ("drmlt path twoStage", "path",
+             ["integrator=drmlt", "twoStage=true"]),
+            ("drmlt path separateDirect", "path",
+             ["integrator=drmlt", "separateDirect=true"])):
+        defs = d + ["type=orbital", f"spp={XML_SPP}"]
+        sc, xs = cli.load_scene(xml, dict(kv.split("=", 1) for kv in defs))
+        need(xs.filter_name == "gaussian", f"{xml}: filter {xs.filter_name}")
+        args = argparse.Namespace(D=defs, chains=CHAINS, spp=None, seed=96)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: cli.render(args, sc, xs, dev))
+        count()
+        ref, gate = s5[f"xml_{tech}"]["ref"], s5[f"xml_{tech}"]["gate"]
+        mean_rel, block_l1 = mc_compare(img, ref)
+        ratio = (img.double().mean((0, 1)) / ref.double().mean((0, 1)))
+        report["gaussian_xml"][tag] = dict(
+            wall_s=wall, mean_rel_err=mean_rel, block_rel_l1=block_l1,
+            gate=gate, channel_ratio_to_mc=ratio.tolist())
+        print(f"[24d cornell.xml, gaussian filter, {tag}] {name}: "
+              f"{wall:.3f} s; vs the box-filter MC mean rel {mean_rel:.4f} "
+              f"(phase 22's gate {gate:.4f}), channel means / MC "
+              f"{[round(x, 4) for x in ratio.tolist()]}")
+        need(bool(torch.isfinite(img).all()), f"{tag}: image not finite")
+        need(mean_rel < gate, f"gaussian cornell.xml {tag}: differs from MC "
+             f"by {mean_rel}")
+
+    report["slice7_launches"] = launches7
+    print(f"[24 slice 7 launches, the main path's renders] {name}: "
+          f"{launches7}")
+    for key in ("path_trace", "mmlt_trace", "splat_add", "path_trace[full]",
+                "mmlt_trace[full]"):
+        need(launches7[key] > 0, f"{key} did not launch on phase 24's path")
+    return launches7
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2681,6 +2963,9 @@ def main():
     # ---- 23. slice 6 --------------------------------------------------------
     s6 = slice6(name, dev, gen, report, mc_refs, s5)
 
+    # ---- 24. slice 7 --------------------------------------------------------
+    s7 = slice7(name, dev, gen, report, mc_refs, s5)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -2691,22 +2976,24 @@ def main():
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0],
                     bound_by=bnd[1], library_ms=library)
 
+    # launches: the main path's renders of slices 1-3 and, for the trace and
+    # splat kernels, phase 24's (the generic step, the CLI's new routes)
     kernels = [
         entry("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
-              launches["path_trace"], path_err, ms_path, plain_path,
-              bound_path),
+              launches["path_trace"] + s7["path_trace"], path_err, ms_path,
+              plain_path, bound_path),
         entry("drmlt_chain_kernel[path]", "drmlt_chain.cu",
               "megadrmlt.py:105", launches["drmlt_path"], chain_err,
               ms_chain, plain_chain, bound_chain),
         entry("mmlt_trace_kernel", "mmlt_trace.cu", "megammlt.py:214",
-              launches2["mmlt_trace"], mmlt_err, ms_mmlt, plain_mmlt,
-              bound_mmlt),
+              launches2["mmlt_trace"] + s7["mmlt_trace"], mmlt_err, ms_mmlt,
+              plain_mmlt, bound_mmlt),
         entry("drmlt_chain_kernel[mmlt]", "drmlt_chain.cu",
               "megadrmlt.py:105", launches2["drmlt_mmlt"], mmlt_chain_err,
               ms_mmlt_chain, plain_mmlt_chain, bound_mmlt_chain),
         # library: index_add_ of the taps
         entry("splat_add_kernel", "splat.cu", "splat_kernel.py:79",
-              s3["launches"]["splat_add"], *s3["splat"]),
+              s3["launches"]["splat_add"] + s7["splat_add"], *s3["splat"]),
         entry("path_trace_rad_kernel", "path_trace_grad.cu",
               "megatrace.py:1798", s3["launches"]["path_trace_rad"],
               *s3["rad"]),
@@ -2732,9 +3019,9 @@ def main():
               (s4["walk"]["bound_ms"], s4["walk"]["bound_by"])),
         # slice 5: the full-scope instantiations on the const configuration
         # (phases 19-21), launched by slice 5's renders (phase 22)
-        *(entry(f"{kn}[full]", src_f, rep, s5["launches"][lk + "[full]"],
-                s5[key]["err"], s5[key]["ms"], s5[key]["plain_ms"],
-                s5[key]["bnd"])
+        *(entry(f"{kn}[full]", src_f, rep, s5["launches"][lk + "[full]"]
+                + s7[lk + "[full]"], s5[key]["err"], s5[key]["ms"],
+                s5[key]["plain_ms"], s5[key]["bnd"])
           for kn, src_f, rep, lk, key in (
               ("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
                "path_trace", "path"),

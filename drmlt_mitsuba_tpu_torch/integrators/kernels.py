@@ -41,10 +41,11 @@ class Kelemen:
     """Kelemen 'hole' kernel: |du| log-uniform on [s1, s2], random sign.
 
     log_pdf is -inf outside [s1, s2].  The reference writes
-    log(max(pdf, 1e-38)), but 1e-38 is a float32 denormal that XLA flushes
-    to zero on the CPU and the TPU, so its value there is -inf as well; the
-    port states that directly (CUDA keeps denormals, where the floor would
-    give -87.5 instead)."""
+    log(max(pdf, 1e-38)), and 1e-38 is a float32 denormal: JAX 0.9 on the
+    CPU gives -inf for it eagerly but -87.5 under jit, and CUDA keeps
+    denormals (-87.5).  The port states -inf directly; the mira ratio
+    (integrators/drmlt.py) is then 0 or NaN where a jitted reference's is
+    tiny or finite, on dims whose offset lies outside the kernel's range."""
     s1: float = S1_DEFAULT
     s2: float = S2_DEFAULT
 

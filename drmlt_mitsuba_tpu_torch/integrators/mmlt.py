@@ -8,8 +8,11 @@ technique dims:
 The traced value is multiplied by D (uniform depth pmf), so b and every
 MH ratio are consistent with the plain Monte-Carlo estimator.  This is the
 MMLT kernel's own interface (ops/megammlt.py), which the host PSSMLT
-integrator runs with `mmlt_masks`' pinned depth dim; the depth-grouped
-driver (integrators/mmlt_grouped.py) pins the depth dim per group instead.
+integrator and the generic DRMLT step (integrators/drmlt.py, the CLI's
+`grouped=false`) run with `mmlt_masks`' pinned depth dim, and the generic
+step's fixEmitterPath with `mmlt_emitter_mask` / `mmlt_lt_mask_fn`; the
+depth-grouped driver (integrators/mmlt_grouped.py) pins the depth dim per
+group instead.
 """
 from __future__ import annotations
 
@@ -37,6 +40,29 @@ def mmlt_masks(cfg: BDPTConfig, even: bool = True, device=None):
     frozen[1] = True
     pinned[0] = True
     return frozen, pinned, n
+
+
+def mmlt_emitter_mask(cfg: BDPTConfig, n_dims: int, device=None):
+    """(n_dims,) mask of the light-subpath dims (fixEmitterPath)."""
+    mask = torch.zeros((n_dims,), dtype=torch.bool, device=device)
+    start = TECH_DIMS + cfg.eye_dims
+    mask[start:start + cfg.light_dims] = True
+    return mask
+
+
+def mmlt_lt_mask_fn(cfg: BDPTConfig):
+    """lt(u) -> (C,) bool: is the chain's current strategy light tracing
+    (t == 1)?  depth = 1 + floor(u0 D), s = min(floor(u1 (depth + 1)),
+    depth), t = depth + 1 - s."""
+    D = cfg.max_depth
+
+    def lt(u):
+        depth = 1 + torch.clamp((u[:, 0] * D).to(torch.int32), max=D - 1)
+        s_pick = torch.minimum(
+            (u[:, 1] * (depth + 1).to(torch.float32)).to(torch.int32), depth)
+        return depth + 1 - s_pick == 1
+
+    return lt
 
 
 def make_mmlt_trace(scene: Scene, cfg: BDPTConfig, device):

@@ -10,14 +10,19 @@ it accumulates into its own film, developed with b_k / (N_k * steps_eff /
 npixels), so every group is normalized by its own mutation count, and the
 image is the sum.
 
-The kernel route of the reference (`_run_group_mega`) is the port's only
-route: the chain kernel on a CUDA device (ops/megadrmlt.py), its twin on
-the CPU, in DRMLT or in pssmlt mode.  The reference's XLA step loop, the
-mixture and acceptance-map options and the sharded driver are not ported.
+Two routes per group, as in the reference: the chain kernel (the
+reference's `_run_group_mega`: ops/megadrmlt.py on a CUDA device, its twin
+on the CPU, in DRMLT or in pssmlt mode), and, where `use_mixture`,
+`acceptance_map` or a filter footprint other than 1 rule the chain kernel
+out, the generic step (integrators/drmlt.py:run_chains over the group's
+MMLT trace, steps_k steps, the strategy dim frozen; mmlt_grouped.py:
+256-320).  The generic groups develop with b_k / (N_k * steps_k /
+npixels) and share one acceptance map.  The sharded driver is not ported.
 
 Randomness comes from one torch.Generator, drawn in this order: the
 bootstrap vectors of groups 1..max_depth, then for each group that runs
-(in order of k) its resampling uniforms and its chain seed.
+(in order of k) its resampling uniforms and then its chain seed or its
+steps' uniforms.
 """
 from __future__ import annotations
 
@@ -25,10 +30,14 @@ import torch
 
 from drmlt_mitsuba_tpu_torch.core.rng import uniform
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
+from drmlt_mitsuba_tpu_torch.integrators.drmlt import (
+    run_chains, warn_splat_mode,
+)
 from drmlt_mitsuba_tpu_torch.integrators.mcmc import (
     BOOTSTRAP_BATCH, state_from_splats,
 )
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt, megammlt
+from drmlt_mitsuba_tpu_torch.render import film as filmlib
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
 
 N_MUT = 64     # mutations per chain-kernel launch (16 below 32 steps)
@@ -53,6 +62,33 @@ def make_mmlt_trace_fixed(scene: Scene, k: int, light_image: bool, device):
         return megammlt.to_splats(out, 1.0 / k)
 
     return trace, cfg, n_dims, tables
+
+
+def grouped_masks(cfg: BDPTConfig, n_dims: int, device=None):
+    """The frozen mask of a depth-k group: its strategy dim (index 0)
+    moves only on large steps; a group has no pinned dim."""
+    mask = torch.zeros((n_dims,), dtype=torch.bool, device=device)
+    mask[0] = True
+    return mask
+
+
+def grouped_emitter_mask(cfg: BDPTConfig, n_dims: int, device=None):
+    """A depth-k group's light-subpath dims (fixEmitterPath)."""
+    mask = torch.zeros((n_dims,), dtype=torch.bool, device=device)
+    start = 1 + cfg.eye_dims
+    mask[start:start + cfg.light_dims] = True
+    return mask
+
+
+def grouped_lt_mask_fn(cfg: BDPTConfig):
+    """lt(u) -> (C,) bool: is the group's chain light tracing, s = min(
+    floor(u0 (k + 1)), k) == k (t = k + 1 - s == 1)?"""
+    k = cfg.max_depth
+
+    def lt(u):
+        return torch.clamp((u[:, 0] * (k + 1)).to(torch.int32), max=k) == k
+
+    return lt
 
 
 def group_bootstrap(trace, u_boot):
@@ -112,15 +148,16 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
     npixels).  average_luminance, when given, scales every b_k so that
     they sum to it (mmlt_grouped.py:222-225); the schedule does not change.
     pssmlt runs every launch in the chain kernel's pssmlt mode (stage-1-only
-    PSSMLT, the reference's control).  Returns (image (H, W, 3), aux) with
-    aux b, b_k, sizes, steps_per_group, and per group that ran its
-    steps_eff, stats and image (the summand), like the reference."""
-    if dcfg.use_mixture or dcfg.acceptance_map:
-        raise NotImplementedError(
-            "useMixture / acceptanceMap are not ported to the chain kernel")
-    if film_cfg.filter.footprint != 1:
-        raise NotImplementedError("the chain kernel splats with a box filter")
+    PSSMLT, the reference's control).  With use_mixture, acceptance_map or
+    a filter footprint other than 1 every group runs the generic step
+    instead, steps_k steps developed at b_k / (N_k * steps_k / npixels),
+    and pssmlt raises ValueError there (mmlt_grouped.py:276-281).  Returns
+    (image (H, W, 3), aux) with aux b, b_k, sizes, steps_per_group, accmap
+    (None unless acceptance_map), and per group that ran its steps_eff,
+    stats and image (the summand), like the reference."""
     device = generator.device
+    generic = (dcfg.use_mixture or dcfg.acceptance_map
+               or film_cfg.filter.footprint != 1)
     D = bcfg.max_depth
     n_total = -(-max(8192, dcfg.n_bootstrap // D) // BOOTSTRAP_BATCH) \
         * BOOTSTRAP_BATCH
@@ -131,8 +168,8 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
             scene, k, bcfg.light_image, device)
         u_boot = uniform((n_total, n_dims), generator)
         lums, b_k = group_bootstrap(trace, u_boot)
-        groups.append(dict(k=k, trace=trace, tables=tables, u_boot=u_boot,
-                           lums=lums, b=b_k))
+        groups.append(dict(k=k, trace=trace, cfg=cfg_k, tables=tables,
+                           u_boot=u_boot, lums=lums, b=b_k))
 
     b_ks = [float(g["b"]) for g in groups]     # one host sync at set-up
     b_total = sum(b_ks)
@@ -144,9 +181,35 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
 
     img = torch.zeros((film_cfg.height, film_cfg.width, 3),
                       dtype=torch.float32, device=device)
+    accmap = (filmlib.new_film(film_cfg, device) if dcfg.acceptance_map
+              else None)
     all_stats, steps_eff_k, images = {}, {}, {}
     for g, n_k, bk, steps_k in zip(groups, sizes, b_ks, steps):
         if n_k == 0 or steps_k == 0:
+            continue
+        if generic:
+            if pssmlt:
+                raise ValueError(
+                    f"pssmlt=True but depth group k={g['k']} runs the "
+                    "generic step; use integrators.pssmlt instead")
+            warn_splat_mode(dcfg, f"depth group k={g['k']}")
+            cfg_k = g["cfg"]
+            n_dims = g["u_boot"].shape[1]
+            fix = dcfg.fix_emitter_path
+            u_pick = uniform((n_k,), generator)
+            state = group_starts(g["trace"], g["u_boot"], g["lums"], u_pick)
+            _, film, accmap, stats = run_chains(
+                g["trace"], dcfg, film_cfg, generator, state, steps_k,
+                grouped_masks(cfg_k, n_dims, device), accmap,
+                emitter_mask=(grouped_emitter_mask(cfg_k, n_dims, device)
+                              if fix else None),
+                lt_mask_fn=grouped_lt_mask_fn(cfg_k) if fix else None)
+            images[g["k"]] = filmlib.develop(
+                film_cfg, film, mode="splat",
+                scale=bk / (n_k * steps_k / film_cfg.npixels))
+            img = img + images[g["k"]]
+            all_stats[g["k"]] = stats
+            steps_eff_k[g["k"]] = steps_k
             continue
         nm = 16 if steps_k < 32 else N_MUT
         n_launches = max(1, -(-steps_k // nm))
@@ -170,4 +233,4 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
         steps_eff_k[g["k"]] = steps_eff
     return img, dict(b=b_total, b_k=b_ks, sizes=sizes,
                      steps_per_group=steps, steps_eff=steps_eff_k,
-                     stats=all_stats, images=images)
+                     stats=all_stats, images=images, accmap=accmap)

@@ -1,6 +1,7 @@
-"""Renderer CLI for the port (counterpart of drmlt_mitsuba_tpu/utils/cli.py,
+"""Renderer CLI for the port (counterpart of drmlt_mitsuba_tpu/utils/cli.py:
 integrator=drmlt and integrator=pssmlt over the path and the MMLT
-technique).
+technique, and the Monte-Carlo integrators path, volpath, volpath_simple
+and direct).
 
     python -m drmlt_mitsuba_tpu_torch.utils.cli \\
         tests/data/large/cornell_large.xml -D integrator=drmlt \\
@@ -14,30 +15,37 @@ technique).
 
 The scene argument is a Mitsuba scene XML (scene/xml.py reads the ported
 subset; `-D key=value` substitutes `$key`, and the film size, filter,
-sampleCount and the integrator's properties come from the file) or a
-built-in name: `cornell` (the 256x256 Cornell box, tall box `-D
+sampleCount and the integrator's properties come from the file; a file
+without <integrator> renders as integrator=path) or a built-in name:
+`cornell` (the 256x256 Cornell box, tall box `-D
 tallBox=diffuse|mirror|glass`) or `veach` (the 256x256 veach-door scene),
 whose integrator properties are the `-D` keys.  As in the reference CLI
 (cli.py:134-140), every `-D` pair is also an integrator option unless the
 file's integrator has that key (the file wins), and the integrator reads
 the keys the reference reads:
 
+  * integrator=path|volpath|volpath_simple|direct: render_pt in accum mode
+    (cli.py:150-163);
   * integrator=drmlt, technique=path (cli.py:369-409) or technique=mmlt
-    through the depth-grouped driver (cli.py:314-367);
-  * integrator=pssmlt, technique=path or mmlt (the pooled MMLT trace with
-    its pinned depth dim), through integrators/pssmlt.py (cli.py:60-108,
-    445-478, 540-595): n_steps = W H spp / chains run in blocks of
-    min(256, n_steps), so the steps run and the develop scale count whole
-    blocks.
+    through the depth-grouped driver (cli.py:314-367), with
+    acceptanceMap, useMixture and any reconstruction filter;
+  * the reference's generic MCMC loop (cli.py:60-108, 413-600) for
+    integrator=pssmlt, and for drmlt with twoStage, separateDirect,
+    acceptanceMap or useMixture over the path technique or with
+    grouped=false over the pooled MMLT trace: n_steps = W H spp / chains
+    run in blocks of min(256, n_steps), so the steps run and the develop
+    scale count whole blocks.
 
-Keys the reference reads that the port does not honour yet raise, naming
-the key: acceptanceMap, useMixture (drmlt), twoStage, separateDirect, and
-grouped=false (drmlt over mmlt).  The chain kernel splats with a box filter
-only: another filter raises.
+With acceptanceMap, main writes <out>_acceptance.exr beside the image
+whenever the reference does, pssmlt's all-zero map included.  What the
+port does not render yet raises, naming it: other integrators (bdpt, ...),
+other techniques, samplers other than independent, MMLT with a thin lens,
+PNG output.
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import sys
 import time
 
@@ -45,19 +53,24 @@ import numpy as np
 import torch
 
 from drmlt_mitsuba_tpu_torch.integrators.drmlt import (
-    DRMLTConfig, render_drmlt_path,
+    DRMLTConfig, render_drmlt, render_drmlt_path,
 )
 from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
 from drmlt_mitsuba_tpu_torch.integrators.mmlt import (
-    make_mmlt_trace, mmlt_masks,
+    make_mmlt_trace, mmlt_emitter_mask, mmlt_lt_mask_fn, mmlt_masks,
 )
 from drmlt_mitsuba_tpu_torch.integrators.mmlt_grouped import (
     render_drmlt_mmlt_grouped,
 )
-from drmlt_mitsuba_tpu_torch.integrators.path import make_path_trace
+from drmlt_mitsuba_tpu_torch.integrators.path import (
+    make_path_trace, render_pt,
+)
 from drmlt_mitsuba_tpu_torch.integrators.pssmlt import (
     PSSMLTConfig, render_pssmlt,
+)
+from drmlt_mitsuba_tpu_torch.integrators.twostage import (
+    apply_importance_to_image, luminance_pass, with_importance_map,
 )
 from drmlt_mitsuba_tpu_torch.render import film as filmlib
 from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box, veach_door
@@ -74,11 +87,10 @@ KEYS = ("integrator", "technique", "variant", "pLarge", "sigma",
         "equalChains", "grouped", "chains", "averageLuminance",
         "kelemenStyleMutation", "kelemenStyleWeights", "mutationSizeLow",
         "mutationSizeHigh", "pLens", "pCaustic", "lensSigma", "causticDims",
-        "acceptanceMap", "useMixture", "twoStage", "separateDirect")
-# read by the reference for these integrators, not honoured by the port yet
-UNPORTED = {"acceptanceMap": ("drmlt", "pssmlt"), "useMixture": ("drmlt",),
-            "twoStage": ("drmlt", "pssmlt"),
-            "separateDirect": ("drmlt", "pssmlt")}
+        "acceptanceMap", "useMixture", "twoStage", "separateDirect",
+        "directSamples")
+# the sampling integrators, rendered by render_pt in accum mode
+PT_TYPES = ("path", "volpath", "volpath_simple", "direct")
 
 
 def _pbool(v, default=False):
@@ -131,115 +143,227 @@ def integrator_config(args, settings: RenderSettings) -> dict:
 
 
 def render(args, scene, settings: RenderSettings, device):
-    """(image (H, W, 3), aux) of the integrator `settings` and args.D name;
-    aux["mutations"] counts the mutations run."""
+    """(image (H, W, 3), aux) of the integrator `settings` and args.D name.
+
+    aux["mutations"] counts the mutations run (aux["samples"] the paths of
+    a sampling integrator), and aux["accmap"] is the (H, W, 4) acceptance
+    map that main writes as <out>_acceptance.exr, or None.  Routes, as in
+    the reference CLI:
+      * path | volpath | volpath_simple | direct: `_render_pt`;
+      * drmlt over mmlt, grouped (the default) and neither twoStage nor
+        separateDirect set: the depth-grouped driver (cli.py:314-367),
+        whose groups run the generic step under acceptanceMap, useMixture
+        or a filter other than box;
+      * drmlt over path with none of acceptanceMap, useMixture, twoStage
+        and separateDirect: render_drmlt_path (cli.py:369-409; a filter
+        other than box sends it to render_drmlt);
+      * everything else, pssmlt included: `_render_mcmc`.
+    Every boolean key is read as a bool, so `-D twoStage=false` is false;
+    the reference tests twoStage, separateDirect (cli.py:317-318, 372-373)
+    and the acceptance map's film (cli.py:539) by the raw string, so
+    there "false" also sends a render to its generic loop, an estimator of
+    the same image."""
     icfg = integrator_config(args, settings)
     itype = icfg.get("type")
+    W, H = settings.width, settings.height
+    fc = filmlib.make_film_config(W, H, settings.filter_name)
+    spp = args.spp if args.spp is not None else settings.spp
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    if itype in PT_TYPES:
+        return _render_pt(icfg, itype, scene, settings.sampler, fc, gen, spp)
     if itype not in ("drmlt", "pssmlt"):
         raise NotImplementedError(
-            f"integrator {itype!r} not yet ported (drmlt, pssmlt; a scene "
-            f"file may leave it to -D integrator=drmlt)")
-    for key, types in UNPORTED.items():
-        if itype in types and _pbool(icfg.get(key)):
-            raise NotImplementedError(
-                f"{key}: not yet ported (integrator {itype})")
-    if settings.filter_name != "box":
-        raise NotImplementedError(
-            f"film filter {settings.filter_name!r} not yet ported: the chain "
-            f"kernel splats with a box filter only")
+            f"integrator {itype!r} not yet ported (drmlt, pssmlt, "
+            f"{', '.join(PT_TYPES)})")
     technique = icfg.get("technique", "path")
     if technique not in ("path", "mmlt"):
         raise NotImplementedError(
             f"technique {technique!r} not yet ported (path, mmlt)")
-    if (itype == "drmlt" and technique == "mmlt"
-            and not _pbool(icfg.get("grouped"), True)):
-        raise NotImplementedError(
-            "grouped=false: the pooled MMLT driver is not ported")
     n_chains = int(icfg.get("chains", args.chains))
     avg_lum = float(icfg.get("averageLuminance", -1))
     avg_lum = avg_lum if avg_lum > 0 else None
-    W, H = settings.width, settings.height
-    fc = filmlib.make_film_config(W, H, "box")
-    spp = args.spp if args.spp is not None else settings.spp
     n_steps = max(1, W * H * spp // n_chains)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    if itype == "pssmlt":
-        img, aux = _render_pssmlt(icfg, scene, fc, gen, n_chains, n_steps,
-                                  avg_lum)
-        aux["mutations"] = n_chains * aux["steps"]
+    staged = (_pbool(icfg.get("twoStage"))
+              or _pbool(icfg.get("separateDirect")))
+    if (itype == "drmlt" and technique == "mmlt"
+            and _pbool(icfg.get("grouped"), True) and not staged):
+        bcfg = BDPTConfig(max_depth=int(icfg.get("maxDepth", 5)),
+                          light_image=_pbool(icfg.get("lightImage"), True),
+                          thinlens=_thinlens(scene))
+        img, aux = render_drmlt_mmlt_grouped(
+            scene, bcfg, _drmlt_config(icfg, n_chains, grouped=True), fc,
+            gen, n_steps, average_luminance=avg_lum,
+            min_group=max(64, min(1024, n_chains // 4)),
+            equal_chains=_pbool(icfg.get("equalChains"), True))
+        aux["mutations"] = sum(aux["sizes"][k - 1] * s
+                               for k, s in aux["steps_eff"].items())
         return img, aux
-    cfg = DRMLTConfig(
+    if (itype == "drmlt" and technique == "path" and not staged
+            and not _pbool(icfg.get("acceptanceMap"))
+            and not _pbool(icfg.get("useMixture"))):
+        md = int(icfg.get("maxDepth", 8))
+        pcfg = PathConfig(max_depth=md if md > 0 else 12, rr_depth=100,
+                          min_depth=int(icfg.get("minDepth", 1)),
+                          thinlens=_thinlens(scene))
+        img, aux = render_drmlt_path(scene, pcfg,
+                                     _drmlt_config(icfg, n_chains), fc, gen,
+                                     n_steps, average_luminance=avg_lum)
+        aux["mutations"] = n_chains * aux["steps"]
+        aux["accmap"] = None
+        return img, aux
+    img, aux = _render_mcmc(icfg, itype, technique, scene, fc, gen,
+                            n_chains, n_steps, avg_lum)
+    aux["mutations"] = n_chains * aux["steps"]
+    return img, aux
+
+
+def _drmlt_config(icfg, n_chains: int, grouped: bool = False):
+    """The DRMLT options the grouped and the path driver read (cli.py:
+    336-355, 382-398): the grouped one also takes acceptanceMap,
+    useMixture and fixEmitterPath."""
+    extra = {}
+    if grouped:
+        extra = dict(
+            acceptance_map=_pbool(icfg.get("acceptanceMap"), False),
+            use_mixture=_pbool(icfg.get("useMixture"), False),
+            fix_emitter_path=_pbool(icfg.get("fixEmitterPath"), False))
+    return DRMLTConfig(
         type=icfg.get("variant", "green"),
         n_chains=n_chains,
         p_large=float(icfg.get("pLarge", 0.3)),
         sigma=float(icfg.get("sigma", 1 / 64)),
         scale_second=float(icfg.get("scaleSecond", 0.1)),
         timid_after_large=_pbool(icfg.get("timidAfterLarge"), False),
-        fix_emitter_path=_pbool(icfg.get("fixEmitterPath"), False),
         n_bootstrap=int(icfg.get("luminanceSamples", 100_000)),
-        splat_mode=icfg.get("splatMode", "sampled"),
-    )
-    if technique == "mmlt":
-        bcfg = BDPTConfig(max_depth=int(icfg.get("maxDepth", 5)),
-                          light_image=_pbool(icfg.get("lightImage"), True),
-                          thinlens=_thinlens(scene))
-        img, aux = render_drmlt_mmlt_grouped(
-            scene, bcfg, cfg, fc, gen, n_steps, average_luminance=avg_lum,
-            min_group=max(64, min(1024, n_chains // 4)),
-            equal_chains=_pbool(icfg.get("equalChains"), True))
-        aux["mutations"] = sum(aux["sizes"][k - 1] * s
-                               for k, s in aux["steps_eff"].items())
-        return img, aux
-    md = int(icfg.get("maxDepth", 8))
-    pcfg = PathConfig(max_depth=md if md > 0 else 12, rr_depth=100,
-                      min_depth=int(icfg.get("minDepth", 1)),
+        splat_mode=icfg.get("splatMode", "sampled"), **extra)
+
+
+def _render_pt(icfg, itype, scene, sampler, fc, gen, spp):
+    """integrator=path|volpath|volpath_simple|direct (cli.py:150-163):
+    W H spp paths of render_pt in accum mode at maxDepth (2 for direct),
+    no Russian roulette (rr_depth 100), developed in accum mode."""
+    if sampler != "independent":
+        raise NotImplementedError(
+            f"sampler {sampler!r} not yet ported (independent)")
+    depth = 2 if itype == "direct" else int(icfg.get("maxDepth", 8))
+    pcfg = PathConfig(max_depth=max(1, depth), rr_depth=100,
                       thinlens=_thinlens(scene))
-    img, aux = render_drmlt_path(scene, pcfg, cfg, fc, gen, n_steps,
-                                 average_luminance=avg_lum)
-    aux["mutations"] = n_chains * aux["steps"]
-    return img, aux
+    n = fc.width * fc.height * spp
+    film = render_pt(scene, pcfg, gen, n, fc, mode="accum")
+    return (filmlib.develop(fc, film, mode="accum"),
+            dict(samples=n, accmap=None))
 
 
-def _render_pssmlt(icfg, scene, fc, gen, n_chains, n_steps, avg_lum):
-    """integrator=pssmlt over the path or the pooled MMLT trace
-    (cli.py:60-108 build_trace, 445-478, 540-595): no Russian roulette
-    inside MCMC (rr_depth 100), an even PSS dimension, and the steps of
-    whole blocks of min(256, n_steps)."""
+def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
+                 avg_lum):
+    """The reference CLI's generic MCMC loop (cli.py:60-108 build_trace,
+    413-600): pssmlt, or drmlt through the generic step, over the path or
+    the pooled MMLT trace (its depth dim pinned, its strategy dim frozen,
+    fixEmitterPath's masks), no Russian roulette (rr_depth 100), an even
+    PSS dimension, the steps of whole blocks of min(256, n_steps).
+
+    separateDirect (path only): a render_pt pass at depth 2 with
+    directSamples (16) paths a pixel, added at develop, and the MCMC trace
+    at min_depth 3 (cli.py:416-428).  twoStage: a 1/16-resolution box
+    render_pt at 64 paths a pixel gives the importance map; the trace's
+    splats are divided by it, the image multiplied back, and Kelemen's
+    weights are off (cli.py:430-444, 466).  The reference's loop runs
+    drmlt_step whatever useMixture says (cli.py:520-524), and so does
+    this one.  With acceptanceMap the aux carries the map, pssmlt's the
+    zero film the reference allocates and no step splats into (cli.py:
+    539)."""
+    dev = gen.device
     md = int(icfg.get("maxDepth", 8))
     md = md if md > 0 else 12
-    pinned = None
-    if icfg.get("technique", "path") == "mmlt":
+    frozen = pinned = None
+    extras = {}
+    if technique == "mmlt":
         bcfg = BDPTConfig(max_depth=md,
                           light_image=_pbool(icfg.get("lightImage"), True),
                           thinlens=_thinlens(scene))
-        _, pinned, n_dims = mmlt_masks(bcfg, device=gen.device)
-        trace = make_mmlt_trace(scene, bcfg, gen.device)
+        frozen, pinned, n_dims = mmlt_masks(bcfg, device=dev)
+        trace = make_mmlt_trace(scene, bcfg, dev)
+        extras = dict(emitter_mask=mmlt_emitter_mask(bcfg, n_dims, dev),
+                      lt_mask_fn=mmlt_lt_mask_fn(bcfg))
     else:
         pcfg = PathConfig(max_depth=md, rr_depth=100,
                           min_depth=int(icfg.get("minDepth", 1)),
                           thinlens=_thinlens(scene))
         n_dims = pcfg.n_dims + pcfg.n_dims % 2
-        trace = make_path_trace(scene, pcfg, gen.device)
-    mcfg = PSSMLTConfig(
-        n_chains=n_chains,
-        p_large=float(icfg.get("pLarge", 0.3)),
-        kelemen_style_mutation=_pbool(icfg.get("kelemenStyleMutation"),
-                                      True),
-        kelemen_style_weights=_pbool(icfg.get("kelemenStyleWeights"), True),
-        mutation_size_low=float(icfg.get("mutationSizeLow", 1 / 1024)),
-        mutation_size_high=float(icfg.get("mutationSizeHigh", 1 / 64)),
-        sigma=float(icfg.get("sigma", 1 / 64)),
-        n_bootstrap=int(icfg.get("luminanceSamples", 100_000)),
-        p_lens=float(icfg.get("pLens", 0.0)),
-        p_caustic=float(icfg.get("pCaustic", 0.0)),
-        lens_sigma=float(icfg.get("lensSigma", 1 / 16)),
-        caustic_dims=int(icfg.get("causticDims", 7)),
-    )
+        trace = make_path_trace(scene, pcfg, dev)
+    W, H = fc.width, fc.height
+    direct_img = None
+    if _pbool(icfg.get("separateDirect")) and technique == "path":
+        dfilm = render_pt(scene, PathConfig(max_depth=2, rr_depth=100), gen,
+                          W * H * int(icfg.get("directSamples", 16)), fc,
+                          mode="accum")
+        direct_img = filmlib.develop(fc, dfilm, mode="accum")
+        trace = make_path_trace(scene, PathConfig(
+            max_depth=int(icfg.get("maxDepth", 8)), rr_depth=100,
+            min_depth=3), dev)
+    imap = None
+    if _pbool(icfg.get("twoStage")):
+        def lowres(w, h):
+            fc2 = filmlib.make_film_config(w, h, "box")
+            f2 = render_pt(scene, PathConfig(
+                max_depth=int(icfg.get("maxDepth", 8)), rr_depth=100), gen,
+                w * h * 64, fc2, mode="accum")
+            return filmlib.develop(fc2, f2, mode="accum")
+
+        imap = luminance_pass(lowres, fc)
+        trace = with_importance_map(trace, imap)
     block = max(1, min(PSSMLT_BLOCK, n_steps))
     done = -(-n_steps // block) * block
-    return render_pssmlt(trace, mcfg, fc, gen, n_dims, done,
-                         average_luminance=avg_lum, pinned_mask=pinned)
+    n_boot = int(icfg.get("luminanceSamples", 100_000))
+    if itype == "pssmlt":
+        mcfg = PSSMLTConfig(
+            n_chains=n_chains,
+            p_large=float(icfg.get("pLarge", 0.3)),
+            kelemen_style_mutation=_pbool(icfg.get("kelemenStyleMutation"),
+                                          True),
+            kelemen_style_weights=_pbool(icfg.get("kelemenStyleWeights"),
+                                         True) and imap is None,
+            mutation_size_low=float(icfg.get("mutationSizeLow", 1 / 1024)),
+            mutation_size_high=float(icfg.get("mutationSizeHigh", 1 / 64)),
+            sigma=float(icfg.get("sigma", 1 / 64)),
+            n_bootstrap=n_boot,
+            p_lens=float(icfg.get("pLens", 0.0)),
+            p_caustic=float(icfg.get("pCaustic", 0.0)),
+            lens_sigma=float(icfg.get("lensSigma", 1 / 16)),
+            caustic_dims=int(icfg.get("causticDims", 7)),
+        )
+        img, aux = render_pssmlt(trace, mcfg, fc, gen, n_dims, done,
+                                 average_luminance=avg_lum,
+                                 pinned_mask=pinned)
+    else:
+        variant = icfg.get("variant", "green")
+        if variant not in ("green", "mira", "orbital"):
+            logging.getLogger(__name__).warning(
+                "unknown drmlt type '%s', using green", variant)
+            variant = "green"
+        dcfg = DRMLTConfig(
+            type=variant,
+            n_chains=n_chains,
+            p_large=float(icfg.get("pLarge", 0.3)),
+            sigma=float(icfg.get("sigma", 1 / 64)),
+            scale_second=float(icfg.get("scaleSecond", 0.1)),
+            timid_after_large=_pbool(icfg.get("timidAfterLarge"), False),
+            acceptance_map=_pbool(icfg.get("acceptanceMap"), False),
+            fix_emitter_path=_pbool(icfg.get("fixEmitterPath"), False),
+            n_bootstrap=n_boot,
+        )
+        img, aux = render_drmlt(trace, dcfg, fc, gen, n_dims, done,
+                                frozen_mask=frozen, average_luminance=avg_lum,
+                                pinned_mask=pinned, **extras)
+    if imap is not None:
+        img = apply_importance_to_image(img, imap)
+    if direct_img is not None:
+        img = img + direct_img
+    if _pbool(icfg.get("acceptanceMap")) and aux.get("accmap") is None:
+        aux["accmap"] = filmlib.new_film(fc, dev)
+    aux.setdefault("accmap", None)
+    return img, aux
 
 
 def main(argv=None):
@@ -268,6 +392,9 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     output = args.output or args.scene.rsplit(".", 1)[0] + ".exr"
+    if output.endswith(".png"):
+        raise NotImplementedError("PNG output not yet ported (it needs PIL): "
+                                  "write .exr")
 
     scene, settings = load_scene(args.scene, defs)
     print(f"scene: {scene.tris.v0.shape[0]} triangles"
@@ -278,19 +405,29 @@ def main(argv=None):
     img, aux = render(args, scene, settings, device)
     img = img.cpu().numpy()
     dt = time.time() - t0
-    muts = aux["mutations"]
-    print(f"b = {float(aux['b']):.6f}, {muts} mutations in {dt:.2f} s on "
-          f"{device} ({muts / dt:.4e} mutations/s, bootstrap included)")
-    if "steps_per_group" in aux:
-        print(f"b_k {aux['b_k']}, steps per depth group "
-              f"{aux['steps_per_group']}, chains {aux['sizes']}")
+    if "samples" in aux:
+        n = aux["samples"]
+        print(f"{n} paths in {dt:.2f} s on {device} ({n / dt:.4e} paths/s)")
     else:
-        st = {k: float(v.float().mean()) for k, v in aux["stats"].items()}
-        print(f"{aux['steps']} steps; stats {st}")
+        muts = aux["mutations"]
+        print(f"b = {float(aux['b']):.6f}, {muts} mutations in {dt:.2f} s "
+              f"on {device} ({muts / dt:.4e} mutations/s, bootstrap "
+              f"included)")
+        if "steps_per_group" in aux:
+            print(f"b_k {aux['b_k']}, steps per depth group "
+                  f"{aux['steps_per_group']}, chains {aux['sizes']}")
+        else:
+            st = {k: float(v.float().mean()) for k, v in aux["stats"].items()}
+            print(f"{aux['steps']} steps; stats {st}")
     if not np.all(np.isfinite(img)):
         raise SystemExit("render produced non-finite pixels")
     write_exr(output, img)
     print(f"wrote {output}")
+    if aux["accmap"] is not None:
+        base = output.rsplit(".", 1)[0]
+        write_exr(f"{base}_acceptance.exr", aux["accmap"][..., :3].cpu()
+                  .numpy())
+        print(f"wrote {base}_acceptance.exr")
     return 0
 
 

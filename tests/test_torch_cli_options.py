@@ -5,8 +5,8 @@ the file's integrator has that key, an integrator option
 (drmlt_mitsuba_tpu/utils/cli.py:134-140).  The merged options are held to
 the reference CLI's own, captured from its `dump_config` call right after
 the merge (cli.py:147), on tests/data/cornell.xml; then to what reaches
-the port's renders.  A key the reference reads and the port cannot honour
-yet raises naming the key.  Last, integrator=pssmlt renders the file on the
+the port's renders.  What the port cannot render yet raises naming it, and
+each key the reference reads reaches its route.  Last, integrator=pssmlt renders the file on the
 CPU at tiny size in both techniques (the reference's tests/test_cli.py:34).
 """
 import argparse
@@ -151,29 +151,69 @@ def test_file_keys_win_and_blocks_round_up(monkeypatch):
 
 def test_unported_keys_raise_naming_the_key(monkeypatch):
     dev = torch.device("cpu")
-    cases = [(["integrator=drmlt", f"{k}=true"], k)
-             for k in ("acceptanceMap", "useMixture", "twoStage",
-                       "separateDirect")]
-    cases += [(["integrator=pssmlt", f"{k}=true"], k)
-              for k in ("acceptanceMap", "twoStage", "separateDirect")]
-    cases += [(["integrator=drmlt", "technique=mmlt", "grouped=false"],
-               "grouped"),
-              (["integrator=bdpt"], "bdpt"),
-              (["integrator=pssmlt", "technique=bdpt"], "bdpt")]
+    cases = [(["integrator=bdpt"], "bdpt"),
+             (["integrator=ptracer"], "ptracer"),
+             (["integrator=pssmlt", "technique=bdpt"], "bdpt"),
+             (["integrator=drmlt", "technique=bdpt"], "bdpt")]
     for defs, key in cases:
         args, scene, settings = _port(defs)
         with pytest.raises(NotImplementedError, match=key):
             cli.render(args, scene, settings, dev)
-    # a key set to false, or one the reference does not read for the
-    # integrator (pssmlt ignores useMixture), is no refusal
-    for defs, name in ((["integrator=drmlt", "twoStage=false"],
-                        "render_drmlt_path"),
-                       (["integrator=pssmlt", "useMixture=true"],
-                        "render_pssmlt")):
+    with pytest.raises(NotImplementedError, match="PNG"):
+        cli.main([CORNELL, "-o", "out.png", "--device", "cpu"])
+    args, scene, settings = _port(["integrator=path"])
+    settings.sampler = "ldsampler"
+    with pytest.raises(NotImplementedError, match="ldsampler"):
+        cli.render(args, scene, settings, dev)
+    # the keys that raised before they were ported now reach their route:
+    # the generic loop's render (render_drmlt / render_pssmlt), or its
+    # first render_pt pass (twoStage's 4x4 luminance pass at 64 paths a
+    # pixel, separateDirect's depth-2 pass at 16); a key set to false, or
+    # one the reference does not read for the integrator (pssmlt ignores
+    # useMixture), is no refusal either
+    for defs, name in (
+            (["integrator=drmlt", "acceptanceMap=true"], "render_drmlt"),
+            (["integrator=drmlt", "useMixture=true"], "render_drmlt"),
+            (["integrator=drmlt", "technique=mmlt", "grouped=false"],
+             "render_drmlt"),
+            (["integrator=drmlt", "technique=mmlt", "acceptanceMap=true"],
+             "render_drmlt_mmlt_grouped"),
+            (["integrator=pssmlt", "acceptanceMap=true"], "render_pssmlt"),
+            (["integrator=drmlt", "twoStage=true"], "render_pt"),
+            (["integrator=pssmlt", "twoStage=true"], "render_pt"),
+            (["integrator=drmlt", "separateDirect=true"], "render_pt"),
+            (["integrator=pssmlt", "separateDirect=true"], "render_pt"),
+            (["integrator=direct"], "render_pt"),
+            (["integrator=drmlt", "twoStage=false"], "render_drmlt_path"),
+            (["integrator=pssmlt", "useMixture=true"], "render_pssmlt")):
         args, scene, settings = _port(defs)
-        _capture(monkeypatch, name)
+        seen = _capture(monkeypatch, name)
         with pytest.raises(_Stop):
             cli.render(args, scene, settings, dev)
+        a = seen["args"]
+        if "grouped=false" in defs:
+            # the pooled MMLT trace at the file's depth 4: 24 dims, the
+            # depth dim pinned, the strategy dim frozen, fixEmitterPath's
+            # masks over the 11 light dims
+            assert a[4] == 24 and seen["kw"]["pinned_mask"].tolist() == (
+                [True] + [False] * 23)
+            assert seen["kw"]["frozen_mask"].tolist() == (
+                [False, True] + [False] * 22)
+            assert seen["kw"]["emitter_mask"].sum() == 11
+        elif name == "render_drmlt":
+            assert a[1].acceptance_map == ("acceptanceMap=true" in defs)
+            assert not a[1].use_mixture     # cli.py:520-524 runs drmlt_step
+        elif name == "render_drmlt_mmlt_grouped":
+            assert a[2].acceptance_map
+        elif name == "render_pt":
+            n, fc = a[3], a[4]
+            if "twoStage=true" in defs:
+                assert (fc.width, fc.height, n) == (4, 4, 4 * 4 * 64)
+                assert fc.filter.name == "box"
+            else:
+                assert a[1].max_depth == 2 and n == 64 * 64 * (
+                    16 if "separateDirect=true" in defs else 1)
+                assert fc.filter.name == "box"      # the file's filter
 
 
 def _remember_traces(monkeypatch):
@@ -238,14 +278,14 @@ def test_cli_pssmlt_renders_cornell_xml(tmp_path, capsys, tech):
     out = tmp_path / "out.exr"
     rc = cli.main([CORNELL, "-D", "integrator=pssmlt", "-D",
                    f"technique={tech}", "-D", "luminanceSamples=1000",
-                   "--spp", "8", "--chains", "256", "--device", "cpu",
+                   "--spp", "4", "--chains", "256", "--device", "cpu",
                    "-o", str(out)])
     assert rc == 0
     img = read_exr(str(out))
     assert img.shape == (64, 64, 3)
     assert np.all(np.isfinite(img)) and img.mean() > 1e-4
     text = capsys.readouterr().out
-    assert "mutations/s" in text and "128 steps" in text
+    assert "mutations/s" in text and "64 steps" in text
 
 
 def test_builtin_scene_keys():

@@ -322,6 +322,69 @@ def test_splat_kernel_matches_twin(cuda):
     assert torch.equal(v.grad.cpu(), v_cpu.grad)
 
 
+@pytest.mark.parametrize("fname", ["tent", "gaussian", "lanczos"])
+def test_splat_kernel_matches_twin_at_wide_footprints(cuda, fname):
+    """Footprints 2, 4 and 6 (tent, gaussian, lanczos) in splat mode, the
+    splats a radius inside the film: per pixel within 1e-5 of the sum of
+    |tap| landing there (atomics add in no fixed order, and lanczos' taps
+    carry both signs)."""
+    fc = filmlib.make_film_config(64, 64, fname)
+    r = fc.filter.radius
+    g = torch.Generator(cuda).manual_seed(8)
+    pos = r + torch.rand((50000, 2), generator=g, device=cuda) * (64 - 2 * r)
+    val = torch.rand((50000, 3), generator=g, device=cuda)
+    w = torch.rand((50000,), generator=g, device=cuda)
+    py, px, vals = filmlib.taps(fc, pos, val, w, mode="splat")
+    F = fc.filter.footprint
+    assert py.shape == (50000 * F * F,)
+    k = SP.splat_add_(filmlib.new_film(fc, cuda), py, px, vals)
+    t = SP.splat_add_reference_(filmlib.new_film(fc, cuda), py, px, vals)
+    mag = SP.splat_add_reference_(filmlib.new_film(fc, cuda), py, px,
+                                  vals.abs())
+    assert float(((k - t).abs() / mag.clamp(min=1e-30)).max()) <= 1e-5
+
+
+def test_generic_step_matches_twin(cuda):
+    """One generic DRMLT step (orbital, acceptance map) of 4,096 chains
+    through the path kernel and through its twin on the CPU, on the same
+    starts and uniforms: >= 99% of chains with equal state, the film
+    within 5e-3 of its max, the accmaps equal."""
+    from drmlt_mitsuba_tpu_torch.integrators.drmlt import (
+        DRMLTUniforms, draw_drmlt_uniforms, drmlt_step_from_uniforms,
+    )
+    from drmlt_mitsuba_tpu_torch.integrators.mcmc import ChainState
+
+    scene, pcfg = _scene("diffuse"), PathConfig(max_depth=6, rr_depth=100)
+    D, C = pcfg.n_dims, 4096
+    fc = filmlib.make_film_config(64, 64, "box")
+    g = torch.Generator(cuda).manual_seed(9)
+    trace = make_path_trace(scene, pcfg, cuda)
+    cand = torch.rand((8 * C, D), generator=g, device=cuda)
+    u0 = cand[torch.nonzero(trace(cand).lum > 0)[:C, 0]]
+    st = state_from_splats(u0, trace(u0))
+    draws = draw_drmlt_uniforms(g, C, D, "orbital")
+    cfg = DRMLTConfig(type="orbital", n_chains=C, acceptance_map=True)
+    out = []
+    for dev, tr, s, d in (
+            (cuda, trace, st, draws),
+            ("cpu", make_path_trace(scene, pcfg, "cpu"),
+             ChainState(st.u.cpu(), st.lum.cpu(), st.pos.cpu(),
+                        st.value.cpu()),
+             DRMLTUniforms(*(getattr(draws, f.name).cpu()
+                             for f in dataclasses.fields(DRMLTUniforms))))):
+        before = build.LAUNCHES["path_trace"]
+        (s2, film, acc), _ = drmlt_step_from_uniforms(
+            tr, cfg, fc, torch.zeros(D, dtype=torch.bool, device=dev),
+            (s, filmlib.new_film(fc, dev), filmlib.new_film(fc, dev)), d)
+        assert build.LAUNCHES["path_trace"] == before + (dev is cuda)
+        out.append((s2, film, acc))
+    (sk, fk, ak), (sr, fr, ar) = out
+    ok = (sk.u.cpu() - sr.u).abs().max(1).values <= 2e-5
+    assert float(ok.double().mean()) >= 0.99
+    assert float((fk.cpu() - fr).abs().max() / fr.abs().max()) <= 5e-3
+    assert float((ak.cpu() - ar).abs().sum()) <= 0.01 * float(ar.sum())
+
+
 def test_splat_kernel_drops_out_of_range_taps(cuda):
     """Taps outside the film (negative, or at H / W and beyond) add nothing
     on the card, as in the twin and the reference's one-hot kernel, and

@@ -26,6 +26,8 @@ luminance (the bootstrap); both implementations get the same numpy pool.
 0.003 of the expectation, which lies 0.01 / 0.026 / 0.039 above 1.  The
 reference's case runs here, the port's in tests/test_torch_pssmlt_host.py.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,17 +111,35 @@ def run_reference(pool, pick):
     b = float(lum.mean())
     u0 = jnp.asarray(u[_start(u, lum, pick)])
     state = jax_state_from_splats(u0, tj(u0))
-    memo = _Memo(tj, lambda x, y: bool(jnp.array_equal(x, y)))
     cfgs = {w: jps.PSSMLTConfig(n_chains=C, kelemen_style_weights=w)
             for w in (True, False)}
     fc = jfilm.make_film_config(settings.width, settings.height, "box")
     films = {w: jfilm.new_film(fc) for w in cfgs}
+
+    @functools.partial(jax.jit, static_argnums=0)
+    def step(cfg, carry, key, sp):
+        """The reference's pssmlt_step, compiled, over the splats `sp` of
+        the proposal traced outside it (the two weight styles trace the
+        same proposal); also returns the proposal it traced."""
+        seen = []
+
+        def trace_fn(u):
+            seen.append(u)
+            return sp
+        out = jps.pssmlt_step(trace_fn, cfg, jnp.float32(b), fc, carry, key,
+                              pinned)
+        return out, seen[0]
+
+    propose = jax.jit(jps.propose, static_argnums=0)
     for i in range(STEPS):
         key = jax.random.PRNGKey(100 + i)
+        u_prop, _ = propose(cfgs[True], jax.random.split(key)[0], state.u,
+                            pinned)
+        sp = tj(u_prop)
         for w in cfgs:
-            (nxt, films[w]), _ = jps.pssmlt_step(
-                memo, cfgs[w], jnp.float32(b), fc, (state, films[w]), key,
-                pinned)
+            ((nxt, films[w]), _), u_in = step(cfgs[w], (state, films[w]),
+                                              key, sp)
+            assert bool(jnp.array_equal(u_in, u_prop))
         state = nxt
     sums = {w: np.asarray(films[w], np.float64)[..., :3].sum((0, 1))
             for w in cfgs}

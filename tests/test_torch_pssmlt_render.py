@@ -60,20 +60,21 @@ def mc_reference():
 
 @pytest.mark.parametrize("kelemen", [False, True], ids=["veach", "kelemen"])
 def test_render_pssmlt_matches_mc(mc_reference, box_trace, kelemen):
-    """render_pssmlt over the path technique's twin: 512 chains, 8192
-    bootstrap samples, 400 steps, as tests/test_mcmc.py:108-128."""
-    cfg = PSSMLTConfig(n_chains=512, n_bootstrap=8192,
+    """render_pssmlt over the path technique's twin: 2,048 chains, 8192
+    bootstrap samples, 100 steps (the mutations of tests/test_mcmc.py:
+    108-128's 512 x 400, in a quarter of the host steps)."""
+    cfg = PSSMLTConfig(n_chains=2048, n_bootstrap=8192,
                        kelemen_style_weights=kelemen)
     img, aux = render_pssmlt(box_trace, cfg,
                              film.make_film_config(32, 32, "box"),
                              torch.Generator().manual_seed(1), PCFG.n_dims,
-                             n_steps=400)
+                             n_steps=100)
     img = img.numpy()
-    assert np.all(np.isfinite(img)) and aux["steps"] == 400
+    assert np.all(np.isfinite(img)) and aux["steps"] == 100
     ref = mc_reference
     err = (np.abs(img.mean((0, 1)) - ref.mean((0, 1))).mean()
            / ref.mean())
     assert err < 0.15, err
     acc = float(aux["stats"]["accept"].mean())
     assert 0.1 < acc < 0.9
-    assert aux["stats"]["large"].shape == (400,)
+    assert aux["stats"]["large"].shape == (100,)

@@ -74,10 +74,16 @@ def test_render_equals_reference_composition():
     n_rand = MD.n_rand(cfg, D)
     uni = torch.cat([philox_uniforms(chain_seed, 0, m, n_rand, C)
                      for m in range(16)]).numpy()
-    _, ref_film = _reference_multistep(
+    # the reference loop one mutation a call, compiled once: its film is
+    # the sum of the mutations' films
+    one = jax.jit(lambda st, u: _reference_multistep(
         jt, JDRMLTConfig(type="orbital", n_chains=C, splat_mode="sampled"),
-        jfilm.make_film_config(W, H, "box"), depth, state0,
-        jnp.asarray(uni), 16, n_rand, splat_mode="sampled", frozen0=False)
+        jfilm.make_film_config(W, H, "box"), depth, st, u, 1, n_rand,
+        splat_mode="sampled", frozen0=False))
+    ref_film, st = 0.0, state0
+    for m in range(16):
+        st, f = one(st, jnp.asarray(uni[m * n_rand:(m + 1) * n_rand]))
+        ref_film = ref_film + f
     ref_img = np.asarray(ref_film)[..., :3] * float(b) / (C * 16 / (W * H))
 
     np.testing.assert_allclose(float(aux["b"]), float(b), rtol=1e-5)
@@ -137,7 +143,7 @@ def test_cli_cornell_writes_exr(tmp_path, capsys):
         cli.main(["cornell", "-D", "technique=bdpt", "--device", "cpu"])
 
 
-def test_cli_mmlt_writes_exr(tmp_path, capsys):
+def test_cli_mmlt_writes_exr(tmp_path, capsys, monkeypatch):
     """-D technique=mmlt runs the depth-grouped driver (the reference CLI's
     default for drmlt + mmlt) on the built-in veach-door scene."""
     out = tmp_path / "v.exr"
@@ -151,6 +157,20 @@ def test_cli_mmlt_writes_exr(tmp_path, capsys):
     assert img.shape == (256, 256, 3)
     assert np.all(np.isfinite(img)) and img.mean() > 0
     assert "steps per depth group" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="pooled"):
+    # grouped=false runs the generic loop over the pooled MMLT trace, its
+    # depth dim pinned
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(cli, "render_drmlt", stop)
+    with pytest.raises(Stop):
         cli.main(["veach", "-D", "technique=mmlt", "-D", "grouped=false",
                   "--device", "cpu"])
+    assert bool(seen["pinned_mask"][0]) and not bool(seen["pinned_mask"][1:]
+                                                     .any())

@@ -160,6 +160,7 @@ def test_cli_renders_cornell_xml_on_the_cpu(tmp_path, capsys):
         out = tmp_path / f"{tech}.exr"
         rc = cli.main([CORNELL, "-D", "integrator=drmlt", "-D",
                        f"technique={tech}", "-D", "type=orbital",
+                       "-D", "luminanceSamples=1000",
                        "--chains", "256", "--spp", "1", "-s", "2",
                        "--device", "cpu", "-o", str(out)])
         assert rc == 0
