@@ -7,9 +7,10 @@ the intersection kernel), the trace kernels' full scene scope (analytic
 spheres, the conductor / rough-conductor / null kinds, bitmap albedo,
 constant and image environments, the thin lens), PSSMLT (the chain
 kernel's pssmlt mode, the host PSSMLT integrator, the CLI's
-integrator=pssmlt) and the generic DRMLT step (the mixture, the
+integrator=pssmlt), the generic DRMLT step (the mixture, the
 acceptance map, the pooled MMLT route, every reconstruction filter and
-the CLI routes they open).
+the CLI routes they open) and the bidirectional layer (BDPT, the
+wavefront MMLT trace, the thin lens, over the intersection kernel).
 
     python3 chip_smoke.py
 
@@ -165,7 +166,31 @@ non-zero):
      integrator=path and drmlt with twoStage and with separateDirect,
      each within phase 22's gate of the box-filter MC.  The counters are
      reset before each render of (b)-(d) and read after it; the kernels
-     line adds those launches to #4, #5 and #9.
+     line adds those launches to #4, #5 and #9;
+ 25. slice 8, the bidirectional wavefront (integrators/bidir.py) over
+     the intersection kernel: (a) trace_bdpt at max_depth 5 on 65,536
+     lanes of the box (brute mode) and on 16,384 lanes of
+     cornell_large.xml (the walk), every splat of every lane against the
+     same function on the CPU over the twins (lanes differing <= 0.2%,
+     channel means to 5e-3), its ms per 65,536 samples, the device-busy
+     share and the intersection kernel's launches and device time;
+     (b) trace_mmlt_wavefront against the MMLT kernel (#9) on the same
+     pinhole PSS vectors, depths 1-5; (c) the CLI's integrator=bdpt and
+     drmlt / pssmlt with technique=bdpt on the box at 256x256, depth 8,
+     against phase 5's MC render (BDPT_GATE for the plain estimator,
+     printed beside the mean's noise estimated from the 16x16 blocks;
+     MC_GATE["path"] for the MCMC routes); (d) drmlt + mmlt,
+     grouped and pooled, on a thin-lens copy of the box at max_depth 6
+     (the wavefront, never the MMLT kernel) against a thin-lens
+     render_pt (MC_GATE["cornell"]); (e) tests/data/cornell.xml through
+     integrator=bdpt against phase 22's MC render and gate; (f) the
+     splat kernel against its twin on the light-image splats of the
+     veach door (whose camera stands inside the room, so some fall off
+     the film with zero value) and on splats off the film on every side
+     (dropped, never clamped).  The counters are reset before each card
+     run of (a) and each render of (c)-(e) and read after it; the kernels
+     line adds those launches to #1 / #2 (brute mode), #3 (the walk) and
+     #4.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -2420,6 +2445,271 @@ def slice7(name, dev, gen, report, mc_refs, s5):
     return launches7
 
 
+# phase 25: the bidirectional wavefront (integrators/bidir.py) over the
+# intersection kernel: BDPT, the wavefront MMLT trace, the thin lens
+BDPT_LANES = 65536        # 25a: lanes of trace_bdpt on the box
+BDPT_LARGE_LANES = 16384  # 25a: lanes on cornell_large.xml (the walk)
+BDPT_DEPTH = 5            # the reference's integrator=bdpt default
+BDPT_SPP = 2              # 25c: integrator=bdpt samples a pixel
+# 25c: integrator=bdpt against phase 5's MC, two plain unbiased estimators
+# (0.0004 apart on the H100).  The phase prints the standard deviation of
+# their image means' relative difference as the 16x16 blocks' spread
+# predicts it (sqrt(pi / 2) x the blocks' relative L1 over sqrt(256)
+# blocks; a heavy tail would hide from it): about 0.0012, so 0.01 fails a
+# bias of a percent.  Two render_pt at BDPT's 2 samples a pixel differ by
+# 0.0233: the path tracer is far noisier a sample than BDPT, so its spread
+# at that count is no basis for this gate.  The MCMC routes keep
+# MC_GATE["path"]
+BDPT_GATE = 0.01
+BDPT_MCMC_SPP = 8         # 25c: MCMC mutations a pixel
+LENS_SPP = 64             # 25d: the thin-lens MMLT renders' (a grouped
+#                           group whose share of the steps rounds to 0
+#                           is skipped, as in the reference)
+XML_BDPT_SPP = 64         # 25e: samples a pixel of cornell.xml (64x64)
+LENS = dict(aperture_radius=25.0, focus_distance=1073.0)
+
+
+def bdpt_lanes(k, t):
+    """(max |d|, share of lanes above 1e-3 relative, channel-mean rel) of
+    Splats k against Splats t (the twin's, or the kernel's), every splat of
+    a lane."""
+    a, b = k.value.cpu().double(), t.value.cpu().double()
+    R = a.shape[0]
+    rel = ((a - b).abs() / (b.abs() + 1e-4)).reshape(R, -1).max(1).values
+    m_rel = float(((a.mean((0, 1)) - b.mean((0, 1))).abs()
+                   / b.mean((0, 1)).abs()).max())
+    return float((a - b).abs().max()), float((rel > 1e-3).double().mean()), \
+        m_rel
+
+
+def lens_copy(scene):
+    return dataclasses.replace(scene, camera=dataclasses.replace(
+        scene.camera, **{k: torch.tensor(v) for k, v in LENS.items()}))
+
+
+def slice8(name, dev, gen, report, mc_refs, s5):
+    """Phase 25: the bidirectional layer on the card.  Returns the
+    main-path launches of (a) and (c)-(e), with the intersection kernel's
+    split by mode."""
+    from drmlt_mitsuba_tpu_torch.integrators import bidir as BD
+
+    fc = filmlib.make_film_config(SIZE, SIZE, "box")
+    launches8 = dict.fromkeys(build.LAUNCHES, 0)
+    ix_mode = {"brute": 0, "bvh": 0}
+
+    def count(mode):
+        for key, c in build.LAUNCHES.items():
+            launches8[key] += c
+        ix_mode[mode] += build.LAUNCHES["intersect"]
+
+    # ---- 25a. trace_bdpt on the card against its twin on the CPU ----------
+    cfg = BDPTConfig(max_depth=BDPT_DEPTH)
+    large, _ = cli.load_scene(LARGE_XML, {})
+    cornell = cornell_box(SIZE, SIZE)
+    report["bdpt_vs_twin"] = {}
+    for tag, scene, R, mode in (("box", cornell, BDPT_LANES, "brute"),
+                                ("cornell_large.xml", large,
+                                 BDPT_LARGE_LANES, "bvh")):
+        tk = BD.make_bidir_tables(scene, cfg, dev)
+        need((tk.rays.nodes is None) == (mode == "brute"),
+             f"{tag}: the intersection kernel is not in {mode} mode")
+        u = torch.rand((R, cfg.n_dims), generator=gen, device=dev)
+        BD.trace_bdpt(tk, cfg, u)                 # warm-up
+        build.reset_launches()
+        sk, wall = sync_time(lambda: BD.trace_bdpt(tk, cfg, u))
+        n_ix = build.LAUNCHES["intersect"]
+        count(mode)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = sync_time(lambda: BD.trace_bdpt(tk, cfg, u))
+        busy, per = device_profile(prof.events(), prof_wall)
+        ix_ms = sum(t for k, (t, _) in per.items() if "intersect" in k
+                    or "brute_sweep" in k)
+        ms = event_ms(lambda: BD.trace_bdpt(tk, cfg, u), runs=3)
+        tt = BD.make_bidir_tables(scene, cfg, "cpu")
+        st, twin_s = sync_time(lambda: BD.trace_bdpt(tt, cfg, u.cpu()))
+        mx, bad, m_rel = bdpt_lanes(sk, st)
+        row = dict(lanes=R, depth=BDPT_DEPTH, splats=cfg.n_splats,
+                   max_abs=mx, bad_lanes=bad, mean_rel=m_rel, ms=ms,
+                   ms_per_65536=ms * 65536 / R, first_wall_s=wall,
+                   busy_share=busy, intersect_device_ms=ix_ms,
+                   intersect_launches=n_ix, twin_s=twin_s,
+                   top_kernels_ms=[[k, t, c] for k, (t, c) in sorted(
+                       per.items(), key=lambda kv: -kv[1][0])[:6]])
+        report["bdpt_vs_twin"][tag] = row
+        print(f"[25a trace_bdpt vs twin] {name}: {tag}, {R} lanes, depth "
+              f"{BDPT_DEPTH}, {cfg.n_splats} splats a lane: max |d| "
+              f"{mx:.3e}, lanes differing {bad:.5f}, channel-mean rel "
+              f"{m_rel:.2e}; {ms:.3f} ms a call ({ms * 65536 / R:.3f} ms "
+              f"per 65,536 samples), device busy {busy:.4f}, intersection "
+              f"kernel {n_ix} launches ({mode} mode) and {ix_ms:.3f} ms of "
+              f"device time; the twin {twin_s:.1f} s")
+        need(bool(torch.isfinite(sk.value).all()), f"{tag}: non-finite")
+        need(bad <= MAX_BAD_LANES, f"trace_bdpt {tag}: {bad} of lanes "
+             f"differ from the twin")
+        need(m_rel <= MEAN_RTOL, f"trace_bdpt {tag}: means differ {m_rel}")
+        need(n_ix > 0 and busy > 0, f"{tag}: no intersection launch")
+
+    # ---- 25b. the wavefront MMLT trace against the MMLT kernel ------------
+    mcfg = BDPTConfig(max_depth=BDPT_DEPTH)
+    u = torch.rand((BDPT_LANES, 1 + mcfg.n_dims), generator=gen, device=dev)
+    depth = 1 + torch.randint(0, BDPT_DEPTH, (BDPT_LANES,), generator=gen,
+                              device=dev)
+    wk = BD.trace_mmlt_wavefront(cornell, mcfg, u, depth)
+    kk = BD.trace_mmlt(cornell, mcfg, u, depth)
+    mx, bad, m_rel = bdpt_lanes(wk, kk)
+    report["mmlt_wavefront_vs_kernel"] = dict(max_abs=mx, bad_lanes=bad,
+                                              mean_rel=m_rel)
+    print(f"[25b trace_mmlt_wavefront vs the MMLT kernel] {name}: cornell, "
+          f"{BDPT_LANES} lanes, depths 1-{BDPT_DEPTH}: max |d| {mx:.3e}, "
+          f"lanes differing {bad:.5f}, channel-mean rel {m_rel:.2e}")
+    need(bad <= MAX_BAD_LANES_MMLT and m_rel <= MEAN_RTOL,
+         f"wavefront MMLT vs kernel: {bad} of lanes, means {m_rel}")
+
+    # ---- 25c. the CLI's BDPT routes on the box against phase 5's MC -------
+    report["bdpt_cli"] = {}
+    for tag, defs, spp in (
+            ("integrator=bdpt", ["integrator=bdpt", f"maxDepth={DEPTH}"],
+             BDPT_SPP),
+            ("drmlt technique=bdpt", ["integrator=drmlt", "technique=bdpt",
+                                      "variant=orbital"], BDPT_MCMC_SPP),
+            ("pssmlt technique=bdpt", ["integrator=pssmlt",
+                                       "technique=bdpt"], BDPT_MCMC_SPP)):
+        sc, xs = cli.load_scene("cornell", dict(kv.split("=", 1)
+                                                for kv in defs))
+        args = argparse.Namespace(D=defs, chains=CHAINS, spp=spp, seed=97)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: cli.render(args, sc, xs, dev))
+        count("brute")
+        mean_rel, block_l1 = mc_compare(img, mc_refs["path"])
+        n = aux.get("samples", aux.get("mutations"))
+        gate = BDPT_GATE if tag == "integrator=bdpt" else MC_GATE["path"]
+        # the image mean's noise, from the spread of its 256 blocks
+        noise = block_l1 * (np.pi / 2) ** 0.5 / 16
+        row = dict(wall_s=wall, work=n, per_s=n / wall,
+                   mean_rel_err=mean_rel, block_rel_l1=block_l1,
+                   mean_noise_from_blocks=noise, gate=gate)
+        if "b" in aux:
+            row["b"] = float(aux["b"])
+        report["bdpt_cli"][tag] = row
+        print(f"[25c CLI {tag}] {name}: cornell, depth {DEPTH}, spp {spp}: "
+              f"{wall:.3f} s ({n / wall:.4e} "
+              f"{'samples' if 'samples' in aux else 'mutations'}/s); vs MC "
+              f"mean rel {mean_rel:.4f} (gate {gate}; its noise from the "
+              f"blocks {noise:.4f}), 16x16-block rel L1 {block_l1:.4f}")
+        need(bool(torch.isfinite(img).all()), f"{tag}: image not finite")
+        need(mean_rel < gate, f"CLI {tag}: differs from MC by {mean_rel}")
+
+    # ---- 25d. drmlt + mmlt with a thin lens, grouped and pooled -----------
+    lens = lens_copy(cornell)
+    gen.manual_seed(98)
+    ref_l = filmlib.develop(fc, render_pt(
+        lens, PathConfig(max_depth=MMLT_DEPTH, rr_depth=100, thinlens=True),
+        gen, SIZE * SIZE * 64, fc, mode="accum"), mode="accum")
+    report["thinlens_mmlt_cli"] = {}
+    for tag, d in (("grouped", []), ("pooled", ["grouped=false"])):
+        defs = ["technique=mmlt", f"maxDepth={MMLT_DEPTH}", "variant=orbital",
+                "luminanceSamples=100000"] + d
+        _, xs = cli.load_scene("cornell", dict(kv.split("=", 1)
+                                               for kv in defs))
+        args = argparse.Namespace(D=defs, chains=CHAINS, spp=LENS_SPP,
+                                  seed=99)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: cli.render(args, lens, xs, dev))
+        need(build.LAUNCHES["mmlt_trace"] + build.LAUNCHES[
+            "mmlt_trace[full]"] == 0, f"thin-lens {tag}: the MMLT kernel ran")
+        count("brute")
+        mean_rel, block_l1 = mc_compare(img, ref_l)
+        row = dict(wall_s=wall, mutations=aux["mutations"],
+                   mutations_per_s=aux["mutations"] / wall,
+                   b=float(aux["b"]), mean_rel_err=mean_rel,
+                   block_rel_l1=block_l1, gate=MC_GATE["cornell"])
+        report["thinlens_mmlt_cli"][tag] = row
+        print(f"[25d CLI drmlt mmlt, thin lens, {tag}] {name}: cornell "
+              f"(aperture {LENS['aperture_radius']}, focus "
+              f"{LENS['focus_distance']}), max_depth {MMLT_DEPTH}, {CHAINS} "
+              f"chains, spp {LENS_SPP}: {wall:.3f} s "
+              f"({row['mutations_per_s']:.4e} mutations/s, bootstrap "
+              f"included); b {row['b']:.6f}; vs thin-lens MC mean rel "
+              f"{mean_rel:.4f} (gate {MC_GATE['cornell']}), 16x16-block rel "
+              f"L1 {block_l1:.4f}")
+        need(bool(torch.isfinite(img).all()), f"{tag}: image not finite")
+        need(mean_rel < MC_GATE["cornell"], f"thin-lens MMLT {tag}: differs "
+             f"from MC by {mean_rel}")
+
+    # ---- 25e. tests/data/cornell.xml through integrator=bdpt --------------
+    defs = ["integrator=bdpt"]
+    sc, xs = cli.load_scene(CORNELL_XML, {"integrator": "bdpt"})
+    args = argparse.Namespace(D=defs, chains=CHAINS, spp=XML_BDPT_SPP,
+                              seed=100)
+    build.reset_launches()
+    (img, aux), wall = sync_time(lambda: cli.render(args, sc, xs, dev))
+    count("brute" if sc.bvh is None else "bvh")
+    ref, gate = s5["xml_path"]["ref"], s5["xml_path"]["gate"]
+    mean_rel, block_l1 = mc_compare(img, ref)
+    report["bdpt_cornell_xml"] = dict(
+        wall_s=wall, samples=aux["samples"], mean_rel_err=mean_rel,
+        block_rel_l1=block_l1, gate=gate, size=[xs.width, xs.height])
+    print(f"[25e CLI integrator=bdpt, cornell.xml] {name}: "
+          f"{xs.width}x{xs.height}, the file's depth "
+          f"{xs.integrator['maxDepth']}, {aux['samples']} samples: "
+          f"{wall:.3f} s; vs phase 22's MC mean rel {mean_rel:.4f} (gate "
+          f"{gate:.4f}), 16x16-block rel L1 {block_l1:.4f}")
+    need(bool(torch.isfinite(img).all()), "cornell.xml bdpt: not finite")
+    need(mean_rel < gate, f"cornell.xml bdpt: differs from MC by {mean_rel}")
+
+    # ---- 25f. the splat kernel on light-image splats off the film ---------
+    # the veach door's camera stands inside the room: light vertices behind
+    # it or outside its view give light-image splats off the film
+    sp = BD.trace_bdpt(BD.make_bidir_tables(veach_door(SIZE, SIZE), cfg,
+                                            dev), cfg,
+                       torch.rand((BDPT_LANES, cfg.n_dims), generator=gen,
+                                  device=dev))
+    pos = sp.pos[:, 1:].reshape(-1, 2)
+    val = sp.value[:, 1:].reshape(-1, 3)
+    off = ((pos < 0) | (pos >= 1)).any(-1)
+    # off the film on every side: the kernel must drop, never clamp
+    edge = torch.rand((SPLATS, 2), generator=gen, device=dev) * 3.0 - 1.0
+    edge = edge[((edge < 0) | (edge >= 1)).any(-1)]
+    all_pos = torch.cat([pos, edge]) * SIZE
+    all_val = torch.cat([val, torch.rand((edge.shape[0], 3), generator=gen,
+                                         device=dev)])
+    py, px, vals = filmlib.taps(fc, all_pos, all_val, mode="splat")
+    film_k = SP.splat_add_(filmlib.new_film(fc, dev), py, px, vals)
+    film_t = SP.splat_add_reference_(filmlib.new_film(fc, dev), py, px,
+                                     vals)
+    mag = SP.splat_add_reference_(filmlib.new_film(fc, dev), py, px,
+                                  vals.abs())
+    err = float(((film_k - film_t).abs() / mag.clamp(min=1e-30)).max())
+    py, px, vals = filmlib.taps(fc, edge * SIZE, all_val[-edge.shape[0]:],
+                                mode="splat")
+    off_sum = float(SP.splat_add_(filmlib.new_film(fc, dev), py, px,
+                                  vals).abs().sum())
+    report["bdpt_splats_off_film"] = dict(
+        light_splats=int(pos.shape[0]), light_off_film=int(off.sum()),
+        light_off_film_abs_value=float(val[off].abs().sum()),
+        synthetic_off_film=int(edge.shape[0]), max_rel_err=err,
+        off_film_sum=off_sum)
+    print(f"[25f splat kernel, light-image splats] {name}: "
+          f"{pos.shape[0]} light-image splats ({int(off.sum())} off the "
+          f"film, |value| sum {float(val[off].abs().sum())}) and "
+          f"{edge.shape[0]} splats off the film on every side: per-pixel "
+          f"|kernel - twin| / sum |tap| {err:.2e} (gate {SPLAT_RTOL}); the "
+          f"off-film splats alone add {off_sum}")
+    need(err <= SPLAT_RTOL, f"light-image splats: kernel vs twin {err}")
+    need(off_sum == 0.0, f"splats off the film added {off_sum}")
+    need(float(val[off].abs().sum()) == 0.0 and int(off.sum()) > 0,
+         "no light-image splat off the film, or one carries value")
+
+    report["slice8_launches"] = dict(launches8, intersect_by_mode=ix_mode)
+    print(f"[25 slice 8 launches, the main path's runs] {name}: {launches8}; "
+          f"intersection kernel by mode {ix_mode}")
+    for key in ("intersect", "splat_add"):
+        need(launches8[key] > 0, f"{key} did not launch on phase 25's path")
+    need(ix_mode["brute"] > 0 and ix_mode["bvh"] > 0,
+         f"the intersection kernel missed a mode: {ix_mode}")
+    return dict(launches8, intersect_by_mode=ix_mode)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2966,6 +3256,9 @@ def main():
     # ---- 24. slice 7 --------------------------------------------------------
     s7 = slice7(name, dev, gen, report, mc_refs, s5)
 
+    # ---- 25. slice 8 --------------------------------------------------------
+    s8 = slice8(name, dev, gen, report, mc_refs, s5)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -2977,7 +3270,9 @@ def main():
                     bound_by=bnd[1], library_ms=library)
 
     # launches: the main path's renders of slices 1-3 and, for the trace and
-    # splat kernels, phase 24's (the generic step, the CLI's new routes)
+    # splat kernels, phase 24's (the generic step, the CLI's new routes);
+    # the intersection and splat kernels add phase 25's (the bidirectional
+    # wavefront and the CLI's BDPT and thin-lens MMLT routes)
     kernels = [
         entry("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
               launches["path_trace"] + s7["path_trace"], path_err, ms_path,
@@ -2993,7 +3288,8 @@ def main():
               ms_mmlt_chain, plain_mmlt_chain, bound_mmlt_chain),
         # library: index_add_ of the taps
         entry("splat_add_kernel", "splat.cu", "splat_kernel.py:79",
-              s3["launches"]["splat_add"] + s7["splat_add"], *s3["splat"]),
+              s3["launches"]["splat_add"] + s7["splat_add"]
+              + s8["splat_add"], *s3["splat"]),
         entry("path_trace_rad_kernel", "path_trace_grad.cu",
               "megatrace.py:1798", s3["launches"]["path_trace_rad"],
               *s3["rad"]),
@@ -3004,7 +3300,8 @@ def main():
         # sweep_closest (intersect_kernel.py:104) and sweep_closest_v2
         # (:220), its BVH mode for sweep_clusters (bvh_kernel.py:155)
         *(entry(f"intersect_kernel[{m}]", "intersect.cu", rep,
-                s4[f"intersect_{m}"]["launches"], s4[f"intersect_{m}"]["err"],
+                s4[f"intersect_{m}"]["launches"]
+                + s8["intersect_by_mode"][m], s4[f"intersect_{m}"]["err"],
                 s4[f"intersect_{m}"]["ms"], s4[f"intersect_{m}"]["plain_ms"],
                 (s4[f"intersect_{m}"]["bound_ms"],
                  s4[f"intersect_{m}"]["bound_by"]))

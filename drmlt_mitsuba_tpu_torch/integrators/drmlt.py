@@ -277,7 +277,11 @@ def drmlt_step_from_uniforms(trace_fn, cfg: DRMLTConfig, film_cfg,
         r = acc1_small.float()
         g = accept2.float()
         rgb = torch.stack([r, g, torch.zeros_like(r)], -1)[:, None, :]
-        pos = torch.where(accept2[:, None, None], prop2.pos, prop1.pos)
+        # one splat a chain at its first splat's position (BDPT's pixel
+        # splat: the reference's map takes every splat's position and
+        # fails to reshape its one value when S > 1)
+        pos = torch.where(accept2[:, None, None], prop2.pos[:, :1],
+                          prop1.pos[:, :1])
         accmap = splat_state(accmap_cfg or film_cfg, accmap, pos, rgb,
                              torch.ones_like(r))
 

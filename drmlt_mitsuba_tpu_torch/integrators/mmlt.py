@@ -7,7 +7,8 @@ technique dims:
   u[1]  strategy dim - frozen on small steps (moves only on large steps).
 The traced value is multiplied by D (uniform depth pmf), so b and every
 MH ratio are consistent with the plain Monte-Carlo estimator.  This is the
-MMLT kernel's own interface (ops/megammlt.py), which the host PSSMLT
+MMLT kernel's own interface (ops/megammlt.py; a thin-lens scene takes
+the bidirectional wavefront, integrators/bidir.py), which the host PSSMLT
 integrator and the generic DRMLT step (integrators/drmlt.py, the CLI's
 `grouped=false`) run with `mmlt_masks`' pinned depth dim, and the generic
 step's fixEmitterPath with `mmlt_emitter_mask` / `mmlt_lt_mask_fn`; the
@@ -18,7 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
+from drmlt_mitsuba_tpu_torch.integrators.bidir import (
+    BDPTConfig, make_bidir_tables, trace_mmlt_wavefront,
+)
+from drmlt_mitsuba_tpu_torch.integrators.layout import Splats
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
 
 TECH_DIMS = 2  # depth + strategy
@@ -67,8 +71,23 @@ def mmlt_lt_mask_fn(cfg: BDPTConfig):
 
 def make_mmlt_trace(scene: Scene, cfg: BDPTConfig, device):
     """trace(u) -> Splats for u = [depth, strategy, eye..., light...(,
-    pad)] through ops.megammlt (the MMLT kernel on a CUDA device, its twin
-    on the CPU)."""
-    from drmlt_mitsuba_tpu_torch.ops.megammlt import make_mega_mmlt
+    pad)]: through ops.megammlt (the MMLT kernel on a CUDA device, its twin
+    on the CPU) for a pinhole camera, and through the bidirectional
+    wavefront (bidir.trace_mmlt_wavefront, the value times D for the
+    uniform depth pmf) where cfg.thinlens: the kernel excludes the thin
+    lens, as the reference's does (mmlt.py:79-93).  The route is fixed
+    here, once, from the config."""
+    if not cfg.thinlens:
+        from drmlt_mitsuba_tpu_torch.ops.megammlt import make_mega_mmlt
 
-    return make_mega_mmlt(scene, cfg, device)
+        return make_mega_mmlt(scene, cfg, device)
+    tables = make_bidir_tables(scene, cfg, device)
+    D = cfg.max_depth
+    n_core = mmlt_n_dims(cfg)
+
+    def trace(u) -> Splats:
+        depth = 1 + torch.clamp((u[:, 0] * D).to(torch.int64), max=D - 1)
+        sp = trace_mmlt_wavefront(tables, cfg, u[:, 1:n_core], depth)
+        return Splats(pos=sp.pos, value=sp.value * D, lum=sp.lum * D)
+
+    return trace

@@ -13,11 +13,13 @@ image is the sum.
 Two routes per group, as in the reference: the chain kernel (the
 reference's `_run_group_mega`: ops/megadrmlt.py on a CUDA device, its twin
 on the CPU, in DRMLT or in pssmlt mode), and, where `use_mixture`,
-`acceptance_map` or a filter footprint other than 1 rule the chain kernel
-out, the generic step (integrators/drmlt.py:run_chains over the group's
-MMLT trace, steps_k steps, the strategy dim frozen; mmlt_grouped.py:
-256-320).  The generic groups develop with b_k / (N_k * steps_k /
-npixels) and share one acceptance map.  The sharded driver is not ported.
+`acceptance_map`, a filter footprint other than 1 or a thin lens (the
+MMLT kernel's exclusion; the group's trace is then the bidirectional
+wavefront) rule the chain kernel out, the generic step
+(integrators/drmlt.py:run_chains over the group's MMLT trace, steps_k
+steps, the strategy dim frozen; mmlt_grouped.py:256-320).  The generic
+groups develop with b_k / (N_k * steps_k / npixels) and share one
+acceptance map.  The sharded driver is not ported.
 
 Randomness comes from one torch.Generator, drawn in this order: the
 bootstrap vectors of groups 1..max_depth, then for each group that runs
@@ -29,7 +31,9 @@ from __future__ import annotations
 import torch
 
 from drmlt_mitsuba_tpu_torch.core.rng import uniform
-from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
+from drmlt_mitsuba_tpu_torch.integrators.bidir import (
+    BDPTConfig, make_bidir_tables, trace_mmlt_wavefront,
+)
 from drmlt_mitsuba_tpu_torch.integrators.drmlt import (
     run_chains, warn_splat_mode,
 )
@@ -43,16 +47,30 @@ from drmlt_mitsuba_tpu_torch.scene.types import Scene
 N_MUT = 64     # mutations per chain-kernel launch (16 below 32 steps)
 
 
-def make_mmlt_trace_fixed(scene: Scene, k: int, light_image: bool, device):
+def make_mmlt_trace_fixed(scene: Scene, k: int, light_image: bool, device,
+                          thinlens: bool = False):
     """trace(u) -> Splats for a depth-k group, u = [strategy, eye dims...,
     light dims..., (pad)]: the MMLT trace with its depth dim pinned to k
     and the uniform depth-pmf factor k divided out (luminance-proportional
     group allocation replaces the pmf).  Returns (trace, cfg_k, n_dims,
-    tables) with n_dims even-padded for orbital."""
-    cfg = BDPTConfig(max_depth=k, light_image=light_image)
-    tables = megammlt.make_mmlt_tables(scene, cfg, device)
-    n_core = tables.n_core - 1
+    tables) with n_dims even-padded for orbital.  A thin lens (which the
+    MMLT kernel excludes) takes the bidirectional wavefront,
+    bidir.trace_mmlt_wavefront at depth k, and tables is None: such a
+    group runs the generic step."""
+    cfg = BDPTConfig(max_depth=k, light_image=light_image,
+                     thinlens=thinlens)
+    n_core = 1 + cfg.eye_dims + cfg.light_dims
     n_dims = n_core + n_core % 2
+    if thinlens:
+        bt = make_bidir_tables(scene, cfg, device)
+
+        def trace(u):
+            depth = torch.full((u.shape[0],), k, dtype=torch.int64,
+                               device=u.device)
+            return trace_mmlt_wavefront(bt, cfg, u[:, :n_core], depth)
+
+        return trace, cfg, n_dims, None
+    tables = megammlt.make_mmlt_tables(scene, cfg, device)
     u_depth = 1.0 - 0.5 / k
 
     def trace(u):
@@ -150,14 +168,15 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
     pssmlt runs every launch in the chain kernel's pssmlt mode (stage-1-only
     PSSMLT, the reference's control).  With use_mixture, acceptance_map or
     a filter footprint other than 1 every group runs the generic step
-    instead, steps_k steps developed at b_k / (N_k * steps_k / npixels),
+    instead (so does a thin lens, bcfg.thinlens, over the wavefront MMLT
+    trace), steps_k steps developed at b_k / (N_k * steps_k / npixels),
     and pssmlt raises ValueError there (mmlt_grouped.py:276-281).  Returns
     (image (H, W, 3), aux) with aux b, b_k, sizes, steps_per_group, accmap
     (None unless acceptance_map), and per group that ran its steps_eff,
     stats and image (the summand), like the reference."""
     device = generator.device
     generic = (dcfg.use_mixture or dcfg.acceptance_map
-               or film_cfg.filter.footprint != 1)
+               or film_cfg.filter.footprint != 1 or bcfg.thinlens)
     D = bcfg.max_depth
     n_total = -(-max(8192, dcfg.n_bootstrap // D) // BOOTSTRAP_BATCH) \
         * BOOTSTRAP_BATCH
@@ -165,7 +184,7 @@ def render_drmlt_mmlt_grouped(scene: Scene, bcfg: BDPTConfig, dcfg,
     groups = []
     for k in range(1, D + 1):
         trace, cfg_k, n_dims, tables = make_mmlt_trace_fixed(
-            scene, k, bcfg.light_image, device)
+            scene, k, bcfg.light_image, device, bcfg.thinlens)
         u_boot = uniform((n_total, n_dims), generator)
         lums, b_k = group_bootstrap(trace, u_boot)
         groups.append(dict(k=k, trace=trace, cfg=cfg_k, tables=tables,

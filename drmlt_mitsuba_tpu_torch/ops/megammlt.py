@@ -62,7 +62,8 @@ MAX_DEPTH = 16   # the kernels' per-thread slot arrays (mmlt_trace.cuh)
 def mega_mmlt_eligible(scene: Scene, cfg: BDPTConfig) -> bool:
     """True when the MMLT kernel covers this scene (the path kernel's scene
     subset less the thin lens); otherwise raises NotImplementedError naming
-    what is missing.  BDPTConfig itself refuses thin lens and media."""
+    what is missing (a thin-lens scene's MMLT takes the bidirectional
+    wavefront, integrators/bidir.py; BDPTConfig itself refuses media)."""
     if float(scene.camera.aperture_radius) > 0:
         raise NotImplementedError(
             "not yet ported to the CUDA MMLT kernel: a thin-lens camera "
@@ -82,6 +83,7 @@ class MmltTables:
     light_image: bool
     eye_dims: int
     light_dims: int
+    kinds: frozenset                 # the material table's BSDF kinds
     nodes: NodeTable | None = None   # the BVH above BVH_MIN_TRIS triangles
     sph: torch.Tensor | None = None
     tri_ext: torch.Tensor | None = None

@@ -227,7 +227,9 @@ def scope_fields(scene: Scene, tables, thinlens: bool) -> dict:
     shapes and modes, and `full`, which picks the kernels' full-scope
     instantiation: spheres, bitmap albedo, an environment, a thin lens or
     a BSDF kind beyond slices 1-4 (conductor, rough conductor, null).
-    A scene without any of them runs the instantiation of slices 1-4."""
+    A scene without any of them runs the instantiation of slices 1-4.
+    `kinds`, the material table's BSDF kinds, tells the plain BSDF
+    (render/bsdf.py) which lobes to evaluate."""
     sph, tri_ext, tex, env_tab, env_col, env_row = (
         t.contiguous() for t in tables[4:])
     em = scene.emitters
@@ -248,7 +250,8 @@ def scope_fields(scene: Scene, tables, thinlens: bool) -> dict:
     return dict(sph=sph, tri_ext=tri_ext, tex=tex, env_tab=env_tab,
                 env_col=env_col, env_row=env_row.reshape(-1), n_sphs=n_sphs,
                 tex_shape=tex_shape, env_shape=env_shape, env_mode=env_mode,
-                env_row_pick=env_row_pick, thinlens=bool(thinlens), full=full)
+                env_row_pick=env_row_pick, thinlens=bool(thinlens), full=full,
+                kinds=frozenset(kinds))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,6 +269,7 @@ class TraceTables:
     min_depth: int
     rr_depth: int
     use_nee: bool
+    kinds: frozenset     # the material table's BSDF kinds
     nodes: NodeTable | None = None
     sph: torch.Tensor | None = None       # (S, 8)
     tri_ext: torch.Tensor | None = None   # (T, 28)
@@ -500,14 +504,14 @@ def materials_at(tables, mat_id, tu, tv):
     """Per-lane material rows (render/bsdf.py:material_rows), the albedo
     from the texture atlas at (tu, tv) where the material has a page."""
     if tables.tex_shape is None:
-        return material_rows(tables.mat, mat_id)
+        return material_rows(tables.mat, mat_id, tables.kinds)
     mid = mat_id.to(torch.int64)
     tid = tables.mat[mid, 17]
     albedo = torch.where(
         (tid >= 0)[:, None],
         tex_albedo(tables.tex, tables.tex_shape, tid, tu, tv),
         tables.mat[mid, 1:4])
-    return material_rows(tables.mat, mat_id, albedo)
+    return material_rows(tables.mat, mat_id, tables.kinds, albedo)
 
 
 def _trace_reference(tables: TraceTables, uT, work=None, grad=None, live=None):

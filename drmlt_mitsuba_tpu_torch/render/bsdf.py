@@ -8,7 +8,10 @@ in megatrace.py `_fresnel_cond1` (:202), `_oren_nayar_term` (:1584),
 `_eval_kinds` (:1602) and `_sample_kinds` (:1659), which in turn mirror
 render/bsdf.py.  A material is a dict of per-lane rows (`material_rows`):
 `kind` (R,), albedo / eta / k / spec_refl / spec_trans (R, 3), the
-roughness column (R,); directions are local (R, 3).
+roughness column (R,); directions are local (R, 3).  A kind's lobe is
+evaluated only where the material table has that kind: the dict's `kinds`
+(the table's kinds, known on the host when the table is packed) decides
+that without reading the lanes back from the device.
 """
 from __future__ import annotations
 
@@ -42,16 +45,22 @@ def _div_pi(x):
     return cdiv(x, math.pi)
 
 
-def material_rows(mat, mat_id, albedo=None):
+def material_rows(mat, mat_id, kinds, albedo=None):
     """Per-lane material parameters from the packed table mat (M, 18) of
-    ops/megatrace.py; `albedo` (R, 3) overrides the constant albedo (a
-    bitmap texture's lookup)."""
+    ops/megatrace.py, whose BSDF kinds are `kinds` (a frozenset, see
+    ops/megatrace.py:scope_fields); `albedo` (R, 3) overrides the constant
+    albedo (a bitmap texture's lookup)."""
     m = mat[mat_id.to(torch.int64)]
     return dict(kind=m[:, 0].to(torch.int64),
                 albedo=m[:, 1:4] if albedo is None else albedo,
                 eta=m[:, 4:7], k=m[:, 7:10], rough=m[:, 10],
                 spec_refl=m[:, 11:14], spec_trans=m[:, 14:17],
-                tex_id=m[:, 17])
+                tex_id=m[:, 17], kinds=kinds)
+
+
+def _has(m, kind) -> bool:
+    """Whether a lobe needs evaluating: the material table has `kind`."""
+    return kind in m["kinds"]
 
 
 def is_delta(kind):
@@ -131,14 +140,14 @@ def eval_bsdf(m, wi, wo):
     same_side = (wi[:, 2] * cos_o) > 0
     scale = _div_pi(abs_co)
     m_on = kind == BSDF_ROUGH_DIFFUSE
-    if bool(m_on.any()):
+    if _has(m, BSDF_ROUGH_DIFFUSE):
         scale = torch.where(m_on, scale * oren_nayar(wi, wo, m["rough"]),
                             scale)
     md = ((kind == BSDF_DIFFUSE) | (kind == BSDF_ROUGH_DIFFUSE)) & same_side
     f = torch.where(md[:, None], m["albedo"] * scale[:, None], 0.0)
     pdf = torch.where(md, _div_pi(torch.clamp(abs_co, min=0.0)), 0.0)
     mr = (kind == BSDF_ROUGH_CONDUCTOR) & same_side
-    if bool(mr.any()):
+    if _has(m, BSDF_ROUGH_CONDUCTOR):
         f_rc, pdf_rc = _rough_conductor_eval(m, wi, wo)
         f = torch.where(mr[:, None], f_rc, f)
         pdf = torch.where(mr, pdf_rc, pdf)
@@ -193,7 +202,7 @@ def sample_bsdf(m, wi, uc, ub):
     m_d = (kind == BSDF_DIFFUSE) | m_on
     wo = torch.where(m_d[:, None], dw, zero3)
     d_w = albedo
-    if bool(m_on.any()):
+    if _has(m, BSDF_ROUGH_DIFFUSE):
         d_w = torch.where(m_on[:, None],
                           albedo * oren_nayar(wi, dw, m["rough"])[:, None],
                           albedo)
@@ -208,7 +217,7 @@ def sample_bsdf(m, wi, uc, ub):
     # smooth dielectric: reflect with probability F, else refract
     m_g = kind == BSDF_DIELECTRIC
     eta_out = torch.ones_like(cos_i)
-    if bool(m_g.any()):
+    if _has(m, BSDF_DIELECTRIC):
         eta_d = eta[:, 0]
         f_d, cos_t, _ = fresnel_dielectric(cos_i, eta_d)
         pick_refl = uc < f_d
@@ -226,20 +235,20 @@ def sample_bsdf(m, wi, uc, ub):
                              torch.where(cos_i > 0, eta_d, 1.0 / eta_d)), 1.0)
 
     # the kinds beyond the diffuse one and the mirror, evaluated only where
-    # a lane has them
+    # the table has them
     m_c = kind == BSDF_CONDUCTOR
-    if bool(m_c.any()):
+    if _has(m, BSDF_CONDUCTOR):
         f_c = fresnel_conductor(torch.abs(cos_i), eta, m["k"])
         wo = torch.where(m_c[:, None], spec, wo)
         weight = torch.where(m_c[:, None], spec_refl * f_c, weight)
     m_r = kind == BSDF_ROUGH_CONDUCTOR
-    if bool(m_r.any()):
+    if _has(m, BSDF_ROUGH_CONDUCTOR):
         wo_r, w_r, pdf_r = _rough_conductor_sample(m, wi, sign_i, ub)
         wo = torch.where(m_r[:, None], wo_r, wo)
         weight = torch.where(m_r[:, None], w_r, weight)
         pdf = torch.where(m_r, pdf_r, pdf)
     m_n = kind == BSDF_NULL
-    if bool(m_n.any()):
+    if _has(m, BSDF_NULL):
         wo = torch.where(m_n[:, None], -wi, wo)
         weight = torch.where(m_n[:, None], 1.0, weight)
     return BSDFSample(wo=wo, weight=weight, pdf=pdf, delta=is_delta(kind),

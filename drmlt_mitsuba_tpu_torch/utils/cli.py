@@ -1,7 +1,7 @@
 """Renderer CLI for the port (counterpart of drmlt_mitsuba_tpu/utils/cli.py:
-integrator=drmlt and integrator=pssmlt over the path and the MMLT
-technique, and the Monte-Carlo integrators path, volpath, volpath_simple
-and direct).
+integrator=drmlt and integrator=pssmlt over the path, MMLT and BDPT
+techniques, and the Monte-Carlo integrators path, volpath, volpath_simple,
+direct and bdpt).
 
     python -m drmlt_mitsuba_tpu_torch.utils.cli \\
         tests/data/large/cornell_large.xml -D integrator=drmlt \\
@@ -12,6 +12,8 @@ and direct).
         -D variant=orbital -D maxDepth=6 --chains 65536 --spp 256 -o veach.exr
     python -m drmlt_mitsuba_tpu_torch.utils.cli tests/data/cornell.xml \\
         -D integrator=pssmlt -D technique=mmlt --chains 65536 --spp 4096
+    python -m drmlt_mitsuba_tpu_torch.utils.cli tests/data/cornell.xml \\
+        -D integrator=bdpt --spp 64 -o cornell_bdpt.exr
 
 The scene argument is a Mitsuba scene XML (scene/xml.py reads the ported
 subset; `-D key=value` substitutes `$key`, and the film size, filter,
@@ -26,21 +28,28 @@ the keys the reference reads:
 
   * integrator=path|volpath|volpath_simple|direct: render_pt in accum mode
     (cli.py:150-163);
+  * integrator=bdpt: W H spp samples of integrators/bidir.py:trace_bdpt in
+    chunks of 8,192, every splat (the pixel's and the light image's) into
+    a splat-mode film (cli.py:197-225);
   * integrator=drmlt, technique=path (cli.py:369-409) or technique=mmlt
     through the depth-grouped driver (cli.py:314-367), with
     acceptanceMap, useMixture and any reconstruction filter;
   * the reference's generic MCMC loop (cli.py:60-108, 413-600) for
-    integrator=pssmlt, and for drmlt with twoStage, separateDirect,
-    acceptanceMap or useMixture over the path technique or with
-    grouped=false over the pooled MMLT trace: n_steps = W H spp / chains
-    run in blocks of min(256, n_steps), so the steps run and the develop
-    scale count whole blocks.
+    integrator=pssmlt, for drmlt with technique=bdpt, and for drmlt with
+    twoStage, separateDirect, acceptanceMap or useMixture over the path
+    technique or with grouped=false over the pooled MMLT trace: n_steps =
+    W H spp / chains run in blocks of min(256, n_steps), so the steps run
+    and the develop scale count whole blocks.
+
+A scene with a thin lens renders MMLT through the bidirectional wavefront
+(integrators/bidir.py:trace_mmlt_wavefront), grouped and pooled: the MMLT
+kernel excludes the lens, as the reference's does.
 
 With acceptanceMap, main writes <out>_acceptance.exr beside the image
 whenever the reference does, pssmlt's all-zero map included.  What the
-port does not render yet raises, naming it: other integrators (bdpt, ...),
-other techniques, samplers other than independent, MMLT with a thin lens,
-PNG output.
+port does not render yet raises, naming it: other integrators (ptracer,
+erpt, ...), samplers other than independent, PNG output; an unknown
+technique exits, as in the reference (cli.py:108).
 """
 from __future__ import annotations
 
@@ -52,10 +61,13 @@ import time
 import numpy as np
 import torch
 
+from drmlt_mitsuba_tpu_torch.core.rng import uniform
+from drmlt_mitsuba_tpu_torch.integrators.bidir import (
+    BDPTConfig, make_bdpt_trace,
+)
 from drmlt_mitsuba_tpu_torch.integrators.drmlt import (
     DRMLTConfig, render_drmlt, render_drmlt_path,
 )
-from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
 from drmlt_mitsuba_tpu_torch.integrators.mmlt import (
     make_mmlt_trace, mmlt_emitter_mask, mmlt_lt_mask_fn, mmlt_masks,
@@ -91,6 +103,7 @@ KEYS = ("integrator", "technique", "variant", "pLarge", "sigma",
         "directSamples")
 # the sampling integrators, rendered by render_pt in accum mode
 PT_TYPES = ("path", "volpath", "volpath_simple", "direct")
+BDPT_CHUNK = 8192    # samples per trace_bdpt call of integrator=bdpt
 
 
 def _pbool(v, default=False):
@@ -150,14 +163,16 @@ def render(args, scene, settings: RenderSettings, device):
     map that main writes as <out>_acceptance.exr, or None.  Routes, as in
     the reference CLI:
       * path | volpath | volpath_simple | direct: `_render_pt`;
+      * bdpt: `_render_bdpt`;
       * drmlt over mmlt, grouped (the default) and neither twoStage nor
         separateDirect set: the depth-grouped driver (cli.py:314-367),
-        whose groups run the generic step under acceptanceMap, useMixture
-        or a filter other than box;
+        whose groups run the generic step under acceptanceMap, useMixture,
+        a filter other than box or a thin lens;
       * drmlt over path with none of acceptanceMap, useMixture, twoStage
         and separateDirect: render_drmlt_path (cli.py:369-409; a filter
         other than box sends it to render_drmlt);
-      * everything else, pssmlt included: `_render_mcmc`.
+      * everything else, pssmlt and technique=bdpt included:
+        `_render_mcmc`.
     Every boolean key is read as a bool, so `-D twoStage=false` is false;
     the reference tests twoStage, separateDirect (cli.py:317-318, 372-373)
     and the acceptance map's film (cli.py:539) by the raw string, so
@@ -172,14 +187,15 @@ def render(args, scene, settings: RenderSettings, device):
     gen.manual_seed(args.seed)
     if itype in PT_TYPES:
         return _render_pt(icfg, itype, scene, settings.sampler, fc, gen, spp)
+    if itype == "bdpt":
+        return _render_bdpt(icfg, scene, fc, gen, spp)
     if itype not in ("drmlt", "pssmlt"):
         raise NotImplementedError(
-            f"integrator {itype!r} not yet ported (drmlt, pssmlt, "
+            f"integrator {itype!r} not yet ported (drmlt, pssmlt, bdpt, "
             f"{', '.join(PT_TYPES)})")
     technique = icfg.get("technique", "path")
-    if technique not in ("path", "mmlt"):
-        raise NotImplementedError(
-            f"technique {technique!r} not yet ported (path, mmlt)")
+    if technique not in ("path", "mmlt", "bdpt"):
+        raise SystemExit(f"unknown technique '{technique}'")
     n_chains = int(icfg.get("chains", args.chains))
     avg_lum = float(icfg.get("averageLuminance", -1))
     avg_lum = avg_lum if avg_lum > 0 else None
@@ -255,12 +271,35 @@ def _render_pt(icfg, itype, scene, sampler, fc, gen, spp):
             dict(samples=n, accmap=None))
 
 
+def _render_bdpt(icfg, scene, fc, gen, spp):
+    """integrator=bdpt (cli.py:197-225): W H spp samples of trace_bdpt at
+    maxDepth (5), lightImage, in n_chunks = max(1, W H spp // 8192) chunks
+    of 8,192; every splat goes into a splat-mode film, developed with
+    scale W H / (n_chunks 8192)."""
+    bcfg = BDPTConfig(max_depth=int(icfg.get("maxDepth", 5)),
+                      light_image=_pbool(icfg.get("lightImage"), True),
+                      thinlens=_thinlens(scene))
+    trace = make_bdpt_trace(scene, bcfg, gen.device)
+    W, H = fc.width, fc.height
+    n_chunks = max(1, W * H * spp // BDPT_CHUNK)
+    scale = torch.tensor([W, H], dtype=torch.float32, device=gen.device)
+    film = filmlib.new_film(fc, gen.device)
+    for _ in range(n_chunks):
+        sp = trace(uniform((BDPT_CHUNK, bcfg.n_dims), gen))
+        film = filmlib.splat(fc, film, sp.pos.reshape(-1, 2) * scale,
+                             sp.value.reshape(-1, 3), mode="splat")
+    n = n_chunks * BDPT_CHUNK
+    return (filmlib.develop(fc, film, mode="splat", scale=W * H / n),
+            dict(samples=n, accmap=None))
+
+
 def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
                  avg_lum):
     """The reference CLI's generic MCMC loop (cli.py:60-108 build_trace,
-    413-600): pssmlt, or drmlt through the generic step, over the path or
+    413-600): pssmlt, or drmlt through the generic step, over the path,
     the pooled MMLT trace (its depth dim pinned, its strategy dim frozen,
-    fixEmitterPath's masks), no Russian roulette (rr_depth 100), an even
+    fixEmitterPath's masks) or trace_bdpt (1 + n_light splats a sample,
+    nothing frozen or pinned), no Russian roulette (rr_depth 100), an even
     PSS dimension, the steps of whole blocks of min(256, n_steps).
 
     separateDirect (path only): a render_pt pass at depth 2 with
@@ -286,6 +325,12 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
         trace = make_mmlt_trace(scene, bcfg, dev)
         extras = dict(emitter_mask=mmlt_emitter_mask(bcfg, n_dims, dev),
                       lt_mask_fn=mmlt_lt_mask_fn(bcfg))
+    elif technique == "bdpt":
+        bcfg = BDPTConfig(max_depth=md,
+                          light_image=_pbool(icfg.get("lightImage"), True),
+                          thinlens=_thinlens(scene))
+        n_dims = bcfg.n_dims + bcfg.n_dims % 2
+        trace = make_bdpt_trace(scene, bcfg, dev)
     else:
         pcfg = PathConfig(max_depth=md, rr_depth=100,
                           min_depth=int(icfg.get("minDepth", 1)),
@@ -369,8 +414,8 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="drmlt-torch",
-        description="DRMLT and PSSMLT renderer (path and MMLT techniques) on "
-                    "PyTorch + CUDA")
+        description="DRMLT, PSSMLT and BDPT renderer (path, MMLT and BDPT "
+                    "techniques) on PyTorch + CUDA")
     ap.add_argument("scene", help="Mitsuba scene XML, or a built-in scene "
                                   "name (cornell, veach)")
     ap.add_argument("-D", action="append", default=[], metavar="key=value",

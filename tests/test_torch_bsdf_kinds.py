@@ -97,7 +97,7 @@ def test_kind_eval_sample_pdf_match_reference(mi):
     wi, wo = _dirs(rng, R), _dirs(rng, R)
     u3 = rng.random((R, 3), dtype=np.float32)
     alb = jnp.zeros((R, 3))
-    m = bsdf.material_rows(mats, _T(mid))
+    m = bsdf.material_rows(mats, _T(mid), frozenset(d["kind"] for d in MATS))
     f_j, pdf_j = jbsdf.eval_bsdf(table_j, jnp.asarray(mid), alb,
                                  jnp.asarray(wi), jnp.asarray(wo))
     f_t, pdf_t = bsdf.eval_bsdf(m, _T(wi), _T(wo))

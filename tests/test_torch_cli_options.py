@@ -151,10 +151,7 @@ def test_file_keys_win_and_blocks_round_up(monkeypatch):
 
 def test_unported_keys_raise_naming_the_key(monkeypatch):
     dev = torch.device("cpu")
-    cases = [(["integrator=bdpt"], "bdpt"),
-             (["integrator=ptracer"], "ptracer"),
-             (["integrator=pssmlt", "technique=bdpt"], "bdpt"),
-             (["integrator=drmlt", "technique=bdpt"], "bdpt")]
+    cases = [(["integrator=ptracer"], "ptracer")]
     for defs, key in cases:
         args, scene, settings = _port(defs)
         with pytest.raises(NotImplementedError, match=key):
@@ -185,7 +182,11 @@ def test_unported_keys_raise_naming_the_key(monkeypatch):
             (["integrator=pssmlt", "separateDirect=true"], "render_pt"),
             (["integrator=direct"], "render_pt"),
             (["integrator=drmlt", "twoStage=false"], "render_drmlt_path"),
-            (["integrator=pssmlt", "useMixture=true"], "render_pssmlt")):
+            (["integrator=pssmlt", "useMixture=true"], "render_pssmlt"),
+            (["integrator=drmlt", "technique=bdpt"], "render_drmlt"),
+            (["integrator=pssmlt", "technique=bdpt"], "render_pssmlt"),
+            # last: its capture stands in for the bdpt routes' trace
+            (["integrator=bdpt"], "make_bdpt_trace")):
         args, scene, settings = _port(defs)
         seen = _capture(monkeypatch, name)
         with pytest.raises(_Stop):
@@ -200,6 +201,13 @@ def test_unported_keys_raise_naming_the_key(monkeypatch):
             assert seen["kw"]["frozen_mask"].tolist() == (
                 [False, True] + [False] * 22)
             assert seen["kw"]["emitter_mask"].sum() == 11
+        elif "technique=bdpt" in defs:
+            # trace_bdpt at the file's depth 4: 11 eye and 11 light dims,
+            # nothing pinned or frozen
+            assert a[4] == 22 and seen["kw"]["pinned_mask"] is None
+        elif name == "make_bdpt_trace":
+            # integrator=bdpt at the file's depth 4, the light image on
+            assert a[1] == BDPTConfig(max_depth=4, light_image=True)
         elif name == "render_drmlt":
             assert a[1].acceptance_map == ("acceptanceMap=true" in defs)
             assert not a[1].use_mixture     # cli.py:520-524 runs drmlt_step

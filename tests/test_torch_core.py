@@ -3,6 +3,7 @@ transition kernels, the PSS wrap, frames and warps, the box-filter film,
 and the Philox stream the chain kernel draws from."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,21 +111,21 @@ def test_frame_and_warps_match_reference():
     n[0] = (0, 0, -1)
     n[1] = (0, 0, 1)
     v = rng.normal(size=(257, 3)).astype(np.float32)
-    loc = frame.to_local(T(n), T(v))
-    np.testing.assert_allclose(
-        loc.numpy(), np.asarray(jframe.to_local(jnp.asarray(n),
-                                                jnp.asarray(v))), atol=1e-5)
-    np.testing.assert_allclose(frame.to_world(T(n), loc).numpy(), v,
-                               atol=1e-5)
     u = rng.random((257, 2), dtype=np.float32)
     u[0] = (0.5, 0.5)
+    ref = jax.jit(lambda a, b, c: (        # the reference, one program
+        jframe.to_local(a, b), jwarp.square_to_cosine_hemisphere(c),
+        jwarp.square_to_uniform_triangle(c)))(
+        jnp.asarray(n), jnp.asarray(v), jnp.asarray(u))
+    loc = frame.to_local(T(n), T(v))
+    np.testing.assert_allclose(loc.numpy(), np.asarray(ref[0]), atol=1e-5)
+    np.testing.assert_allclose(frame.to_world(T(n), loc).numpy(), v,
+                               atol=1e-5)
     np.testing.assert_allclose(
-        warp.square_to_cosine_hemisphere(T(u)).numpy(),
-        np.asarray(jwarp.square_to_cosine_hemisphere(jnp.asarray(u))),
+        warp.square_to_cosine_hemisphere(T(u)).numpy(), np.asarray(ref[1]),
         atol=1e-6)
     np.testing.assert_allclose(
-        warp.square_to_uniform_triangle(T(u)).numpy(),
-        np.asarray(jwarp.square_to_uniform_triangle(jnp.asarray(u))),
+        warp.square_to_uniform_triangle(T(u)).numpy(), np.asarray(ref[2]),
         atol=1e-7)
 
 
@@ -142,16 +143,22 @@ def test_box_film_matches_reference(mode):
     w = rng.random(N, dtype=np.float32)
     jfc = jfilm.make_film_config(W, H, "box")
     fc = film.make_film_config(W, H, "box")
-    ref = jfilm.splat(jfc, jfilm.new_film(jfc), jnp.asarray(pos),
-                      jnp.asarray(val), weight=jnp.asarray(w), mode=mode)
+
+    @jax.jit
+    def reference(p, v, wt):
+        """The reference's splat and develop, in one program."""
+        f = jfilm.splat(jfc, jfilm.new_film(jfc), p, v, weight=wt, mode=mode)
+        return f, jfilm.develop(jfc, f, mode=mode, scale=0.5)
+
+    ref, ref_img = reference(jnp.asarray(pos), jnp.asarray(val),
+                             jnp.asarray(w))
     got = film.splat(fc, film.new_film(fc, "cpu"), T(pos), T(val), weight=T(w),
                      mode=mode)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(
         film.develop(fc, got, mode=mode, scale=0.5).numpy(),
-        np.asarray(jfilm.develop(jfc, ref, mode=mode, scale=0.5)),
-        rtol=1e-5, atol=1e-5)
+        np.asarray(ref_img), rtol=1e-5, atol=1e-5)
     # the edge splats were dropped: total weight is that of in-image splats
     np.testing.assert_allclose(got[..., 3].sum().item(), w[80:].sum(),
                                rtol=1e-4)

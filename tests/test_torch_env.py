@@ -11,6 +11,7 @@ the neighbouring pixel (at most 0.1% of lanes here).
 """
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,7 +65,7 @@ def test_env_tables_match_reference(scenes):
         assert a.dtype == b.dtype, f
         np.testing.assert_array_equal(a, b, err_msg=f)
     from drmlt_mitsuba_tpu.ops.pallas.megatrace import pack_mega_tables
-    for a, b in zip(tabs[7:], pack_mega_tables(js)[7:]):
+    for a, b in zip(tabs[7:], jax.jit(lambda: pack_mega_tables(js)[7:])()):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert int(pem.kind[-1]) == st.EMITTER_ENV
 
@@ -76,24 +77,29 @@ def test_lookup_and_pdf_match_reference(scenes):
     d = np.random.default_rng(1).normal(size=(R, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     dj, dt = jnp.asarray(d), torch.from_numpy(d)
-    uv_j = np.asarray(jem.env_dir_to_uv(dj))
+
+    @jax.jit
+    def reference(x):
+        """The reference's lookup, pdf and inverse map, in one program."""
+        uv = jem.env_dir_to_uv(x)
+        return (uv, jem.env_lookup(js.emitters, x), jem.env_pdf_dir(js, x),
+                jem.env_uv_to_dir(uv))
+
+    uv_j, rad_j, pdf_j, back_j = (np.asarray(a) for a in reference(dj))
     u, v = em.env_dir_to_uv(dt)
     np.testing.assert_allclose(u.numpy(), uv_j[:, 0], rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(v.numpy(), uv_j[:, 1], rtol=1e-6, atol=1e-6)
-    rad_j = np.asarray(jem.env_lookup(js.emitters, dj))
     rad = em.env_bilinear(env_tab, shape, u, v).numpy()
     close = np.isclose(rad, rad_j, rtol=1e-5, atol=1e-6).all(-1)
     assert close.mean() >= 0.999
     pick = float(pem.pmf[pem.kind == st.EMITTER_ENV].sum())
-    pdf_j = np.asarray(jem.env_pdf_dir(js, dj))
     pdf = (em.env_pdf_sa(env_tab, shape, u, v, dt[:, 1]) * pick).numpy()
     close = np.isclose(pdf, pdf_j, rtol=1e-5, atol=1e-8)
     assert close.mean() >= 0.999
     # the uv -> direction map, the inverse of the lookup's
     back = em.env_uv_to_dir(u, v).numpy()
     np.testing.assert_allclose(back, d, atol=2e-5)
-    np.testing.assert_allclose(
-        back, np.asarray(jem.env_uv_to_dir(jnp.asarray(uv_j))), atol=1e-6)
+    np.testing.assert_allclose(back, back_j, atol=1e-6)
 
 
 def test_nee_sample_matches_reference(scenes):
@@ -106,7 +112,8 @@ def test_nee_sample_matches_reference(scenes):
     u3 = rng.random((R, 3), dtype=np.float32)
     u3[:, 0] = lo + (1.0 - lo) * u3[:, 0] * 0.999
     p = np.full((R, 3), 278.0, np.float32)
-    ds = jem.sample_emitter_direct(js, jnp.asarray(p), jnp.asarray(u3))
+    ds = jax.jit(lambda a, b: jem.sample_emitter_direct(js, a, b))(
+        jnp.asarray(p), jnp.asarray(u3))
     shape = tuple(pem.env_image.shape[:2])
     d, pdf, rad = em.env_sample(tabs[7], tabs[8], tabs[9].reshape(-1), shape,
                                 torch.from_numpy(u3[:, 1]),

@@ -166,8 +166,10 @@ def test_unported_features_raise_naming_themselves():
         MT.mega_eligible(lens, PathConfig())
     with pytest.raises(NotImplementedError, match="thin-lens"):
         MM.mega_mmlt_eligible(lens, BDPTConfig(max_depth=3))
+    # the bidirectional config takes the lens; the MMLT kernel does not
     with pytest.raises(NotImplementedError, match="thin-lens"):
-        BDPTConfig(max_depth=3, thinlens=True)
+        MM.make_mmlt_tables(lens, BDPTConfig(max_depth=3, thinlens=True),
+                            "cpu")
     glowing = dataclasses.replace(scene, spheres=dataclasses.replace(
         scene.spheres, emitter_id=torch.zeros_like(scene.spheres.emitter_id)))
     with pytest.raises(NotImplementedError, match="emissive analytic"):

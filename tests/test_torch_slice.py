@@ -139,8 +139,8 @@ def test_cli_cornell_writes_exr(tmp_path, capsys):
         cli.main([str(xml), "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli.main(["cornell", "-D", "nope=1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="technique"):
-        cli.main(["cornell", "-D", "technique=bdpt", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown technique"):
+        cli.main(["cornell", "-D", "technique=nope", "--device", "cpu"])
 
 
 def test_cli_mmlt_writes_exr(tmp_path, capsys, monkeypatch):

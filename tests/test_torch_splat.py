@@ -49,10 +49,10 @@ def test_film_splat_matches_reference(mode):
                             torch.from_numpy(val),
                             None if w is None else torch.from_numpy(w),
                             mode=mode)
-        want = jax_film.splat(jfc, jax_film.new_film(jfc), jnp.asarray(pos),
-                              jnp.asarray(val),
-                              None if w is None else jnp.asarray(w),
-                              mode=mode)
+        want = jax.jit(lambda p, v, wt: jax_film.splat(
+            jfc, jax_film.new_film(jfc), p, v, wt, mode=mode))(
+            jnp.asarray(pos), jnp.asarray(val),
+            None if w is None else jnp.asarray(w))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-6)
     assert float(got[..., 3].sum()) > 0
