@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's seven slices once on one GPU: the DRMLT path
+"""Drive the PyTorch/CUDA port's slices once on one GPU: the DRMLT path
 render, the depth-grouped DRMLT-over-MMLT render, differentiable
 rendering (inverse rendering through the adjoint and splat kernels),
 asset-scale scenes (the XML loader, the BVH walk in every trace kernel,
@@ -10,7 +10,9 @@ kernel's pssmlt mode, the host PSSMLT integrator, the CLI's
 integrator=pssmlt), the generic DRMLT step (the mixture, the
 acceptance map, the pooled MMLT route, every reconstruction filter and
 the CLI routes they open) and the bidirectional layer (BDPT, the
-wavefront MMLT trace, the thin lens, over the intersection kernel).
+wavefront MMLT trace, the thin lens, over the intersection kernel), and
+the forward renderers (the particle tracer, field, multichannel and
+motion AOVs), every sampler and the CLI's flags and outputs.
 
     python3 chip_smoke.py
 
@@ -191,6 +193,36 @@ non-zero):
      run of (a) and each render of (c)-(e) and read after it; the kernels
      line adds those launches to #1 / #2 (brute mode), #3 (the walk) and
      #4.
+ 26. slice 9, the forward renderers (integrators/misc.py), the samplers
+     and the CLI's new routes: (a) render_field, all nine kinds, on the
+     box at 256x256 x 4 spp (brute mode) and on a 64x64 film of
+     cornell_large.xml (the walk), each held per pixel against the same
+     call on the CPU over the twins on the same uniforms, within 1e-5 of
+     the sum of |value| landing in the pixel (the splat kernel's atomics
+     add in another order; the first hits are the same triangles, t
+     within a few ulps: PyTorch's elementwise kernels round a camera
+     ray's direction differently on the two devices on some lanes), and
+     its ms a render; (b) render_motion_aov of the box translated +20 x over the
+     shutter against the CPU; (c) render_ptracer on the box at depth 8
+     against phase 5's MC (PTRACER_GATE, the image mean's noise from the
+     blocks printed beside it), its paths/s; (d) render_pt under each of
+     the six samplers on the box, 16 renders of 1 spp each under their
+     own shifts, their mean against phase 5's MC within four standard
+     errors of the replicates (and SAMPLER_GATE); each sampler's matrix
+     on the card bit for bit the CPU's on the same indices and shifts
+     (or jitter); the paths/s of a 16-spp render, the median of
+     SAMPLER_TIMINGS renders taken in turns over the samplers, with its
+     min-max, beside independent's; (e) in a fresh process,
+     tests/data/cornell.xml through integrator=field -o .npy (equal to
+     the same render in this process), integrator=pssmlt with -t (stops
+     after one block of two) and with -r (a partial EXR a block and
+     _time.csv; its image against phase 22's MC), and a copy with
+     <sampler type="sobol"> (written to chiprun_out/cornell_sobol.xml)
+     through integrator=path against phase 22's MC and gate; and -x in
+     another fresh process, which leaves the output as it was.  The
+     counters are reset before each card run and read after it (the fresh
+     processes print theirs); the kernels line adds those launches to
+     #1 / #2, #3, #4 and #5.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -2710,6 +2742,399 @@ def slice8(name, dev, gen, report, mc_refs, s5):
     return dict(launches8, intersect_by_mode=ix_mode)
 
 
+# phase 26: the forward renderers (integrators/misc.py), every sampler of
+# render_pt, and the CLI's new routes, flags and outputs
+FIELD_SPP = 4             # 26a: samples a pixel of the field renders
+FIELD_LARGE_SIDE = 64     # 26a: cornell_large.xml's film (its CPU twin walks
+#                           every ray in a host loop: 16,384 rays, as 25a)
+MOTION_DX = 20.0          # 26b: the reference test's +x translation
+MOTION_TOL = 1e-4         # 26b: pixels; velocities are differences of film
+#                           positions, so a last-bit difference of one
+#                           scales by the film's width
+PTRACER_PATHS = 4 * 65536  # 26c: light paths, in chunks of 65,536
+PTRACER_CHUNK = 65536
+# 26c: the light tracer against phase 5's MC (both unbiased at depth 8; on
+# a 16x16 box on the CPU their means agree within 0.3%); the phase prints
+# the image mean's noise from the 16x16 blocks beside it
+PTRACER_GATE = 0.02
+# 26d: each sampler renders SAMPLER_REPS images of one path a pixel, each
+# under its own shifts (its own generator draws).  Randomised QMC errors
+# correlate across a render's pixels, so the 16x16 blocks' spread misses
+# them (ldsampler gives every pair of dimensions the one (0, 2) point
+# set, as the reference does: its image mean moved 5% with its shifts on
+# the H100, against 1.2% that the blocks predicted); the spread of the
+# replicates' means is the honest standard error.  The gate is four of
+# them, and at least SAMPLER_GATE
+SAMPLER_REPS = 16
+SAMPLER_GATE = 0.01
+# 26d: timed 16-spp renders per sampler, one of each sampler a round (one
+# ~10 ms host-timed render read 8.6e6-9.0e7 paths/s on a shared host)
+SAMPLER_TIMINGS = 5
+# 26d: the matrices' indices, start .. start + SAMPLER_ROWS - 1 (past 2^24
+# so that the high bits of the index take part)
+SAMPLER_START, SAMPLER_ROWS = (1 << 24) + 12345, 65536
+# 26e: pssmlt under -t / -r: 64 x 64 x 32 / 256 = 512 steps, two blocks
+PSS_FLAG_CHAINS, PSS_FLAG_SPP = 256, 32
+# a fresh process running the CLI's main once per argv list of its JSON
+# argument, printing the launch counters after each (phase 26e)
+CLI_RUNS = ("import json, sys\n"
+            "from drmlt_mitsuba_tpu_torch.utils import cli\n"
+            "from drmlt_mitsuba_tpu_torch.ops import build\n"
+            "for argv in json.loads(sys.argv[1]):\n"
+            "    build.reset_launches()\n"
+            "    rc = cli.main(argv)\n"
+            "    counts = dict(build.LAUNCHES, rc=rc)\n"
+            "    print('LAUNCHES ' + json.dumps(counts))\n"
+            "    if rc:\n"
+            "        sys.exit(rc)\n")
+
+
+def run_cli(argvs, timeout=600):
+    """(per-run launch dicts, stdout lines, wall s) of `argvs` through
+    CLI_RUNS in one fresh process."""
+    cmd = [sys.executable, "-c", CLI_RUNS, json.dumps(argvs)]
+    res, wall = sync_time(lambda: subprocess.run(
+        cmd, capture_output=True, text=True, timeout=timeout, cwd=ROOT))
+    need(res.returncode == 0, f"CLI runs {argvs}: exit {res.returncode}: "
+         f"{res.stderr[-2000:]}")
+    lines = res.stdout.splitlines()
+    runs = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
+            if ln.startswith("LAUNCHES ")]
+    need(len(runs) == len(argvs), f"CLI runs: {len(runs)} of {len(argvs)}")
+    return runs, lines, wall
+
+
+def slice9(name, dev, gen, report, mc_refs, s5):
+    """Phase 26: the forward renderers, the samplers and the CLI's new
+    routes on the card.  Returns the main-path launches of (a)-(e), with
+    the intersection kernel's split by mode."""
+    from drmlt_mitsuba_tpu_torch.integrators import bidir as BD
+    from drmlt_mitsuba_tpu_torch.integrators import misc
+    from drmlt_mitsuba_tpu_torch.render import sampler as S
+    from drmlt_mitsuba_tpu_torch.scene.types import build_motion
+
+    t_phase = time.perf_counter()
+    fc = filmlib.make_film_config(SIZE, SIZE, "box")
+    launches9 = dict.fromkeys(build.LAUNCHES, 0)
+    ix_mode = {"brute": 0, "bvh": 0}
+    cpu_gen = torch.Generator().manual_seed(0)
+
+    def count(mode, counts=None):
+        for key, c in (counts or build.LAUNCHES).items():
+            if key in launches9:
+                launches9[key] += c
+        ix_mode[mode] += (counts or build.LAUNCHES)["intersect"]
+
+    # ---- 26a. every field AOV on the card against the CPU's ---------------
+    cornell = cornell_box(SIZE, SIZE)
+    large, _ = cli.load_scene(LARGE_XML, {})
+    cfg1 = BDPTConfig(max_depth=1)
+    report["field_vs_twin"] = {}
+    for tag, scene, side, mode in (("box", cornell, SIZE, "brute"),
+                                   ("cornell_large.xml", large,
+                                    FIELD_LARGE_SIDE, "bvh")):
+        fcs = filmlib.make_film_config(side, side, "box")
+        tk = BD.make_bidir_tables(scene, cfg1, dev)
+        tc = BD.make_bidir_tables(scene, cfg1, "cpu")
+        need((tk.rays.nodes is None) == (mode == "brute"),
+             f"{tag}: the intersection kernel is not in {mode} mode")
+        u = torch.rand((side * side * FIELD_SPP, 4), generator=gen,
+                       device=dev)
+        uc = u.cpu()
+        # the CPU's hits once: every kind's call makes the same one
+        (uv_c, o_c, d_c, hit_c), twin_s = sync_time(
+            lambda: misc.first_hit_fields(tc, fcs, uc))
+        # the rays come from PyTorch's elementwise kernels on each device,
+        # whose directions differ in the last bit on some lanes: the same
+        # triangle everywhere, t within a few ulps
+        _, _, d_k, hit_k = misc.first_hit_fields(tk, fcs, u)
+        prim_equal = (torch.equal(hit_k.prim.cpu(), hit_c.prim)
+                      and torch.equal(hit_k.valid.cpu(), hit_c.valid))
+        t_k, ok_t = hit_k.t.cpu(), hit_c.valid
+        t_rel = float(((t_k - hit_c.t).abs() / hit_c.t.abs())[ok_t].max()) \
+            if ok_t.any() else 0.0
+        n_t = int((t_k != hit_c.t).sum())
+        d_ulp = float((d_k.cpu() - d_c).abs().max())
+        rows = {}
+        for kind in misc.FIELD_KINDS:
+            build.reset_launches()
+            img = misc.render_field(tk, fcs, gen, kind, FIELD_SPP, u=u)
+            count(mode)
+            real = misc.intersect
+            misc.intersect = lambda *a, **kw: hit_c
+            try:
+                ref = misc.render_field(tc, fcs, cpu_gen, kind, FIELD_SPP,
+                                        u=uc)
+            finally:
+                misc.intersect = real
+            # per pixel, of the sum of |value| landing there, over its
+            # channels (24d's gate; a channel alone can cancel to ~0, as a
+            # position's y on the floor, while its rounding is the others');
+            # a position o + t d rounds as its terms do, which near the
+            # box's corner at the origin are far larger than it
+            mag = misc.field_values(tc, o_c, d_c, hit_c, kind).abs()
+            if "position" in kind:
+                mag = torch.where(hit_c.valid[:, None], o_c.abs() + (
+                    hit_c.t[:, None] * d_c).abs() + (
+                    tc.cam[9:12].abs() if kind == "relposition" else 0.0),
+                    0.0)
+            mag = misc.splat_aov(fcs, uv_c, mag).sum(-1)
+            d = (img.cpu() - ref).abs().amax(-1)
+            zero = mag == 0
+            err = float((d[~zero] / mag[~zero]).max()) if (~zero).any() \
+                else 0.0
+            ms = event_ms(lambda: misc.render_field(tk, fcs, gen, kind,
+                                                    FIELD_SPP, u=u), runs=3)
+            rows[kind] = dict(max_rel_err=err, max_abs=float(d.max()),
+                              zero_pixels_equal=bool((d[zero] == 0).all()),
+                              ms=ms)
+            need(bool(torch.isfinite(img).all()), f"{tag} {kind}: not finite")
+            need(err <= SPLAT_RTOL and rows[kind]["zero_pixels_equal"],
+                 f"field {kind} on {tag}: card vs CPU {err}")
+        report["field_vs_twin"][tag] = dict(
+            rays=u.shape[0], side=side, spp=FIELD_SPP, same_triangles=
+            prim_equal, t_max_rel=t_rel, t_lanes_differing=n_t,
+            dir_max_abs_diff=d_ulp, cpu_hits_s=twin_s, kinds=rows)
+        print(f"[26a render_field vs CPU] {name}: {tag}, {side}x{side} x "
+              f"{FIELD_SPP} spp ({mode} mode): the same triangle on every "
+              f"ray {prim_equal}, t on {n_t} rays differing by at most "
+              f"{t_rel:.2e} relative (directions {d_ulp:.2e} apart); "
+              f"max per-pixel |card - CPU| / sum |value| "
+              f"{max(r['max_rel_err'] for r in rows.values()):.2e} (gate "
+              f"{SPLAT_RTOL}); ms a render " + ", ".join(
+                  f"{k} {r['ms']:.3f}" for k, r in rows.items()))
+        need(prim_equal and t_rel <= 1e-6, f"{tag}: the card's first hits "
+             f"differ from the CPU's ({prim_equal}, t {t_rel})")
+
+    # ---- 26b. the motion AOV of the translated box ------------------------
+    dx = torch.where((cornell.tris.emitter_id < 0)[:, None],
+                     torch.tensor([MOTION_DX, 0.0, 0.0]), 0.0)
+    moving = dataclasses.replace(cornell, motion=build_motion(
+        cornell.tris, dataclasses.replace(cornell.tris,
+                                          v0=cornell.tris.v0 + dx)))
+    u = torch.rand((SIZE * SIZE, 4), generator=gen, device=dev)
+    build.reset_launches()
+    vk, wall = sync_time(lambda: misc.render_motion_aov(moving, fc, gen, 1,
+                                                        u=u))
+    count("brute")
+    vc = misc.render_motion_aov(moving, fc, cpu_gen, 1, u=u.cpu())
+    mx = float((vk.cpu() - vc).abs().max())
+    right = float((vk[..., 0] > 0).float().mean())
+    report["motion_vs_twin"] = dict(max_abs_px=mx, wall_s=wall,
+                                    share_moving_right=right,
+                                    max_speed_px=float(vc.abs().max()))
+    print(f"[26b render_motion_aov vs CPU] {name}: box, +{MOTION_DX} x over "
+          f"the shutter, {SIZE}x{SIZE} x 1 spp: max |card - CPU| {mx:.2e} px "
+          f"(gate {MOTION_TOL}), fastest {float(vc.abs().max()):.3f} px, "
+          f"{right:.3f} of pixels moving right; {wall:.3f} s with its "
+          f"tables")
+    need(mx <= MOTION_TOL and right > 0.5, f"motion AOV: {mx} px, {right}")
+
+    # ---- 26c. the particle tracer against phase 5's MC --------------------
+    tb8 = BD.make_bidir_tables(cornell, BDPTConfig(max_depth=DEPTH), dev)
+    misc.render_ptracer(tb8, fc, gen, PTRACER_CHUNK, max_depth=DEPTH,
+                        chunk=PTRACER_CHUNK)                 # warm-up
+    build.reset_launches()
+    lt, wall = sync_time(lambda: misc.render_ptracer(
+        tb8, fc, gen, PTRACER_PATHS, max_depth=DEPTH, chunk=PTRACER_CHUNK))
+    count("brute")
+    mean_rel, block_l1 = mc_compare(lt, mc_refs["path"])
+    noise = block_l1 * (np.pi / 2) ** 0.5 / 16
+    report["ptracer"] = dict(paths=PTRACER_PATHS, wall_s=wall,
+                             paths_per_s=PTRACER_PATHS / wall,
+                             mean_rel_err=mean_rel, block_rel_l1=block_l1,
+                             mean_noise_from_blocks=noise, gate=PTRACER_GATE)
+    print(f"[26c render_ptracer vs MC] {name}: box, depth {DEPTH}, "
+          f"{PTRACER_PATHS} light paths in chunks of {PTRACER_CHUNK}: "
+          f"{wall:.3f} s ({PTRACER_PATHS / wall:.4e} paths/s); vs phase 5's "
+          f"MC mean rel {mean_rel:.4f} (gate {PTRACER_GATE}; its noise from "
+          f"the blocks {noise:.4f}), 16x16-block rel L1 {block_l1:.4f}")
+    need(bool(torch.isfinite(lt).all()), "ptracer: image not finite")
+    need(mean_rel < PTRACER_GATE, f"ptracer differs from MC by {mean_rel}")
+
+    # ---- 26d. render_pt under every sampler -------------------------------
+    pcfg = PathConfig(max_depth=DEPTH, rr_depth=100, min_depth=1)
+    n = SIZE * SIZE
+    ref_mean = float(mc_refs["path"].double().mean())
+    report["samplers"] = {}
+    for kind in S.SAMPLERS:
+        render_pt(cornell, pcfg, gen, n, fc, sampler=kind)      # warm-up
+        build.reset_launches()
+
+        def reps():
+            return [render_pt(cornell, pcfg, gen, n, fc, mode="accum",
+                              sampler=kind) for _ in range(SAMPLER_REPS)]
+
+        films = reps()
+        count("brute")
+        # one image of every replicate's samples (at 1 spp a render leaves
+        # pixels without a sample, which develop to 0); each replicate's
+        # own estimate of the image mean is its weighted film sum
+        img = filmlib.develop(fc, torch.stack(films).sum(0), mode="accum")
+        means = torch.stack([f[..., :3].double().sum() / 3.0
+                             / f[..., 3].double().sum() for f in films])
+        se = float(means.std() / SAMPLER_REPS ** 0.5) / ref_mean
+        gate = max(SAMPLER_GATE, 4.0 * se)
+        mean_rel, block_l1 = mc_compare(img, mc_refs["path"])
+        report["samplers"][kind] = dict(
+            paths=n * SAMPLER_REPS, renders=SAMPLER_REPS,
+            mean_rel_err=mean_rel, block_rel_l1=block_l1,
+            replicate_rel_se=se, gate=gate)
+        need(bool(torch.isfinite(img).all()), f"{kind}: image not finite")
+        need(mean_rel < gate, f"render_pt under {kind} differs from MC by "
+             f"{mean_rel} (gate {gate})")
+    # the matrices on the card against the CPU's, on the same indices and
+    # shifts (stratified: the same jitter); the CPU's are the reference's
+    # bit for bit (tests/test_torch_samplers.py)
+    rng = np.random.default_rng(26)
+    nd = pcfg.n_dims
+    args = dict(
+        stratified=lambda i, d: (i, SAMPLER_START + SAMPLER_ROWS, d(
+            rng.random((SAMPLER_ROWS, nd), dtype=np.float32))),
+        halton=lambda i, d: (i, nd, d(rng.random(nd, dtype=np.float32))),
+        hammersley=lambda i, d: (
+            i, SAMPLER_START + SAMPLER_ROWS, nd,
+            d(rng.random(nd - 1, dtype=np.float32)),
+            d(rng.random(nd, dtype=np.float32))),
+        sobol=lambda i, d: (i, nd, d(rng.integers(0, 2 ** 32, nd))),
+        ldsampler=lambda i, d: (i, nd, d(rng.integers(
+            0, 2 ** 32, ((nd + 1) // 2, 2)))))
+    funcs = dict(stratified=S.stratified, halton=S.halton,
+                 hammersley=S.hammersley, sobol=S.sobol, ldsampler=S.ld02)
+    for kind, fn in funcs.items():
+        a_cpu = args[kind](
+            torch.arange(SAMPLER_START, SAMPLER_START + SAMPLER_ROWS),
+            torch.from_numpy)
+        a_dev = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x
+                      for x in a_cpu)
+        m_cpu, m_dev = fn(*a_cpu), fn(*a_dev).cpu()
+        differ = int((m_cpu != m_dev).any(-1).sum())
+        report["samplers"][kind]["matrix_rows_differing"] = differ
+        need(m_dev.shape == (SAMPLER_ROWS, nd) and differ == 0,
+             f"{kind}: {differ} of {SAMPLER_ROWS} matrix rows differ from "
+             f"the CPU's")
+    # paths/s of a SAMPLER_REPS-spp render, in turns over the samplers
+    walls = {kind: [] for kind in S.SAMPLERS}
+    for _ in range(SAMPLER_TIMINGS):
+        for kind in S.SAMPLERS:
+            _, wall = sync_time(lambda: render_pt(
+                cornell, pcfg, gen, n * SAMPLER_REPS, fc, sampler=kind))
+            walls[kind].append(wall)
+    for kind, w in walls.items():
+        rates = sorted(n * SAMPLER_REPS / x for x in w)
+        report["samplers"][kind].update(
+            wall_s=w, paths_per_s=float(np.median(rates)),
+            paths_per_s_min=rates[0], paths_per_s_max=rates[-1])
+    ind = report["samplers"]["independent"]["paths_per_s"]
+    print(f"[26d render_pt under each sampler] {name}: box, depth {DEPTH}, "
+          f"paths/s of a {SAMPLER_REPS}-spp render (median of "
+          f"{SAMPLER_TIMINGS} in turns, min-max); {SAMPLER_REPS} renders "
+          f"of 1 spp each against MC; matrices of {SAMPLER_ROWS} rows vs "
+          f"the CPU's: " + "; ".join(
+              f"{k} {r['paths_per_s']:.4e} paths/s "
+              f"({r['paths_per_s_min']:.4e}-{r['paths_per_s_max']:.4e}; "
+              f"{r['paths_per_s'] / ind:.3f} of independent's), vs MC "
+              f"{r['mean_rel_err']:.4f} (the replicates' standard error "
+              f"{r['replicate_rel_se']:.4f}, gate {r['gate']:.4f})"
+              + (f", matrix rows differing "
+                 f"{r['matrix_rows_differing']}"
+                 if "matrix_rows_differing" in r else "")
+              for k, r in report["samplers"].items()))
+
+    # ---- 26e. cornell.xml through the CLI's new routes and flags ----------
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    sobol_xml = os.path.join(out, "cornell_sobol.xml")
+    with open(CORNELL_XML) as f:
+        text = f.read()
+    need('<sampler type="independent">' in text, "cornell.xml's sampler")
+    with open(sobol_xml, "w") as f:
+        f.write(text.replace('<sampler type="independent">',
+                             '<sampler type="sobol">'))
+    field_npy = os.path.join(out, "cornell_field.npy")
+    pss = os.path.join(out, "cornell_pssmlt")
+    for p in (field_npy, f"{pss}_t.exr", f"{pss}_r.exr", f"{pss}_r_0.exr",
+              f"{pss}_r_1.exr", f"{pss}_r_time.csv"):
+        if os.path.exists(p):
+            os.remove(p)
+    pss_d = ["-D", "integrator=pssmlt", "--chains", str(PSS_FLAG_CHAINS),
+             "--spp", str(PSS_FLAG_SPP), "-s", "26"]
+    argvs = [[CORNELL_XML, "-D", "integrator=field", "-D", "field=shnormal",
+              "--spp", "16", "-s", "26", "-o", field_npy],
+             [CORNELL_XML, *pss_d, "-t", "1e-9", "-o", f"{pss}_t.exr"],
+             [CORNELL_XML, *pss_d, "-r", "1e-9", "-o", f"{pss}_r.exr"],
+             [sobol_xml, "-D", "integrator=path", "--spp", "64", "-s", "26",
+              "-o", os.path.join(out, "cornell_sobol.exr")]]
+    runs, lines, wall = run_cli(argvs)
+    for r in runs:
+        count("brute", r)
+    field = np.load(field_npy)
+    xs_scene, xs = cli.load_scene(CORNELL_XML, {"integrator": "field"})
+    g26 = torch.Generator(device=dev).manual_seed(26)
+    ref_field = misc.render_field(xs_scene, filmlib.make_film_config(
+        xs.width, xs.height, xs.filter_name), g26, "shnormal", 16).cpu()
+    field_d = float((torch.from_numpy(field) - ref_field).abs().max())
+    with open(f"{pss}_t_stats.txt") as f:
+        t_report = f.read()
+    with open(f"{pss}_r_time.csv") as f:
+        dumps = f.read().splitlines()
+    n_blocks = -(-(xs.width * xs.height * PSS_FLAG_SPP // PSS_FLAG_CHAINS)
+                 // cli.PSSMLT_BLOCK)
+    half = cli.PSSMLT_BLOCK * PSS_FLAG_CHAINS     # one block's mutations
+    pss_r = torch.from_numpy(np.ascontiguousarray(
+        read_exr(f"{pss}_r.exr")[..., :3])).to(dev)
+    ref_x, gate_x = s5["xml_path"]["ref"], s5["xml_path"]["gate"]
+    pss_rel, _ = mc_compare(pss_r, ref_x)
+    sob = torch.from_numpy(np.ascontiguousarray(read_exr(os.path.join(
+        out, "cornell_sobol.exr"))[..., :3])).to(dev)
+    sob_rel, sob_l1 = mc_compare(sob, ref_x)
+    # -x in another fresh process: it returns before reading the scene
+    before = open(field_npy, "rb").read()
+    res = subprocess.run([sys.executable, "-m",
+                          "drmlt_mitsuba_tpu_torch.utils.cli", CORNELL_XML,
+                          "-x", "-o", field_npy], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    skipped = (res.returncode == 0 and "skipping (-x)" in res.stdout
+               and open(field_npy, "rb").read() == before)
+    report["cli26"] = dict(
+        process_wall_s=wall, launches=runs, field_npy_shape=list(field.shape),
+        field_vs_in_process_max_abs=field_d,
+        timeout_mutations_reported=f"* Mutations: {half}" in t_report,
+        refresh_dumps=dumps, pssmlt_r_mean_rel_err=pss_rel,
+        sobol_mean_rel_err=sob_rel, sobol_block_rel_l1=sob_l1, gate=gate_x,
+        skip_existing=skipped, stdout=lines[-40:])
+    print(f"[26e CLI, cornell.xml, a fresh process of {wall:.2f} s] {name}: "
+          f"integrator=field -o .npy {list(field.shape)}, max |d| to the "
+          f"same render in this process {field_d:.2e}; pssmlt -t 1e-9 "
+          f"stopped at one block of {cli.PSSMLT_BLOCK} steps of {n_blocks} "
+          f"({half} mutations in its "
+          f"report: {report['cli26']['timeout_mutations_reported']}); -r "
+          f"1e-9 wrote {len(dumps)} partial images and _time.csv, its image "
+          f"vs phase 22's MC mean rel {pss_rel:.4f}; <sampler "
+          f"type=\"sobol\"> integrator=path vs MC mean rel {sob_rel:.4f} "
+          f"(gate {gate_x:.4f}); -x in a fresh process skipped: {skipped}")
+    need(field.shape == (xs.height, xs.width, 3) and np.isfinite(field).all()
+         and field_d <= 1e-5, f"CLI field .npy: {field.shape}, {field_d}")
+    need(report["cli26"]["timeout_mutations_reported"],
+         f"pssmlt -t did not stop after one block: {t_report}")
+    need(n_blocks > 1 and len(dumps) == n_blocks
+         and all(os.path.exists(f"{pss}_r_{i}.exr") for i in range(n_blocks)),
+         f"-r dumps: {dumps} of {n_blocks} blocks")
+    need(pss_rel < MC_GATE["path"], f"CLI pssmlt -r: {pss_rel} from MC")
+    need(sob_rel < gate_x, f"CLI sobol path render: {sob_rel} from MC")
+    need(skipped, f"-x: {res.returncode} {res.stdout[-500:]}")
+
+    report["slice9_launches"] = dict(launches9, intersect_by_mode=ix_mode)
+    print(f"[26 slice 9 launches, the main path's runs] {name}: {launches9}; "
+          f"intersection kernel by mode {ix_mode}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for key in ("intersect", "splat_add", "path_trace", "path_trace[full]"):
+        need(launches9[key] > 0, f"{key} did not launch on phase 26's path")
+    need(ix_mode["brute"] > 0 and ix_mode["bvh"] > 0,
+         f"the intersection kernel missed a mode: {ix_mode}")
+    return dict(launches9, intersect_by_mode=ix_mode)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3259,6 +3684,9 @@ def main():
     # ---- 25. slice 8 --------------------------------------------------------
     s8 = slice8(name, dev, gen, report, mc_refs, s5)
 
+    # ---- 26. slice 9 --------------------------------------------------------
+    s9 = slice9(name, dev, gen, report, mc_refs, s5)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -3272,11 +3700,13 @@ def main():
     # launches: the main path's renders of slices 1-3 and, for the trace and
     # splat kernels, phase 24's (the generic step, the CLI's new routes);
     # the intersection and splat kernels add phase 25's (the bidirectional
-    # wavefront and the CLI's BDPT and thin-lens MMLT routes)
+    # wavefront and the CLI's BDPT and thin-lens MMLT routes), and the
+    # intersection, splat and path kernels phase 26's (the forward
+    # renderers, the samplers, the CLI's new routes)
     kernels = [
         entry("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
-              launches["path_trace"] + s7["path_trace"], path_err, ms_path,
-              plain_path, bound_path),
+              launches["path_trace"] + s7["path_trace"] + s9["path_trace"],
+              path_err, ms_path, plain_path, bound_path),
         entry("drmlt_chain_kernel[path]", "drmlt_chain.cu",
               "megadrmlt.py:105", launches["drmlt_path"], chain_err,
               ms_chain, plain_chain, bound_chain),
@@ -3289,7 +3719,7 @@ def main():
         # library: index_add_ of the taps
         entry("splat_add_kernel", "splat.cu", "splat_kernel.py:79",
               s3["launches"]["splat_add"] + s7["splat_add"]
-              + s8["splat_add"], *s3["splat"]),
+              + s8["splat_add"] + s9["splat_add"], *s3["splat"]),
         entry("path_trace_rad_kernel", "path_trace_grad.cu",
               "megatrace.py:1798", s3["launches"]["path_trace_rad"],
               *s3["rad"]),
@@ -3301,7 +3731,8 @@ def main():
         # (:220), its BVH mode for sweep_clusters (bvh_kernel.py:155)
         *(entry(f"intersect_kernel[{m}]", "intersect.cu", rep,
                 s4[f"intersect_{m}"]["launches"]
-                + s8["intersect_by_mode"][m], s4[f"intersect_{m}"]["err"],
+                + s8["intersect_by_mode"][m] + s9["intersect_by_mode"][m],
+                s4[f"intersect_{m}"]["err"],
                 s4[f"intersect_{m}"]["ms"], s4[f"intersect_{m}"]["plain_ms"],
                 (s4[f"intersect_{m}"]["bound_ms"],
                  s4[f"intersect_{m}"]["bound_by"]))
@@ -3317,7 +3748,8 @@ def main():
         # slice 5: the full-scope instantiations on the const configuration
         # (phases 19-21), launched by slice 5's renders (phase 22)
         *(entry(f"{kn}[full]", src_f, rep, s5["launches"][lk + "[full]"]
-                + s7[lk + "[full]"], s5[key]["err"], s5[key]["ms"],
+                + s7[lk + "[full]"] + s9[lk + "[full]"], s5[key]["err"],
+                s5[key]["ms"],
                 s5[key]["plain_ms"], s5[key]["bnd"])
           for kn, src_f, rep, lk, key in (
               ("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",

@@ -350,13 +350,15 @@ def warn_splat_mode(cfg: DRMLTConfig, where: str):
 
 def run_chains(trace_fn, cfg: DRMLTConfig, film_cfg, generator,
                state: ChainState, n_steps: int, frozen_mask, accmap=None,
-               pinned_mask=None, emitter_mask=None, lt_mask_fn=None):
+               pinned_mask=None, emitter_mask=None, lt_mask_fn=None,
+               on_step=None):
     """n_steps generic steps (the mixture's when cfg.use_mixture) from
     `state` into a new film.  Returns (state, film, accmap, stats), stats
-    one (n_steps,) tensor per key."""
+    one (steps,) tensor per key.  `on_step(done, film)`, when given, is
+    called after every step; a true return stops the chains there."""
     film = filmlib.new_film(film_cfg, generator.device)
     per_step = []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         if cfg.use_mixture:
             (state, film, accmap), st = drmlt_mixture_step(
                 trace_fn, cfg, film_cfg, frozen_mask, (state, film, accmap),
@@ -367,6 +369,8 @@ def run_chains(trace_fn, cfg: DRMLTConfig, film_cfg, generator,
                 generator, pinned_mask=pinned_mask,
                 emitter_mask=emitter_mask, lt_mask_fn=lt_mask_fn)
         per_step.append(st)
+        if on_step is not None and on_step(i + 1, film):
+            break
     stats = ({k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
              if per_step else {})
     return state, film, accmap, stats
@@ -375,13 +379,15 @@ def run_chains(trace_fn, cfg: DRMLTConfig, film_cfg, generator,
 def render_drmlt(trace_fn, cfg: DRMLTConfig, film_cfg, generator,
                  n_dims: int, n_steps: int, frozen_mask=None,
                  average_luminance=None, pinned_mask=None,
-                 emitter_mask=None, lt_mask_fn=None):
+                 emitter_mask=None, lt_mask_fn=None, on_step=None):
     """The generic DRMLT render on generator.device: bootstrap, n_steps
     steps (the mixture's when cfg.use_mixture, which takes no pinned
-    mask, as in the reference), then img = film * b / (n_chains * n_steps
+    mask, as in the reference), then img = film * b / (n_chains * steps
     / npixels).  Returns (image (H, W, 3), aux) with aux b, state, the
     per-step stats, accmap ((H, W, 4), None unless cfg.acceptance_map) and
-    steps."""
+    steps.  `on_step(done, develop)`, when given, is called after every
+    step; develop() gives the image of the steps done, and a true return
+    stops the render there, which then develops with the steps done."""
     if n_dims % 2 and cfg.type == TYPE_ORBITAL:
         raise ValueError("orbital requires an even PSS dimension count")
     device = generator.device
@@ -395,13 +401,20 @@ def render_drmlt(trace_fn, cfg: DRMLTConfig, film_cfg, generator,
                          device=device)
     accmap = (filmlib.new_film(film_cfg, device) if cfg.acceptance_map
               else None)
+
+    def develop(film, steps):
+        n_per_pixel = cfg.n_chains * steps / film_cfg.npixels
+        return filmlib.develop(film_cfg, film, mode="splat",
+                               scale=b / n_per_pixel)
+
+    hook = None if on_step is None else (
+        lambda done, film: on_step(done, lambda: develop(film, done)))
     state, film, accmap, stats = run_chains(
         trace_fn, cfg, film_cfg, generator, state, n_steps, frozen_mask,
-        accmap, pinned_mask, emitter_mask, lt_mask_fn)
-    n_per_pixel = cfg.n_chains * n_steps / film_cfg.npixels
-    img = filmlib.develop(film_cfg, film, mode="splat", scale=b / n_per_pixel)
-    return img, dict(b=b, state=state, stats=stats, accmap=accmap,
-                     steps=n_steps)
+        accmap, pinned_mask, emitter_mask, lt_mask_fn, hook)
+    steps = len(next(iter(stats.values()))) if stats else n_steps
+    return develop(film, steps), dict(b=b, state=state, stats=stats,
+                                      accmap=accmap, steps=steps)
 
 
 def render_drmlt_path(scene, pcfg, cfg: DRMLTConfig, film_cfg, generator,

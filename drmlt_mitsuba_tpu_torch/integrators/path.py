@@ -12,12 +12,12 @@ from __future__ import annotations
 
 import torch
 
-from drmlt_mitsuba_tpu_torch.core.rng import uniform
 from drmlt_mitsuba_tpu_torch.integrators.layout import (  # noqa: F401
     PathConfig, Splats, path_splats,
 )
 from drmlt_mitsuba_tpu_torch.ops import megatrace
 from drmlt_mitsuba_tpu_torch.render import film as filmlib
+from drmlt_mitsuba_tpu_torch.render.sampler import make_sampler
 from drmlt_mitsuba_tpu_torch.scene.types import Scene
 
 
@@ -52,19 +52,27 @@ def make_path_trace_diff(scene: Scene, cfg: PathConfig, device="cuda"):
 
 
 def render_pt(scene: Scene, cfg: PathConfig, generator, n_samples: int,
-              film_cfg, mode: str = "accum", chunk: int = 65536):
-    """Plain Monte-Carlo render: n_samples independent paths splatted to
-    an (H, W, 4) film (the MC oracle the MCMC renders are checked
-    against).  Develop with render.film.develop."""
+              film_cfg, mode: str = "accum", chunk: int = 65536,
+              sampler: str = "independent"):
+    """Plain Monte-Carlo render: n_samples paths splatted to an (H, W, 4)
+    film (the MC oracle the MCMC renders are checked against).  Develop
+    with render.film.develop.
+
+    `sampler` names the generator of the primary samples
+    (render/sampler.py: independent, stratified, halton, hammersley,
+    ldsampler, sobol); the others than independent index the samples
+    globally, sample start + i of chunk start, and n_total, which
+    hammersley's first dimension and stratified's strata read, is
+    n_samples, the count drawn.  The reference's n_total is its chunk
+    count times 16,384, n_samples rounded up to whole chunks."""
     device = generator.device
     trace = make_path_trace(scene, cfg, device)
+    sample = make_sampler(sampler, generator, cfg.n_dims)
     film = filmlib.new_film(film_cfg, device)
     scale = torch.tensor([film_cfg.width, film_cfg.height],
                          dtype=torch.float32, device=device)
     for start in range(0, n_samples, chunk):
-        n = min(chunk, n_samples - start)
-        u = uniform((n, cfg.n_dims), generator)
-        sp = trace(u)
+        sp = trace(sample(start, min(chunk, n_samples - start), n_samples))
         film = filmlib.splat(film_cfg, film, sp.pos[:, 0, :] * scale,
                              sp.value[:, 0, :], mode=mode)
     return film

@@ -158,15 +158,17 @@ def pssmlt_step(trace_fn, cfg: PSSMLTConfig, b, film_cfg, carry, generator,
 
 def render_pssmlt(trace_fn, cfg: PSSMLTConfig, film_cfg, generator,
                   n_dims: int, n_steps: int, average_luminance=None,
-                  pinned_mask=None):
+                  pinned_mask=None, on_step=None):
     """Full PSSMLT render on generator.device: bootstrap, n_steps steps,
     the developed image.
 
     Returns (image (H, W, 3), aux) with aux b, state, stats (accept and
-    large per step, (n_steps,) each) and steps.  `average_luminance`
+    large per step, (steps,) each) and steps.  `average_luminance`
     overrides the bootstrap's b (drmlt.cpp:298-299).  The film develops at
     1/n with Kelemen's weights and at b/n with Veach's, n the mutations per
-    pixel."""
+    pixel.  `on_step(done, develop)`, when given, is called after every
+    step; develop() gives the image of the steps done, and a true return
+    stops the render there, which then develops with the steps done."""
     device = generator.device
     state, b = bootstrap(trace_fn, generator, n_dims, cfg.n_bootstrap,
                          cfg.n_chains)
@@ -174,16 +176,22 @@ def render_pssmlt(trace_fn, cfg: PSSMLTConfig, film_cfg, generator,
         b = torch.tensor(average_luminance, dtype=torch.float32,
                          device=device)
     film = filmlib.new_film(film_cfg, device)
+
+    def develop(steps):
+        n_per_pixel = cfg.n_chains * steps / film_cfg.npixels
+        return filmlib.develop(film_cfg, film, mode="splat", scale=(
+            1.0 / n_per_pixel if cfg.kelemen_style_weights
+            else b / n_per_pixel))
+
     accept, large = [], []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         (state, film), st = pssmlt_step(trace_fn, cfg, b, film_cfg,
                                         (state, film), generator,
                                         pinned_mask)
         accept.append(st["accept"])
         large.append(st["large"])
-    n_per_pixel = cfg.n_chains * n_steps / film_cfg.npixels
-    scale = (1.0 / n_per_pixel if cfg.kelemen_style_weights
-             else b / n_per_pixel)
-    img = filmlib.develop(film_cfg, film, mode="splat", scale=scale)
+        if on_step is not None and on_step(i + 1, lambda: develop(i + 1)):
+            break
+    steps = len(accept)
     stats = dict(accept=torch.stack(accept), large=torch.stack(large))
-    return img, dict(b=b, state=state, stats=stats, steps=n_steps)
+    return develop(steps), dict(b=b, state=state, stats=stats, steps=steps)

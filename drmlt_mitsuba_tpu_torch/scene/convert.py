@@ -21,9 +21,10 @@ _GROUPS = {
     "emitters": st.EmitterTable,
     "camera": st.Camera,
     "textures": st.TextureAtlas,
+    "motion": st.TriangleMotion,
 }
 # groups and fields a scene may leave out (None)
-_OPTIONAL = {"textures"}
+_OPTIONAL = {"textures", "motion"}
 
 
 def _optional(cls, name) -> bool:
@@ -37,7 +38,8 @@ def scene_from_arrays(arrays: dict[str, np.ndarray]) -> st.Scene:
     Keys outside the port's subset (media, modifier tables, per-vertex
     colors, ...) raise NotImplementedError naming them; missing keys of
     the subset raise KeyError, except the optional ones (the texture atlas,
-    an image environment's tables), which may be absent or None."""
+    the triangle motion, an image environment's tables), which may be
+    absent or None."""
     known = {f"{g}.{f.name}" for g, cls in _GROUPS.items()
              for f in dataclasses.fields(cls)}
     extra = sorted(k for k, v in arrays.items()

@@ -145,6 +145,23 @@ class BVH:
 
 
 @dataclasses.dataclass
+class TriangleMotion:
+    """Linear per-triangle motion over the shutter interval (the
+    reference's TriangleMotion, types.py:203): keyframe(shutter close) -
+    keyframe(shutter open) in TriangleSoA's layout, so the geometry at
+    shutter time t in [0, 1] is v0 + t dv0 and so on.  Only the motion AOV
+    (integrators/misc.py:render_motion_aov) reads it: every trace renders
+    the scene at shutter open, as the reference's do without
+    settings.motion."""
+    dv0: torch.Tensor     # (T, 3)
+    de1: torch.Tensor     # (T, 3)
+    de2: torch.Tensor     # (T, 3)
+    dn0: torch.Tensor     # (T, 3) shading-normal deltas
+    dn1: torch.Tensor     # (T, 3)
+    dn2: torch.Tensor     # (T, 3)
+
+
+@dataclasses.dataclass
 class Scene:
     tris: TriangleSoA
     spheres: SphereSoA
@@ -153,6 +170,7 @@ class Scene:
     camera: Camera
     bvh: BVH | None = None
     textures: TextureAtlas | None = None
+    motion: TriangleMotion | None = None     # None: a static scene
 
 
 def prepare_scene(scene: Scene) -> Scene:
@@ -337,3 +355,21 @@ def make_camera(to_world, fov_x_deg: float, aspect: float,
         aperture_radius=torch.tensor(aperture_radius, dtype=f32),
         focus_distance=torch.tensor(focus_distance, dtype=f32),
     )
+
+
+def build_motion(tris0: TriangleSoA, tris1: TriangleSoA) -> TriangleMotion:
+    """Per-triangle linear motion from two keyframe SoAs of one topology
+    (the reference's build_motion, types.py:401).  A moving emissive
+    triangle raises ValueError: light sampling reads the emitters at
+    shutter open."""
+    def delta(name):
+        return (getattr(tris1, name).detach().cpu()
+                - getattr(tris0, name).detach().cpu()).to(torch.float32)
+
+    dv0 = delta("v0")
+    moving = dv0.abs().amax(-1) > 0
+    if bool((moving & (tris0.emitter_id.cpu() >= 0)).any()):
+        raise ValueError("moving emissive triangles are not supported "
+                         "(NEE samples lights at shutter open)")
+    return TriangleMotion(dv0=dv0, de1=delta("e1"), de2=delta("e2"),
+                          dn0=delta("n0"), dn1=delta("n1"), dn2=delta("n2"))

@@ -1,7 +1,8 @@
 """Renderer CLI for the port (counterpart of drmlt_mitsuba_tpu/utils/cli.py:
 integrator=drmlt and integrator=pssmlt over the path, MMLT and BDPT
-techniques, and the Monte-Carlo integrators path, volpath, volpath_simple,
-direct and bdpt).
+techniques, the Monte-Carlo integrators path, volpath, volpath_simple,
+direct and bdpt under any sampler, and the forward renderers ptracer,
+field, multichannel and motion).
 
     python -m drmlt_mitsuba_tpu_torch.utils.cli \\
         tests/data/large/cornell_large.xml -D integrator=drmlt \\
@@ -11,14 +12,15 @@ direct and bdpt).
     python -m drmlt_mitsuba_tpu_torch.utils.cli veach -D technique=mmlt \\
         -D variant=orbital -D maxDepth=6 --chains 65536 --spp 256 -o veach.exr
     python -m drmlt_mitsuba_tpu_torch.utils.cli tests/data/cornell.xml \\
-        -D integrator=pssmlt -D technique=mmlt --chains 65536 --spp 4096
+        -D integrator=pssmlt -D technique=mmlt --chains 65536 --spp 4096 \\
+        -t 60 -r 10 -o cornell_pssmlt.exr
     python -m drmlt_mitsuba_tpu_torch.utils.cli tests/data/cornell.xml \\
-        -D integrator=bdpt --spp 64 -o cornell_bdpt.exr
+        -D integrator=field -D field=albedo -o cornell_albedo.npy
 
 The scene argument is a Mitsuba scene XML (scene/xml.py reads the ported
 subset; `-D key=value` substitutes `$key`, and the film size, filter,
-sampleCount and the integrator's properties come from the file; a file
-without <integrator> renders as integrator=path) or a built-in name:
+sampler, sampleCount and the integrator's properties come from the file; a
+file without <integrator> renders as integrator=path) or a built-in name:
 `cornell` (the 256x256 Cornell box, tall box `-D
 tallBox=diffuse|mirror|glass`) or `veach` (the 256x256 veach-door scene),
 whose integrator properties are the `-D` keys.  As in the reference CLI
@@ -27,7 +29,10 @@ file's integrator has that key (the file wins), and the integrator reads
 the keys the reference reads:
 
   * integrator=path|volpath|volpath_simple|direct: render_pt in accum mode
-    (cli.py:150-163);
+    under the file's <sampler> (cli.py:150-163);
+  * integrator=ptracer (maxDepth 5), field (field = shnormal),
+    multichannel (channels = radiance,shnormal,distance,albedo) and motion
+    (integrators/misc.py; cli.py:165-196);
   * integrator=bdpt: W H spp samples of integrators/bidir.py:trace_bdpt in
     chunks of 8,192, every splat (the pixel's and the light image's) into
     a splat-mode film (cli.py:197-225);
@@ -39,29 +44,39 @@ the keys the reference reads:
     twoStage, separateDirect, acceptanceMap or useMixture over the path
     technique or with grouped=false over the pooled MMLT trace: n_steps =
     W H spp / chains run in blocks of min(256, n_steps), so the steps run
-    and the develop scale count whole blocks.
+    and the develop scale count whole blocks.  `-t` stops it between
+    blocks and `-r` writes <out>_<part>.exr and <out>_time.csv there; the
+    clock starts before the render, bootstrap included.
 
 A scene with a thin lens renders MMLT through the bidirectional wavefront
 (integrators/bidir.py:trace_mmlt_wavefront), grouped and pooled: the MMLT
 kernel excludes the lens, as the reference's does.
 
-With acceptanceMap, main writes <out>_acceptance.exr beside the image
-whenever the reference does, pssmlt's all-zero map included.  What the
-port does not render yet raises, naming it: other integrators (ptracer,
-erpt, ...), samplers other than independent, PNG output; an unknown
-technique exits, as in the reference (cli.py:108).
+main writes the image as EXR (a multichannel render's channels as EXR
+layers) or .npy, <out>_stats.txt with the generic loop's acceptance
+report (empty elsewhere, as in the reference), and with acceptanceMap
+<out>_acceptance.exr whenever the reference does, pssmlt's all-zero map
+included.  What the port does not render yet raises, naming it: erpt,
+mlt and PNG output; an unknown technique exits, as in the reference
+(cli.py:108).
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import logging
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
+from drmlt_mitsuba_tpu_torch.core.logger import (
+    LOGGER, dump_config, setup_logging,
+)
 from drmlt_mitsuba_tpu_torch.core.rng import uniform
+from drmlt_mitsuba_tpu_torch.core.stats import Statistics
 from drmlt_mitsuba_tpu_torch.integrators.bidir import (
     BDPTConfig, make_bdpt_trace,
 )
@@ -69,6 +84,9 @@ from drmlt_mitsuba_tpu_torch.integrators.drmlt import (
     DRMLTConfig, render_drmlt, render_drmlt_path,
 )
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
+from drmlt_mitsuba_tpu_torch.integrators.misc import (
+    render_field, render_motion_aov, render_multichannel, render_ptracer,
+)
 from drmlt_mitsuba_tpu_torch.integrators.mmlt import (
     make_mmlt_trace, mmlt_emitter_mask, mmlt_lt_mask_fn, mmlt_masks,
 )
@@ -100,10 +118,13 @@ KEYS = ("integrator", "technique", "variant", "pLarge", "sigma",
         "kelemenStyleMutation", "kelemenStyleWeights", "mutationSizeLow",
         "mutationSizeHigh", "pLens", "pCaustic", "lensSigma", "causticDims",
         "acceptanceMap", "useMixture", "twoStage", "separateDirect",
-        "directSamples")
+        "directSamples", "field", "channels")
 # the sampling integrators, rendered by render_pt in accum mode
 PT_TYPES = ("path", "volpath", "volpath_simple", "direct")
+# the forward renderers of integrators/misc.py
+MISC_TYPES = ("ptracer", "field", "multichannel", "motion")
 BDPT_CHUNK = 8192    # samples per trace_bdpt call of integrator=bdpt
+PTRACER_CHUNK = 8192  # and of render_ptracer
 
 
 def _pbool(v, default=False):
@@ -159,10 +180,13 @@ def render(args, scene, settings: RenderSettings, device):
     """(image (H, W, 3), aux) of the integrator `settings` and args.D name.
 
     aux["mutations"] counts the mutations run (aux["samples"] the paths of
-    a sampling integrator), and aux["accmap"] is the (H, W, 4) acceptance
-    map that main writes as <out>_acceptance.exr, or None.  Routes, as in
-    the reference CLI:
+    a sampling integrator), aux["accmap"] is the (H, W, 4) acceptance map
+    that main writes as <out>_acceptance.exr, or None, and
+    aux["statistics"] the report (core/stats.py) main writes as
+    <out>_stats.txt: the generic loop's acceptance rates, empty elsewhere.
+    Routes, as in the reference CLI:
       * path | volpath | volpath_simple | direct: `_render_pt`;
+      * ptracer | field | multichannel | motion: `_render_misc`;
       * bdpt: `_render_bdpt`;
       * drmlt over mmlt, grouped (the default) and neither twoStage nor
         separateDirect set: the depth-grouped driver (cli.py:314-367),
@@ -172,12 +196,14 @@ def render(args, scene, settings: RenderSettings, device):
         and separateDirect: render_drmlt_path (cli.py:369-409; a filter
         other than box sends it to render_drmlt);
       * everything else, pssmlt and technique=bdpt included:
-        `_render_mcmc`.
+        `_render_mcmc`, the one route `args.timeout` (-t) and
+        `args.refresh` (-r) act on, as in the reference.
     Every boolean key is read as a bool, so `-D twoStage=false` is false;
     the reference tests twoStage, separateDirect (cli.py:317-318, 372-373)
     and the acceptance map's film (cli.py:539) by the raw string, so
     there "false" also sends a render to its generic loop, an estimator of
     the same image."""
+    t_start = time.time()
     icfg = integrator_config(args, settings)
     itype = icfg.get("type")
     W, H = settings.width, settings.height
@@ -185,14 +211,26 @@ def render(args, scene, settings: RenderSettings, device):
     spp = args.spp if args.spp is not None else settings.spp
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
+    dump_config(logging.getLogger(LOGGER), itype, icfg)
+    img, aux = _route(args, icfg, itype, scene, settings, fc, gen, spp,
+                      t_start)
+    aux.setdefault("statistics", Statistics())
+    return img, aux
+
+
+def _route(args, icfg, itype, scene, settings, fc, gen, spp, t_start):
+    """The integrator's render (see `render`)."""
+    W, H = fc.width, fc.height
     if itype in PT_TYPES:
         return _render_pt(icfg, itype, scene, settings.sampler, fc, gen, spp)
+    if itype in MISC_TYPES:
+        return _render_misc(icfg, itype, scene, fc, gen, spp)
     if itype == "bdpt":
         return _render_bdpt(icfg, scene, fc, gen, spp)
     if itype not in ("drmlt", "pssmlt"):
         raise NotImplementedError(
             f"integrator {itype!r} not yet ported (drmlt, pssmlt, bdpt, "
-            f"{', '.join(PT_TYPES)})")
+            f"{', '.join(PT_TYPES + MISC_TYPES)})")
     technique = icfg.get("technique", "path")
     if technique not in ("path", "mmlt", "bdpt"):
         raise SystemExit(f"unknown technique '{technique}'")
@@ -228,9 +266,13 @@ def render(args, scene, settings: RenderSettings, device):
         aux["mutations"] = n_chains * aux["steps"]
         aux["accmap"] = None
         return img, aux
+    block = max(1, min(PSSMLT_BLOCK, n_steps))
     img, aux = _render_mcmc(icfg, itype, technique, scene, fc, gen,
-                            n_chains, n_steps, avg_lum)
+                            n_chains, -(-n_steps // block) * block, avg_lum,
+                            _block_hook(args, t_start, block))
     aux["mutations"] = n_chains * aux["steps"]
+    aux["statistics"] = Statistics()
+    aux["statistics"].record_mcmc(aux["stats"], n_chains)
     return img, aux
 
 
@@ -257,18 +299,45 @@ def _drmlt_config(icfg, n_chains: int, grouped: bool = False):
 
 def _render_pt(icfg, itype, scene, sampler, fc, gen, spp):
     """integrator=path|volpath|volpath_simple|direct (cli.py:150-163):
-    W H spp paths of render_pt in accum mode at maxDepth (2 for direct),
-    no Russian roulette (rr_depth 100), developed in accum mode."""
-    if sampler != "independent":
-        raise NotImplementedError(
-            f"sampler {sampler!r} not yet ported (independent)")
+    W H spp paths of render_pt under the sampler (an unknown one raises
+    ValueError) in accum mode at maxDepth (2 for direct), no Russian
+    roulette (rr_depth 100), developed in accum mode."""
     depth = 2 if itype == "direct" else int(icfg.get("maxDepth", 8))
     pcfg = PathConfig(max_depth=max(1, depth), rr_depth=100,
                       thinlens=_thinlens(scene))
     n = fc.width * fc.height * spp
-    film = render_pt(scene, pcfg, gen, n, fc, mode="accum")
+    film = render_pt(scene, pcfg, gen, n, fc, mode="accum", sampler=sampler)
     return (filmlib.develop(fc, film, mode="accum"),
             dict(samples=n, accmap=None))
+
+
+def _render_misc(icfg, itype, scene, fc, gen, spp):
+    """integrator=ptracer|field|multichannel|motion (cli.py:165-196), with
+    the reference's keys and defaults: ptracer W H spp light paths at
+    maxDepth (5); field the `field` AOV (shnormal); multichannel the
+    comma-separated `channels` (radiance,shnormal,distance,albedo), the
+    radiance pass at spp paths a pixel; field and motion at spp samples a
+    pixel (spp at least 1)."""
+    spp = max(1, spp)
+    n = fc.npixels * spp
+    aux = dict(samples=n, accmap=None)
+    if itype == "ptracer":
+        img = render_ptracer(scene, fc, gen, n,
+                             max_depth=max(1, int(icfg.get("maxDepth", 5))),
+                             chunk=PTRACER_CHUNK)
+        aux["samples"] = max(1, n // PTRACER_CHUNK) * PTRACER_CHUNK
+    elif itype == "field":
+        img = render_field(scene, fc, gen, icfg.get("field", "shnormal"),
+                           spp=spp)
+    elif itype == "multichannel":
+        chans = tuple(icfg.get("channels",
+                               "radiance,shnormal,distance,albedo").split(","))
+        img = render_multichannel(scene, fc, gen, channels=chans,
+                                  radiance_spp=spp)
+        aux["layers"] = chans
+    else:
+        img = render_motion_aov(scene, fc, gen, spp=spp)
+    return img, aux
 
 
 def _render_bdpt(icfg, scene, fc, gen, spp):
@@ -293,14 +362,55 @@ def _render_bdpt(icfg, scene, fc, gen, spp):
             dict(samples=n, accmap=None))
 
 
+def _block_hook(args, t_start, block):
+    """The generic loop's per-step hook for -t / -r (cli.py:567-579), or
+    None without them.  It acts only after each block of `block` steps:
+    past `args.timeout` seconds since t_start the render stops; else,
+    `args.refresh` seconds after the last dump (or the loop's first step,
+    where the reference counts from the loop's start), main's partial
+    image goes to <out>_<part>.exr and the dump times to
+    <out>_time.csv."""
+    timeout = getattr(args, "timeout", 0) or 0
+    refresh = getattr(args, "refresh", 0) or 0
+    if not timeout and not refresh:
+        return None
+    log = logging.getLogger(LOGGER)
+    dumps = dict(times=[])      # "last": the last dump or the first step
+
+    def hook(done, develop):
+        dumps.setdefault("last", time.time())
+        if done % block:
+            return False
+        if timeout and time.time() - t_start > timeout:
+            log.info("timeout reached after %d steps", done)
+            return True
+        if refresh and time.time() - dumps["last"] > refresh:
+            write_partial(args.output, develop(), len(dumps["times"]),
+                          time.time() - t_start, dumps["times"])
+            dumps["last"] = time.time()
+        return False
+
+    return hook
+
+
+def write_partial(output, img, part, elapsed, times):
+    """<base>_<part>.exr of a partial image, and <base>_time.csv rewritten
+    with every dump's (part, seconds) (cli.py:616-626)."""
+    base, _ = os.path.splitext(output)
+    write_exr(f"{base}_{part}.exr", img.cpu().numpy())
+    times.append((part, elapsed))
+    with open(f"{base}_time.csv", "w", newline="") as f:
+        csv.writer(f).writerows(times)
+
+
 def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
-                 avg_lum):
+                 avg_lum, on_step=None):
     """The reference CLI's generic MCMC loop (cli.py:60-108 build_trace,
     413-600): pssmlt, or drmlt through the generic step, over the path,
     the pooled MMLT trace (its depth dim pinned, its strategy dim frozen,
     fixEmitterPath's masks) or trace_bdpt (1 + n_light splats a sample,
     nothing frozen or pinned), no Russian roulette (rr_depth 100), an even
-    PSS dimension, the steps of whole blocks of min(256, n_steps).
+    PSS dimension; n_steps comes in whole blocks (`_route`).
 
     separateDirect (path only): a render_pt pass at depth 2 with
     directSamples (16) paths a pixel, added at develop, and the MCMC trace
@@ -311,7 +421,9 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
     drmlt_step whatever useMixture says (cli.py:520-524), and so does
     this one.  With acceptanceMap the aux carries the map, pssmlt's the
     zero film the reference allocates and no step splats into (cli.py:
-    539)."""
+    539).  `on_step(done, develop)` runs after each step (see
+    `_block_hook`); its partial images carry the importance map and the
+    direct pass, as the final image does."""
     dev = gen.device
     md = int(icfg.get("maxDepth", 8))
     md = md if md > 0 else 12
@@ -358,8 +470,16 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
 
         imap = luminance_pass(lowres, fc)
         trace = with_importance_map(trace, imap)
-    block = max(1, min(PSSMLT_BLOCK, n_steps))
-    done = -(-n_steps // block) * block
+
+    def finish(img):
+        if imap is not None:
+            img = apply_importance_to_image(img, imap)
+        if direct_img is not None:
+            img = img + direct_img
+        return img
+
+    hook = None if on_step is None else (
+        lambda done, develop: on_step(done, lambda: finish(develop())))
     n_boot = int(icfg.get("luminanceSamples", 100_000))
     if itype == "pssmlt":
         mcfg = PSSMLTConfig(
@@ -378,9 +498,9 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
             lens_sigma=float(icfg.get("lensSigma", 1 / 16)),
             caustic_dims=int(icfg.get("causticDims", 7)),
         )
-        img, aux = render_pssmlt(trace, mcfg, fc, gen, n_dims, done,
+        img, aux = render_pssmlt(trace, mcfg, fc, gen, n_dims, n_steps,
                                  average_luminance=avg_lum,
-                                 pinned_mask=pinned)
+                                 pinned_mask=pinned, on_step=hook)
     else:
         variant = icfg.get("variant", "green")
         if variant not in ("green", "mira", "orbital"):
@@ -398,13 +518,10 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
             fix_emitter_path=_pbool(icfg.get("fixEmitterPath"), False),
             n_bootstrap=n_boot,
         )
-        img, aux = render_drmlt(trace, dcfg, fc, gen, n_dims, done,
+        img, aux = render_drmlt(trace, dcfg, fc, gen, n_dims, n_steps,
                                 frozen_mask=frozen, average_luminance=avg_lum,
-                                pinned_mask=pinned, **extras)
-    if imap is not None:
-        img = apply_importance_to_image(img, imap)
-    if direct_img is not None:
-        img = img + direct_img
+                                pinned_mask=pinned, on_step=hook, **extras)
+    img = finish(img)
     if _pbool(icfg.get("acceptanceMap")) and aux.get("accmap") is None:
         aux["accmap"] = filmlib.new_film(fc, dev)
     aux.setdefault("accmap", None)
@@ -414,16 +531,31 @@ def _render_mcmc(icfg, itype, technique, scene, fc, gen, n_chains, n_steps,
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="drmlt-torch",
-        description="DRMLT, PSSMLT and BDPT renderer (path, MMLT and BDPT "
-                    "techniques) on PyTorch + CUDA")
+        description="DRMLT, PSSMLT, BDPT and forward renderers (path, MMLT "
+                    "and BDPT techniques) on PyTorch + CUDA")
     ap.add_argument("scene", help="Mitsuba scene XML, or a built-in scene "
                                   "name (cornell, veach)")
     ap.add_argument("-D", action="append", default=[], metavar="key=value",
                     help="$key substitution in a scene XML; for a built-in "
                          "scene an integrator parameter (" + ", ".join(KEYS)
                          + ")")
-    ap.add_argument("-o", "--output", default=None)
+    ap.add_argument("-o", "--output", default=None,
+                    help="output image: .exr (default) or .npy")
+    ap.add_argument("-q", "--quiet", action="store_true",
+                    help="no log output on stdout")
+    ap.add_argument("-L", "--log-level", default="info",
+                    help="log level (debug, info, warning, error)")
+    ap.add_argument("-r", "--refresh", type=float, default=0,
+                    help="write partial images every N seconds, with "
+                         "<out>_time.csv (the generic MCMC loop)")
+    ap.add_argument("-t", "--timeout", type=float, default=0,
+                    help="stop the generic MCMC loop after N seconds")
     ap.add_argument("-s", "--seed", type=int, default=0)
+    ap.add_argument("-x", "--skip-existing", action="store_true",
+                    help="do nothing when the output exists")
+    ap.add_argument("-z", "--no-progress", action="store_true",
+                    help="accepted for the reference's flag; the port "
+                         "prints no progress bar")
     ap.add_argument("--chains", type=int, default=16384,
                     help="MCMC chains (an integrator's `chains` wins)")
     ap.add_argument("--spp", type=int, default=None,
@@ -432,47 +564,59 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain twins)")
     args = ap.parse_args(argv)
+    args.output = args.output or os.path.splitext(args.scene)[0] + ".exr"
+    if args.skip_existing and os.path.exists(args.output):
+        print(f"{args.output} exists, skipping (-x)")
+        return 0
+    if args.output.endswith(".png"):
+        raise NotImplementedError("PNG output not yet ported (it needs PIL): "
+                                  "write .exr or .npy")
+    log = setup_logging(args.log_level, quiet=args.quiet)
     defs = dict(kv.split("=", 1) for kv in args.D)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    output = args.output or args.scene.rsplit(".", 1)[0] + ".exr"
-    if output.endswith(".png"):
-        raise NotImplementedError("PNG output not yet ported (it needs PIL): "
-                                  "write .exr")
 
     scene, settings = load_scene(args.scene, defs)
-    print(f"scene: {scene.tris.v0.shape[0]} triangles"
-          + (f", BVH of {scene.bvh.count.shape[0]} nodes"
-             if scene.bvh is not None else "")
-          + f", {settings.width}x{settings.height} film")
+    log.info("scene: %d triangles%s, %dx%d film", scene.tris.v0.shape[0],
+             f", BVH of {scene.bvh.count.shape[0]} nodes"
+             if scene.bvh is not None else "", settings.width,
+             settings.height)
     t0 = time.time()
     img, aux = render(args, scene, settings, device)
     img = img.cpu().numpy()
     dt = time.time() - t0
     if "samples" in aux:
         n = aux["samples"]
-        print(f"{n} paths in {dt:.2f} s on {device} ({n / dt:.4e} paths/s)")
+        log.info("%d paths in %.2f s on %s (%.4e paths/s)", n, dt, device,
+                 n / dt)
     else:
         muts = aux["mutations"]
-        print(f"b = {float(aux['b']):.6f}, {muts} mutations in {dt:.2f} s "
-              f"on {device} ({muts / dt:.4e} mutations/s, bootstrap "
-              f"included)")
+        log.info("b = %.6f, %d mutations in %.2f s on %s (%.4e mutations/s, "
+                 "bootstrap included)", float(aux["b"]), muts, dt, device,
+                 muts / dt)
         if "steps_per_group" in aux:
-            print(f"b_k {aux['b_k']}, steps per depth group "
-                  f"{aux['steps_per_group']}, chains {aux['sizes']}")
+            log.info("b_k %s, steps per depth group %s, chains %s",
+                     aux["b_k"], aux["steps_per_group"], aux["sizes"])
         else:
             st = {k: float(v.float().mean()) for k, v in aux["stats"].items()}
-            print(f"{aux['steps']} steps; stats {st}")
+            log.info("%d steps; stats %s", aux["steps"], st)
     if not np.all(np.isfinite(img)):
         raise SystemExit("render produced non-finite pixels")
-    write_exr(output, img)
-    print(f"wrote {output}")
+    if args.output.endswith(".npy"):
+        np.save(args.output, img)
+    else:
+        write_exr(args.output, img, layers=aux.get("layers"))
+    log.info("wrote %s", args.output)
+    base, _ = os.path.splitext(args.output)
     if aux["accmap"] is not None:
-        base = output.rsplit(".", 1)[0]
         write_exr(f"{base}_acceptance.exr", aux["accmap"][..., :3].cpu()
                   .numpy())
-        print(f"wrote {base}_acceptance.exr")
+        log.info("wrote %s_acceptance.exr", base)
+    report = aux["statistics"].report()
+    with open(f"{base}_stats.txt", "w") as f:
+        f.write(report + "\n")
+    print(report)
     return 0
 
 

@@ -33,13 +33,20 @@ def _channel_list(names, pix_type: int) -> bytes:
 
 
 def write_exr(path: str, img: np.ndarray, half: bool = True,
-              compression: str = "none"):
-    """Write an (H, W, 3|4|1) float image as a scanline EXR."""
+              compression: str = "none", layers=None):
+    """Write an (H, W, 3|4|1) float image as a scanline EXR; with `layers`
+    (n names), an (H, W, 3 n) image whose channels are <layer>.R, .G, .B
+    (a multichannel render's AOVs)."""
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
-    names = {1: ["Y"], 3: ["R", "G", "B"], 4: ["R", "G", "B", "A"]}[c]
+    if layers is not None:
+        if c != 3 * len(layers):
+            raise ValueError(f"{c} channels for layers {list(layers)}")
+        names = [f"{n}.{x}" for n in layers for x in "RGB"]
+    else:
+        names = {1: ["Y"], 3: ["R", "G", "B"], 4: ["R", "G", "B", "A"]}[c]
     ptype = _HALF if half else _FLOAT
     dt = _NP_TYPE[ptype]
     comp = {"none": 0, "zip": 3, "zips": 2}[compression]

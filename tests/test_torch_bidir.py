@@ -28,8 +28,11 @@ import pytest
 import torch
 
 from drmlt_mitsuba_tpu.integrators import bidir as JB
+from drmlt_mitsuba_tpu.render import film as jfilm
 from drmlt_mitsuba_tpu.scene import builders as jax_builders
 from drmlt_mitsuba_tpu_torch.integrators import bidir as B
+from drmlt_mitsuba_tpu_torch.integrators import misc
+from drmlt_mitsuba_tpu_torch.render import film as filmlib
 from drmlt_mitsuba_tpu_torch.scene import builders
 
 torch.set_num_threads(1)
@@ -186,7 +189,12 @@ def test_light_subpath_matches_reference(box):
 @pytest.mark.parametrize("mis", [True, False], ids=["mis", "no-mis"])
 def test_trace_bdpt_matches_reference(box, mis):
     """The pixel splat and the n_light light-image splats, S = 1 + n_light;
-    the MIS-weighted sum is below the unweighted one's."""
+    the MIS-weighted sum is below the unweighted one's.  Without MIS, the
+    port's particle tracer (integrators/misc.py:render_ptracer, one chunk
+    of R) on the same vectors equals, to float32 rounding, the reference's
+    own ptracer steps (drmlt_mitsuba_tpu/integrators/misc.py:42-61) over
+    the reference's no-MIS splats: slot 0 zeroed, positions times (W, H)
+    into a splat-mode film, developed at W H / R."""
     cfg = box["cfg"]
     got = B.trace_bdpt(box["tables"], cfg, box["u"][:, 1:], mis=mis)
     assert got.value.shape == (R, cfg.n_splats, 3) == (R, 1 + DEPTH, 3)
@@ -195,6 +203,21 @@ def test_trace_bdpt_matches_reference(box, mis):
         mis_sum = B.trace_bdpt(box["tables"], cfg,
                                box["u"][:, 1:]).value.sum()
         assert float(mis_sum) < float(got.value.sum())
+        ref, W, H = box["ref"]["nomis"], 32, 32
+        jfc = jfilm.make_film_config(W, H, "box")
+        jf = jfilm.splat(jfc, jfilm.new_film(jfc),
+                         ref.pos.reshape(-1, 2) * jnp.asarray([W, H],
+                                                              jnp.float32),
+                         ref.value.at[:, 0].set(0.0).reshape(-1, 3),
+                         mode="splat")
+        want = np.asarray(jfilm.develop(jfc, jf, mode="splat",
+                                        scale=W * H / R))
+        img = misc.render_ptracer(
+            box["tables"], filmlib.make_film_config(W, H, "box"),
+            torch.Generator(), R, max_depth=DEPTH, chunk=R,
+            u=box["u"][:, 1:])
+        assert (want.sum(-1) > 0).mean() > 0.3
+        np.testing.assert_allclose(img.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 def test_pdf_helpers_match_reference(box):

@@ -139,8 +139,10 @@ def test_file_keys_win_and_blocks_round_up(monkeypatch):
         type="pssmlt", pLarge=0.1, technique="path", chains="8")
     assert settings.integrator == dict(type="pssmlt", pLarge=0.1,
                                        technique="path")
-    monkeypatch.setattr(cli, "render_pssmlt",
-                        lambda *a, **kw: (None, dict(steps=a[5])))
+    # the stand-in returns the steps and their per-step stats, which the
+    # CLI's acceptance report reads
+    monkeypatch.setattr(cli, "render_pssmlt", lambda *a, **kw: (None, dict(
+        steps=a[5], stats=dict(accept=torch.zeros(a[5])))))
     # 40 x 40 x 7 / chains steps, rounded up to whole blocks
     for chains, want in ((8, 1536), (4, 2816), (4096, 2)):
         args.D[1] = f"chains={chains}"
@@ -151,7 +153,7 @@ def test_file_keys_win_and_blocks_round_up(monkeypatch):
 
 def test_unported_keys_raise_naming_the_key(monkeypatch):
     dev = torch.device("cpu")
-    cases = [(["integrator=ptracer"], "ptracer")]
+    cases = [(["integrator=erpt"], "erpt")]
     for defs, key in cases:
         args, scene, settings = _port(defs)
         with pytest.raises(NotImplementedError, match=key):
@@ -159,9 +161,25 @@ def test_unported_keys_raise_naming_the_key(monkeypatch):
     with pytest.raises(NotImplementedError, match="PNG"):
         cli.main([CORNELL, "-o", "out.png", "--device", "cpu"])
     args, scene, settings = _port(["integrator=path"])
-    settings.sampler = "ldsampler"
-    with pytest.raises(NotImplementedError, match="ldsampler"):
+    settings.sampler = "nosuch"
+    with pytest.raises(ValueError, match="unknown sampler 'nosuch'"):
         cli.render(args, scene, settings, dev)
+    # a non-independent sampler reaches render_pt; ptracer its render
+    for sampler, defs, name in (("ldsampler", ["integrator=path"],
+                                 "render_pt"),
+                                ("independent", ["integrator=ptracer"],
+                                 "render_ptracer")):
+        args, scene, settings = _port(defs)
+        settings.sampler = sampler
+        seen = _capture(monkeypatch, name)
+        with pytest.raises(_Stop):
+            cli.render(args, scene, settings, dev)
+        if name == "render_pt":
+            assert seen["kw"]["sampler"] == "ldsampler"
+            assert seen["args"][3] == 64 * 64
+        else:         # the reference's default depth 5: the file's 4 wins
+            assert seen["kw"]["max_depth"] == 4 and seen["args"][3] == 64 * 64
+        monkeypatch.undo()
     # the keys that raised before they were ported now reach their route:
     # the generic loop's render (render_drmlt / render_pssmlt), or its
     # first render_pt pass (twoStage's 4x4 luminance pass at 64 paths a

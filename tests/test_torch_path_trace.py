@@ -49,9 +49,10 @@ def _check(va, vb):
 def test_twin_matches_trace_paths(tall):
     cfg = PathConfig(max_depth=DEPTH, rr_depth=100)
     u = _u(3, cfg.n_dims)
-    ref = jax_trace(jax_cornell(32, 32, tall_box_material=tall),
-                    JPathConfig(max_depth=DEPTH, rr_depth=100),
-                    jnp.asarray(u))
+    jscene = jax_cornell(32, 32, tall_box_material=tall)
+    ref = jax.jit(lambda x: jax_trace(           # the reference, one program
+        jscene, JPathConfig(max_depth=DEPTH, rr_depth=100), x))(
+        jnp.asarray(u))
     got = trace_paths(cornell_box(32, 32, tall_box_material=tall), cfg,
                       torch.from_numpy(u))
     va = np.asarray(ref.value[:, 0, :])
@@ -97,8 +98,10 @@ def test_no_nee_and_min_depth_match_trace_paths():
     kw = dict(max_depth=DEPTH, rr_depth=100, use_nee=False, min_depth=2)
     cfg = PathConfig(**kw)
     u = _u(9, cfg.n_dims)
-    va = np.asarray(jax_trace(jax_cornell(32, 32), JPathConfig(**kw),
-                              jnp.asarray(u)).value[:, 0, :])
+    jscene = jax_cornell(32, 32)
+    va = np.asarray(jax.jit(lambda x: jax_trace(jscene, JPathConfig(**kw),
+                                                x))(jnp.asarray(u))
+                    .value[:, 0, :])
     _check(va, trace_paths(cornell_box(32, 32), cfg, torch.from_numpy(u))
            .value[:, 0, :].numpy())
 
