@@ -12,7 +12,8 @@ acceptance map, the pooled MMLT route, every reconstruction filter and
 the CLI routes they open) and the bidirectional layer (BDPT, the
 wavefront MMLT trace, the thin lens, over the intersection kernel), and
 the forward renderers (the particle tracer, field, multichannel and
-motion AOVs), every sampler and the CLI's flags and outputs.
+motion AOVs), every sampler and the CLI's flags and outputs, and the
+path wavefront over the surface scenes the trace kernels do not cover.
 
     python3 chip_smoke.py
 
@@ -223,6 +224,21 @@ non-zero):
      counters are reset before each card run and read after it (the fresh
      processes print theirs); the kernels line adds those launches to
      #1 / #2, #3, #4 and #5.
+ 27. slice 10, the path wavefront (integrators/path.py:
+     trace_paths_wavefront) on tests/data/surfaces.xml, which the trace
+     kernels do not cover: (a) 65,536 lanes at depth 8 on the card
+     against the same call on the CPU on the same u (a lane agrees within
+     1e-3 relative; at most WAVE_BAD_LANES of lanes may not, the channel
+     means within WAVE_MEAN_RTOL), the share of first hits whose t
+     differs, ms a call, the device-busy share, the intersection
+     kernel's launches and device ms; (b) the CLI's integrator=path (the
+     MC reference), drmlt (technique=path, 65,536 chains) and pssmlt on
+     surfaces.xml at 256x256, each MCMC image's channel means within four
+     standard deviations of MC's (b's, the chains' and MC's, from the
+     per-sample spread of (a)'s values), and integrator=path on
+     daylight.xml at 128x128; paths/s and mutations/s.  No trace or chain
+     kernel may launch there; the kernels line adds the intersection
+     (brute mode) and splat launches to #1 / #2 and #4.
 Then one JSON line of kernels, and last one JSON line
 {"ok": true, "device": {...}}.  Details also go to
 chiprun_out/chip_smoke.json.
@@ -3135,6 +3151,176 @@ def slice9(name, dev, gen, report, mc_refs, s5):
     return dict(launches9, intersect_by_mode=ix_mode)
 
 
+# ---------------------------------------------------------------- slice 10
+# phase 27: the path wavefront (integrators/path.py:trace_paths_wavefront)
+# over the intersection and splat kernels, on the surface scope the trace
+# kernels do not cover
+SURFACES_XML = os.path.join(ROOT, "tests", "data", "surfaces.xml")
+DAYLIGHT_XML = os.path.join(ROOT, "tests", "data", "daylight.xml")
+WAVE_LANES = 65536
+# 27a: the card against the CPU on the same u.  A lane agrees when every
+# channel is within 1e-3 relative (+1e-4) of the CPU's; at depth 8 over
+# Fresnel picks, caustics and masks a last-bit difference in a hit's t or
+# a direction flips a branch and sends a lane down another path, so up to
+# WAVE_BAD_LANES of the lanes may differ, the channel means within
+# WAVE_MEAN_RTOL
+WAVE_BAD_LANES = 0.01
+WAVE_MEAN_RTOL = 5e-3
+# 27b: the CLI renders of surfaces.xml (256x256, depth 8): integrator=path
+# at WAVE_MC_SPP (the MC reference), drmlt over WAVE_DRMLT_SPP steps of
+# 65,536 chains, pssmlt over WAVE_PSS_SPP, both bootstrapped on
+# WAVE_BOOT samples; daylight.xml at 128x128.  The wavefront is host-bound
+# (~40,000 small kernels a call, whatever its width), so the renders are
+# sized by their calls
+WAVE_MC_SPP = 8
+WAVE_DRMLT_SPP = 8
+WAVE_PSS_SPP = 8
+WAVE_BOOT = 32768
+WAVE_DAY_SPP = 32
+LUM_W = (0.212671, 0.715160, 0.072169)
+
+
+def slice10(name, dev, gen, report):
+    """Phase 27: the path wavefront on the card.  Returns the main-path
+    launches of (a) and (b)."""
+    from drmlt_mitsuba_tpu_torch.integrators import path as P
+
+    launches10 = dict.fromkeys(build.LAUNCHES, 0)
+
+    def count():
+        for key, c in build.LAUNCHES.items():
+            launches10[key] += c
+
+    t_phase = time.perf_counter()
+    # ---- 27a. the wavefront on the card against the CPU -------------------
+    sc, xs = cli.load_scene(SURFACES_XML, {})
+    cfg = PathConfig(max_depth=DEPTH, rr_depth=100)
+    need(not MT.mega_eligible(sc, cfg), "surfaces.xml is in kernel scope")
+    tk = P.make_wavefront_tables(sc, cfg, dev)
+    need(tk.rays.nodes is None, "surfaces.xml: not in brute mode")
+    u = torch.rand((WAVE_LANES, cfg.n_dims), generator=gen, device=dev)
+
+    def call():
+        return P.trace_paths_wavefront(sc, cfg, u, tk)
+
+    call()                                     # warm-up
+    build.reset_launches()
+    sk, first_wall = sync_time(call)
+    n_ix, n_launch = build.LAUNCHES["intersect"], dict(build.LAUNCHES)
+    count()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = sync_time(call)
+    busy, per = device_profile(prof.events(), prof_wall)
+    ix_ms = sum(t for k, (t, _) in per.items() if "intersect" in k
+                or "brute_sweep" in k)
+    n_dev = sum(c for _, c in per.values())
+    ms = event_ms(call, runs=3)
+    tc = P.make_wavefront_tables(sc, cfg, "cpu")
+    st_, twin_s = sync_time(lambda: P.trace_paths_wavefront(
+        sc, cfg, u.cpu(), tc))
+    mx, bad, m_rel = bdpt_lanes(sk, st_)
+    # the first hits on both devices: the share of lanes whose t differs
+    # (in the last bits: the same triangle, the camera ray's direction
+    # rounded differently)
+    o, d = P.camera_rays(tk.cam, u[:, 0], u[:, 1])
+    hk = IX.intersect(tk.scene, o, d, tables=tk.rays)
+    hc = IX.intersect(tc.scene, o.cpu(), d.cpu(), tables=tc.rays)
+    t_diff = float((hk.t.cpu() != hc.t).double().mean())
+    prim_diff = float((hk.prim.cpu() != hc.prim).double().mean())
+    v = st_.value[:, 0].double()
+    lum = v @ v.new_tensor(LUM_W)
+    rel_sd, lum_sd = v.std(0) / v.mean(0), lum.std() / lum.mean()
+    row = dict(lanes=WAVE_LANES, depth=DEPTH, max_abs=mx, bad_lanes=bad,
+               mean_rel=m_rel, first_hit_t_differs=t_diff,
+               first_hit_prim_differs=prim_diff, ms=ms,
+               first_wall_s=first_wall, busy_share=busy,
+               intersect_launches=n_ix, intersect_device_ms=ix_ms,
+               device_kernels_a_call=n_dev, launches=n_launch,
+               twin_s=twin_s, sample_rel_sd=rel_sd.tolist(),
+               top_kernels_ms=[[k, t, c] for k, (t, c) in sorted(
+                   per.items(), key=lambda kv: -kv[1][0])[:6]])
+    report["wavefront_vs_cpu"] = row
+    print(f"[27a path wavefront vs CPU] {name}: surfaces.xml, "
+          f"{WAVE_LANES} lanes, depth {DEPTH}: max |d| {mx:.3e}, lanes "
+          f"differing {bad:.5f} (gate {WAVE_BAD_LANES}), channel-mean rel "
+          f"{m_rel:.2e} (gate {WAVE_MEAN_RTOL}); first hits: t differs on "
+          f"{t_diff:.5f} of lanes, the primitive on {prim_diff:.5f}; "
+          f"{ms:.3f} ms a call (first {first_wall:.3f} s), device busy "
+          f"{busy:.4f}, {n_dev} device kernels a call, the intersection "
+          f"kernel {n_ix} launches and {ix_ms:.3f} ms of device time; the "
+          f"CPU {twin_s:.1f} s")
+    need(bool(torch.isfinite(sk.value).all()), "wavefront: non-finite")
+    need(bad <= WAVE_BAD_LANES, f"wavefront: {bad} of lanes differ")
+    need(m_rel <= WAVE_MEAN_RTOL, f"wavefront: means differ {m_rel}")
+    need(n_ix > 0 and busy > 0, "wavefront: no intersection launch")
+
+    # ---- 27b. the CLI's path-technique routes ----------------------------
+    report["wavefront_cli"] = {}
+    mc = None
+    for tag, xml, defs, spp in (
+            ("path", SURFACES_XML, ["integrator=path"], WAVE_MC_SPP),
+            ("drmlt", SURFACES_XML, ["integrator=drmlt", "variant=orbital",
+                                     f"luminanceSamples={WAVE_BOOT}"],
+             WAVE_DRMLT_SPP),
+            ("pssmlt", SURFACES_XML, ["integrator=pssmlt",
+                                      f"luminanceSamples={WAVE_BOOT}"],
+             WAVE_PSS_SPP),
+            ("daylight path", DAYLIGHT_XML, ["integrator=path"],
+             WAVE_DAY_SPP)):
+        sc2, xs2 = cli.load_scene(xml, dict(kv.split("=", 1)
+                                            for kv in defs))
+        args = argparse.Namespace(D=defs, chains=CHAINS, spp=spp, seed=101)
+        build.reset_launches()
+        (img, aux), wall = sync_time(lambda: cli.render(args, sc2, xs2,
+                                                        dev))
+        launched = dict(build.LAUNCHES)
+        count()
+        need(launched["path_trace"] + launched["path_trace[full]"]
+             + launched["drmlt_path"] + launched["drmlt_path[full]"] == 0,
+             f"{tag}: a trace or chain kernel ran: {launched}")
+        need(launched["intersect"] > 0, f"{tag}: no intersection launch")
+        need(bool(torch.isfinite(img).all()), f"{tag}: image not finite")
+        n = aux.get("samples", aux.get("mutations"))
+        r = dict(wall_s=wall, size=[xs2.width, xs2.height], spp=spp,
+                 work=n, per_s=n / wall, launches=launched,
+                 image_mean=img.double().mean((0, 1)).tolist())
+        gate_txt = ""
+        if tag == "path":
+            mc, n_mc = img, n
+        elif tag in ("drmlt", "pssmlt"):
+            # four standard deviations of the MCMC mean against MC's: b's
+            # (the bootstrap), the chains' (one independent sample a
+            # chain, which overstates it) and the MC image's
+            n_boot = -(-WAVE_BOOT // 8192) * 8192
+            sd = torch.sqrt(lum_sd ** 2 / n_boot + rel_sd ** 2 / CHAINS
+                            + rel_sd ** 2 / n_mc)
+            rel = (img.double().mean((0, 1)).cpu()
+                   / mc.double().mean((0, 1)).cpu() - 1).abs()
+            r.update(b=float(aux["b"]), steps=aux["steps"],
+                     mean_rel_per_channel=rel.tolist(),
+                     gate_per_channel=(4 * sd).tolist())
+            gate_txt = (f"; b {float(aux['b']):.6f}, vs MC channel means "
+                        f"rel {[round(x, 5) for x in rel.tolist()]} (gates "
+                        f"{[round(x, 5) for x in (4 * sd).tolist()]})")
+            need(bool((rel < 4 * sd).all()), f"CLI {tag}: differs from MC "
+                 f"by {rel.tolist()} (gate {(4 * sd).tolist()})")
+        report["wavefront_cli"][tag] = r
+        unit = "paths" if "samples" in aux else "mutations"
+        print(f"[27b CLI {tag}] {name}: {os.path.basename(xml)} "
+              f"{xs2.width}x{xs2.height}, depth {xs2.integrator['maxDepth']},"
+              f" spp {spp}: {wall:.3f} s, {n} {unit} ({n / wall:.4e} "
+              f"{unit}/s, bootstrap included), intersection launches "
+              f"{launched['intersect']}{gate_txt}")
+
+    report["slice10_launches"] = launches10
+    report["slice10_seconds"] = time.perf_counter() - t_phase
+    print(f"[27 slice 10 launches, the main path's runs] {name}: "
+          f"{launches10}; phase {report['slice10_seconds']:.1f} s")
+    for key in ("intersect", "splat_add"):
+        need(launches10[key] > 0, f"{key} did not launch on phase 27's path")
+    return launches10
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3687,6 +3873,9 @@ def main():
     # ---- 26. slice 9 --------------------------------------------------------
     s9 = slice9(name, dev, gen, report, mc_refs, s5)
 
+    # ---- 27. slice 10 -------------------------------------------------------
+    s10 = slice10(name, dev, gen, report)
+
     src = "drmlt_mitsuba_tpu_torch/csrc/"
     ref_src = "drmlt_mitsuba_tpu/ops/pallas/"
 
@@ -3702,7 +3891,8 @@ def main():
     # the intersection and splat kernels add phase 25's (the bidirectional
     # wavefront and the CLI's BDPT and thin-lens MMLT routes), and the
     # intersection, splat and path kernels phase 26's (the forward
-    # renderers, the samplers, the CLI's new routes)
+    # renderers, the samplers, the CLI's new routes), and the intersection
+    # (brute mode) and splat kernels phase 27's (the path wavefront)
     kernels = [
         entry("path_trace_kernel", "path_trace.cu", "megatrace.py:1555",
               launches["path_trace"] + s7["path_trace"] + s9["path_trace"],
@@ -3719,7 +3909,8 @@ def main():
         # library: index_add_ of the taps
         entry("splat_add_kernel", "splat.cu", "splat_kernel.py:79",
               s3["launches"]["splat_add"] + s7["splat_add"]
-              + s8["splat_add"] + s9["splat_add"], *s3["splat"]),
+              + s8["splat_add"] + s9["splat_add"] + s10["splat_add"],
+              *s3["splat"]),
         entry("path_trace_rad_kernel", "path_trace_grad.cu",
               "megatrace.py:1798", s3["launches"]["path_trace_rad"],
               *s3["rad"]),
@@ -3731,7 +3922,8 @@ def main():
         # (:220), its BVH mode for sweep_clusters (bvh_kernel.py:155)
         *(entry(f"intersect_kernel[{m}]", "intersect.cu", rep,
                 s4[f"intersect_{m}"]["launches"]
-                + s8["intersect_by_mode"][m] + s9["intersect_by_mode"][m],
+                + s8["intersect_by_mode"][m] + s9["intersect_by_mode"][m]
+                + (s10["intersect"] if m == "brute" else 0),
                 s4[f"intersect_{m}"]["err"],
                 s4[f"intersect_{m}"]["ms"], s4[f"intersect_{m}"]["plain_ms"],
                 (s4[f"intersect_{m}"]["bound_ms"],

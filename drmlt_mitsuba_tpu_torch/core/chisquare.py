@@ -14,7 +14,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from scipy.stats import chi2 as _chi2
 
 
 @dataclasses.dataclass
@@ -87,6 +86,8 @@ def chi2_test(sample_fn, pdf_fn, n_samples: int = 1_000_000,
         stat += (pooled_c - pooled_e) ** 2 / pooled_e
         dof += 1
     dof = max(dof - 1, 1)
-    p = float(_chi2.sf(stat, dof))
+    from scipy.stats import chi2   # seconds to import: paid by a test only
+
+    p = float(chi2.sf(stat, dof))
     return ChiSquareResult(passed=p >= significance, statistic=float(stat),
                            dof=dof, p_value=p, pooled_cells=pooled_cells)

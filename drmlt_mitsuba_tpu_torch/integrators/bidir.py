@@ -60,7 +60,7 @@ from drmlt_mitsuba_tpu_torch.ops.intersect import (
     intersect, make_ray_tables, occluded,
 )
 from drmlt_mitsuba_tpu_torch.ops.megatrace import (
-    ENV_CONSTANT, mega_eligible, pack_mega_tables_torch, scope_fields,
+    ENV_CONSTANT, pack_mega_tables_torch, require_mega_scope, scope_fields,
 )
 from drmlt_mitsuba_tpu_torch.render.bsdf import (
     eval_bsdf, is_delta, material_rows, sample_bsdf,
@@ -71,7 +71,7 @@ from drmlt_mitsuba_tpu_torch.render.emitter import (
 from drmlt_mitsuba_tpu_torch.render.sensor import camera_rays
 from drmlt_mitsuba_tpu_torch.render.texture import tex_albedo
 from drmlt_mitsuba_tpu_torch.scene.types import (
-    EMITTER_AREA, Scene, prepare_scene,
+    EMITTER_AREA, Scene, prepare_scene, to_device,
 )
 
 EYE_BOUNCE_DIMS = 3    # bsdf component + 2D
@@ -158,26 +158,16 @@ class BidirTables:
         return self.cam.device
 
 
-def _to(x, device):
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{
-            f.name: _to(getattr(x, f.name), device)
-            for f in dataclasses.fields(x)})
-    return x
-
-
 def make_bidir_tables(scene: Scene, cfg: BDPTConfig, device) -> BidirTables:
     """Check the scene scope (the trace kernels' subset, a thin lens
     included), attach the BVH above BVH_MIN_TRIS triangles and move every
     table to `device`."""
-    mega_eligible(scene, cfg)
+    require_mega_scope(scene, cfg)
     scene = prepare_scene(scene)
     tabs = pack_mega_tables_torch(scene, device)
     sf = scope_fields(scene, tabs, cfg.thinlens)
     dscene = dataclasses.replace(
-        _to(dataclasses.replace(scene, bvh=None), device), bvh=scene.bvh)
+        to_device(dataclasses.replace(scene, bvh=None), device), bvh=scene.bvh)
     return BidirTables(
         scene=dscene, rays=make_ray_tables(scene, device),
         mat=tabs[1].contiguous(), em=tabs[2].contiguous(),

@@ -42,7 +42,7 @@ from drmlt_mitsuba_tpu_torch.integrators.mcmc import (
 )
 from drmlt_mitsuba_tpu_torch.integrators.path import make_path_trace
 from drmlt_mitsuba_tpu_torch.ops import megadrmlt
-from drmlt_mitsuba_tpu_torch.ops.megatrace import make_tables
+from drmlt_mitsuba_tpu_torch.ops.megatrace import make_tables, mega_eligible
 from drmlt_mitsuba_tpu_torch.render import film as filmlib
 
 TYPE_GREEN = "green"
@@ -422,7 +422,9 @@ def render_drmlt_path(scene, pcfg, cfg: DRMLTConfig, film_cfg, generator,
     """DRMLT over the unidirectional path technique on generator.device.
 
     With cfg.use_mixture, cfg.acceptance_map or a filter footprint other
-    than 1 this is render_drmlt over the path kernel (drmlt.py:405-409).
+    than 1 this is render_drmlt over the path kernel (drmlt.py:405-409),
+    and on a scene outside the trace kernels' scope render_drmlt over the
+    path wavefront (make_path_trace's route; drmlt.py:404-408).
     Otherwise the chain kernel: bootstrap (path kernel), packed chain
     state, ceil(n_steps / n_mut) chain-kernel launches (n_mut forced to 16
     when n_steps < 32), then img = film * b / (n_chains * steps_eff /
@@ -433,7 +435,8 @@ def render_drmlt_path(scene, pcfg, cfg: DRMLTConfig, film_cfg, generator,
     n_dims = pcfg.n_dims + pcfg.n_dims % 2   # orbital needs even dims
     trace_fn = make_path_trace(scene, pcfg, device)
     if (cfg.use_mixture or cfg.acceptance_map
-            or film_cfg.filter.footprint != 1):
+            or film_cfg.filter.footprint != 1
+            or not mega_eligible(scene, pcfg)):
         return render_drmlt(trace_fn, cfg, film_cfg, generator, n_dims,
                             n_steps, average_luminance=average_luminance)
     state, b = bootstrap(trace_fn, generator, n_dims, cfg.n_bootstrap,

@@ -41,8 +41,8 @@ from drmlt_mitsuba_tpu_torch.integrators.bidir import BDPTConfig
 from drmlt_mitsuba_tpu_torch.integrators.layout import Splats
 from drmlt_mitsuba_tpu_torch.ops import build
 from drmlt_mitsuba_tpu_torch.ops.megatrace import (
-    ENV_CONSTANT, ENV_NONE, INF, closest_hit, count_sweeps, mega_eligible,
-    materials_at, occluded, pack_mega_tables_torch, scene_args,
+    ENV_CONSTANT, ENV_NONE, INF, closest_hit, count_sweeps, materials_at,
+    occluded, pack_mega_tables_torch, require_mega_scope, scene_args,
     scope_fields, sphere_blocked, sphere_closest, sphere_uv,
 )
 from drmlt_mitsuba_tpu_torch.ops.intersect import scene_nodes
@@ -68,7 +68,7 @@ def mega_mmlt_eligible(scene: Scene, cfg: BDPTConfig) -> bool:
         raise NotImplementedError(
             "not yet ported to the CUDA MMLT kernel: a thin-lens camera "
             "(the reference's MMLT kernel excludes it too)")
-    return mega_eligible(scene, cfg)
+    return require_mega_scope(scene, cfg)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -183,16 +183,17 @@ def pack_mat_table(mats, device=None):
     ], 1)
 
 
-def mega_eligible(scene: Scene, cfg) -> bool:
-    """True when the port's trace kernels cover this scene and config (the
-    reference megakernels' subset, megatrace.py:502-566, without its
-    table-size caps); otherwise raises NotImplementedError naming what is
-    not yet ported."""
+def mega_scope_missing(scene: Scene, cfg) -> list[str]:
+    """What of this scene and config the port's trace kernels do not
+    cover (the reference megakernels' subset, megatrace.py:502-566,
+    without its table-size caps); empty when they cover it."""
     missing = []
     if getattr(cfg, "motion", False):
         missing.append("motion blur")
     if scene.camera.kind != CAMERA_PERSPECTIVE:
         missing.append(f"camera kind {scene.camera.kind}")
+    if scene.camera.rdist:
+        missing.append("radial distortion")
     if (float(scene.camera.aperture_radius) > 0
             and not getattr(cfg, "thinlens", False)):
         missing.append("a lens aperture without PathConfig(thinlens=True)")
@@ -202,7 +203,7 @@ def mega_eligible(scene: Scene, cfg) -> bool:
     ekinds = set(int(k) for k in scene.emitters.kind.unique())
     if not ekinds <= {EMITTER_AREA, EMITTER_ENV}:
         missing.append(f"emitter kinds {sorted(ekinds - {0, 4})} (point, "
-                       f"spot, directional)")
+                       f"directional, spot, collimated)")
     if (EMITTER_ENV in ekinds) != (scene.emitters.env_image is not None):
         missing.append("an environment row without its image")
     tex_ids = scene.materials.tex_id
@@ -212,9 +213,30 @@ def mega_eligible(scene: Scene, cfg) -> bool:
         missing.append("texture ids outside the texture atlas")
     if bool((tex_ids < -1).any()):
         missing.append("per-vertex colors")
-    kinds = set(int(k) for k in scene.materials.kind.unique())
+    mt = scene.materials
+    mods = [n for n, on in (("mask", mt.has_mask), ("mixture", mt.has_mixture),
+                            ("coating", mt.has_coating),
+                            ("normal map", mt.has_normalmap)) if on]
+    if mods:
+        missing.append(f"material modifiers {mods}")
+    kinds = set(int(k) for k in mt.kind.unique())
     if not kinds.issubset(SUPPORTED_KINDS):
         missing.append(f"BSDF kinds {sorted(kinds - set(SUPPORTED_KINDS))}")
+    return missing
+
+
+def mega_eligible(scene: Scene, cfg) -> bool:
+    """True when the port's trace kernels cover this scene and config
+    (the reference's mega_eligible); what they do not cover renders
+    through the path wavefront (integrators/path.py:make_path_trace)."""
+    return not mega_scope_missing(scene, cfg)
+
+
+def require_mega_scope(scene: Scene, cfg) -> bool:
+    """True, or NotImplementedError naming what the trace kernels do not
+    cover: the gate of the kernel routes and of the bidirectional layer,
+    which only the kernels' scene scope reaches."""
+    missing = mega_scope_missing(scene, cfg)
     if missing:
         raise NotImplementedError(
             "not yet ported to the CUDA trace kernels: " + ", ".join(missing))
@@ -306,7 +328,7 @@ def make_tables(scene: Scene, cfg, device) -> TraceTables:
     the gradient of any scene leaf that requires one) and move the tables
     to `device`, with the node table of the scene's BVH above
     BVH_MIN_TRIS triangles (built here unless prepare_scene attached it)."""
-    mega_eligible(scene, cfg)
+    require_mega_scope(scene, cfg)
     tabs = pack_mega_tables_torch(scene, device)
     tri, mat, emt, cam = (t.contiguous() for t in tabs[:4])
     return TraceTables(tri=tri, mat=mat, em=emt, cam=cam.reshape(-1),
@@ -973,7 +995,7 @@ def make_mega_trace_diff(scene: Scene, cfg, device="cuda"):
     "emitters.radiance", "tris.v0", "camera.to_world", ...) to the live
     tensors that replace `scene`'s; an autograd Function routes gradients
     only to its tensor arguments, so they are passed explicitly."""
-    mega_eligible(scene, cfg)
+    require_mega_scope(scene, cfg)
     device = torch.device(device)
 
     def trace(leaves, u):

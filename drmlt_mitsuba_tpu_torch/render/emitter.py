@@ -8,17 +8,30 @@ packed tables of ops/megatrace.py: the emitter table `em` (E, 20)
 (radiance 0:3, area 3, pmf 4, cdf 5, v0 6:9, e1 9:12, e2 12:15, unit
 geometric normal 15:18, kind 18) and the lat-long environment's `env_tab`
 (He * We, 4) (rgb, pixel pmf), `env_col` (He, We) (each row's column cdf)
-and `env_row` (He,) (the marginal row cdf).  Point, spot and directional
-emitters are not ported.
+and `env_row` (He,) (the marginal row cdf).
+
+The path wavefront (integrators/path.py:trace_paths_wavefront) reads every
+emitter kind through `EmitterRows`: `sample_emitter_direct`,
+`pdf_emitter_direct`, `eval_emitter`, `eval_env` and `env_pdf_dir`, the
+reference's render/emitter.py:92-245 (triangle area rows, point, spot
+with its cone falloff, directional, collimated and the image
+environment).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-from drmlt_mitsuba_tpu_torch.core.math import cdiv, dot
+from drmlt_mitsuba_tpu_torch.core.math import (
+    cdiv, cross, dot, normalize, safe_div,
+)
 from drmlt_mitsuba_tpu_torch.core.warp import square_to_uniform_triangle
+from drmlt_mitsuba_tpu_torch.scene.types import (
+    EMITTER_AREA, EMITTER_DIRECTIONAL, EMITTER_ENV, EMITTER_POINT,
+    EMITTER_SPOT,
+)
 
 # pseudo-distance of an environment shadow ray (render/emitter.py:_DIR_DIST)
 DIR_DIST = 1.0e7
@@ -163,3 +176,160 @@ def env_sample(env_tab, env_col, env_row, shape, u1, u2):
     pdf = pmf * float(he * we) / (2.0 * math.pi * math.pi
                                   * torch.clamp(st, min=1e-6))
     return d, pdf, env_bilinear(env_tab, shape, ue, ve)
+
+
+# ------------------------------------------------------- every emitter kind
+@dataclasses.dataclass(frozen=True)
+class EmitterRows:
+    """The emitter table on one device, for the path wavefront: `rows`
+    (E, 26) = radiance 0:3, area 3, pos 4:7, aux 7:11, pmf 11, and the
+    area row's triangle v0 12:15, e1 15:18, e2 18:21, unit normal 21:24;
+    `kind` (E,) int64, `cdf` (E,), the constant environment `env_rgb`
+    (3,), and an image environment's packed tables (ops/megatrace.py:
+    env_tab, env_col, env_row; env_shape None without an image) with the
+    pick probability of its row."""
+    rows: torch.Tensor
+    kind: torch.Tensor
+    cdf: torch.Tensor
+    env_rgb: torch.Tensor
+    env_tab: torch.Tensor
+    env_col: torch.Tensor
+    env_row: torch.Tensor
+    env_shape: tuple | None
+    env_row_pick: float
+
+
+def emitter_table_rows(scene, tables) -> EmitterRows:
+    """EmitterRows of `scene` with the packed tables `tables`
+    (pack_mega_tables_torch on the target device)."""
+    em, tris = scene.emitters, scene.tris
+    dev = tables[0].device
+
+    def f(x):
+        return x.to(device=dev, dtype=torch.float32)
+
+    ti = torch.clamp(em.tri_idx.to(device=dev, dtype=torch.int64), 0,
+                     tris.v0.shape[0] - 1)
+    e1, e2 = f(tris.e1)[ti], f(tris.e2)[ti]
+    rows = torch.cat([f(em.radiance), f(em.area)[:, None], f(em.pos),
+                      f(em.aux), f(em.pmf)[:, None], f(tris.v0)[ti], e1, e2,
+                      normalize(cross(e1, e2))], 1).contiguous()
+    kind = em.kind.to(device=dev, dtype=torch.int64)
+    shape = (tuple(em.env_image.shape[:2]) if em.env_image is not None
+             else None)
+    pick = (float(em.pmf[em.kind == EMITTER_ENV].sum()) if shape else 0.0)
+    return EmitterRows(rows=rows, kind=kind, cdf=f(em.cdf).contiguous(),
+                       env_rgb=f(em.env_radiance), env_tab=tables[7],
+                       env_col=tables[8], env_row=tables[9].reshape(-1),
+                       env_shape=shape, env_row_pick=pick)
+
+
+@dataclasses.dataclass
+class DirectSample:
+    """A sampled connection toward an emitter from a reference point."""
+    d: torch.Tensor          # (R, 3) unit direction toward the emitter
+    dist: torch.Tensor       # (R,)
+    radiance: torch.Tensor   # (R, 3) the NEE factor: f radiance w / pdf
+    pdf: torch.Tensor        # (R,) solid-angle (area, env) or discrete pdf
+    delta: torch.Tensor      # (R,) bool: a delta emitter (MIS weight 1)
+
+
+def sample_emitter_direct(er: EmitterRows, p_ref, u3) -> DirectSample:
+    """Sample a direct connection from p_ref (R, 3); u3 (R, 3) = (pick,
+    u, v) (the reference's sample_emitter_direct).  A collimated row
+    lights p_ref from the beam's origin with the beam's power, unattenuated
+    and whatever the beam's direction, as the reference's does."""
+    rows = (u3[:, 0:1] >= er.cdf[None, :]).sum(-1)
+    row = torch.clamp(rows, max=er.cdf.shape[0] - 1)
+    g = er.rows[row]
+    kind = er.kind[row]
+    e_rad, e_area, e_pos, e_aux, pmf = (g[:, 0:3], g[:, 3], g[:, 4:7],
+                                        g[:, 7:11], g[:, 11])
+    # area rows
+    b = square_to_uniform_triangle(u3[:, 1:3])
+    p_l = g[:, 12:15] + b[:, 0:1] * g[:, 15:18] + b[:, 1:2] * g[:, 18:21]
+    to_l = p_l - p_ref
+    dist2_a = dot(to_l, to_l)
+    dist_a = torch.sqrt(torch.clamp(dist2_a, min=1e-20))
+    d_a = to_l / dist_a[:, None]
+    cos_l = -dot(d_a, g[:, 21:24])
+    vis_a = cos_l > 1e-7
+    pdf_a = safe_div(pmf * dist2_a, cos_l * e_area)
+    # point and spot rows
+    to_p = e_pos - p_ref
+    dist2_p = dot(to_p, to_p)
+    dist_p = torch.sqrt(torch.clamp(dist2_p, min=1e-20))
+    d_p = to_p / dist_p[:, None]
+    rad_p = e_rad / torch.clamp(dist2_p, min=1e-12)[:, None]
+    cos_cut = e_aux[:, 3]
+    cos_spot = -dot(d_p, e_aux[:, 0:3])
+    cos_beam = torch.cos(torch.arccos(torch.clamp(cos_cut, -1, 1)) * 0.75)
+    spot_f = torch.clamp(safe_div(cos_spot - cos_cut, cos_beam - cos_cut),
+                         0.0, 1.0)
+    spot_f = torch.where(cos_spot >= cos_beam, 1.0, spot_f)
+    # environment rows
+    if er.env_shape is not None:
+        d_env, pdf_env, rad_env = env_sample(er.env_tab, er.env_col,
+                                             er.env_row, er.env_shape,
+                                             u3[:, 1], u3[:, 2])
+    else:
+        d_env, pdf_env, rad_env = -e_pos, torch.ones_like(pmf), e_rad
+    is_area = (kind == EMITTER_AREA)[:, None]
+    is_point = (kind == EMITTER_POINT)[:, None]
+    is_spot = (kind == EMITTER_SPOT)[:, None]
+    is_dir = (kind == EMITTER_DIRECTIONAL)[:, None]
+    is_env = (kind == EMITTER_ENV)[:, None]
+    d = torch.where(is_area, d_a, torch.where(
+        is_dir, -e_pos, torch.where(is_env, d_env, d_p)))
+    dist = torch.where(is_area[:, 0], dist_a,
+                       torch.where((is_dir | is_env)[:, 0], DIR_DIST,
+                                   dist_p))
+    radiance = torch.where(
+        is_area, torch.where(vis_a[:, None], e_rad, 0.0),
+        torch.where(is_point, rad_p, torch.where(
+            is_spot, rad_p * spot_f[:, None],
+            torch.where(is_env, rad_env, e_rad))))
+    pdf = torch.where(is_area[:, 0], torch.where(vis_a, pdf_a, 0.0),
+                      torch.where(is_env[:, 0], pmf * pdf_env, pmf))
+    return DirectSample(d=d, dist=dist, radiance=radiance, pdf=pdf,
+                        delta=~(is_area | is_env)[:, 0])
+
+
+def pdf_emitter_direct(er: EmitterRows, p_ref, erow, hit_p, hit_n):
+    """Solid-angle pdf of sample_emitter_direct for the point hit_p of the
+    area row erow (R,) a BSDF-sampled ray hit (0 elsewhere)."""
+    row = torch.clamp(erow.to(torch.int64), 0, er.cdf.shape[0] - 1)
+    g = er.rows[row]
+    to_l = hit_p - p_ref
+    dist2 = dot(to_l, to_l)
+    d = to_l / torch.sqrt(torch.clamp(dist2, min=1e-20))[:, None]
+    cos_l = -dot(d, hit_n)
+    pdf = safe_div(g[:, 11] * dist2, cos_l * g[:, 3])
+    ok = (erow >= 0) & (cos_l > 0) & (er.kind[row] == EMITTER_AREA)
+    return torch.where(ok, pdf, 0.0)
+
+
+def eval_emitter(er: EmitterRows, erow, wi_world, hit_ng):
+    """Radiance (R, 3) toward wi_world of the area row erow a ray hit."""
+    row = torch.clamp(erow.to(torch.int64), 0, er.cdf.shape[0] - 1)
+    ok = ((erow >= 0) & (dot(wi_world, hit_ng) > 0)
+          & (er.kind[row] == EMITTER_AREA))
+    return torch.where(ok[:, None], er.rows[row, 0:3], 0.0)
+
+
+def eval_env(er: EmitterRows, d):
+    """The environment's radiance (R, 3) along escaped directions d."""
+    if er.env_shape is None:
+        return er.env_rgb.expand(d.shape[0], 3)
+    u, v = env_dir_to_uv(d)
+    return env_bilinear(er.env_tab, er.env_shape, u, v)
+
+
+def env_pdf_dir(er: EmitterRows, d):
+    """Solid-angle pdf of the environment's direct sampling along d, its
+    row's pick probability included (0 without an image)."""
+    if er.env_shape is None:
+        return torch.zeros_like(d[:, 0])
+    u, v = env_dir_to_uv(d)
+    return env_pdf_sa(er.env_tab, er.env_shape, u, v, d[:, 1]) * \
+        er.env_row_pick

@@ -289,9 +289,16 @@ def _append_material(mt, **kw):
     """The material table with one more row (make_material_table's
     defaults for what kw leaves out)."""
     row = st.make_material_table([kw])
+    if any(getattr(t, f) for t in (mt, row) for f in (
+            "has_mask", "has_mixture", "has_coating", "has_normalmap")):
+        raise ValueError("_append_material joins tables without modifiers")
     return dataclasses.replace(mt, **{
         f.name: torch.cat([getattr(mt, f.name), getattr(row, f.name)])
-        for f in dataclasses.fields(mt)})
+        for f in dataclasses.fields(mt)
+        if isinstance(getattr(mt, f.name), torch.Tensor)
+        and getattr(row, f.name) is not None},
+        kinds_present=tuple(sorted(set(mt.kinds_present)
+                                   | set(row.kinds_present))))
 
 
 SCOPE_ENV = (0.4, 0.5, 0.7)

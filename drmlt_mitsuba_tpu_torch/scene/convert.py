@@ -35,20 +35,20 @@ def _optional(cls, name) -> bool:
 def scene_from_arrays(arrays: dict[str, np.ndarray]) -> st.Scene:
     """Build a port Scene from {"group.field": ndarray}.
 
-    Keys outside the port's subset (media, modifier tables, per-vertex
-    colors, ...) raise NotImplementedError naming them; missing keys of
-    the subset raise KeyError, except the optional ones (the texture atlas,
-    the triangle motion, an image environment's tables), which may be
-    absent or None."""
+    Keys outside the port's subset (media, subsurface, woven cloth, ...)
+    raise NotImplementedError naming them; missing keys of the subset
+    raise KeyError, except the optional ones (the texture atlas, the
+    triangle motion, an image environment's tables, the material
+    modifiers, the per-vertex colors "vcolors"), which may be absent or
+    None.  The material table's static fields (kinds_present, has_*,
+    mix_depth) come across as Python values."""
     known = {f"{g}.{f.name}" for g, cls in _GROUPS.items()
-             for f in dataclasses.fields(cls)}
+             for f in dataclasses.fields(cls)} | {"vcolors"}
     extra = sorted(k for k, v in arrays.items()
                    if k not in known and v is not None)
     if extra:
         raise NotImplementedError(f"scene fields not yet ported: {extra}")
     kind = int(np.asarray(arrays.get("camera.kind", st.CAMERA_PERSPECTIVE)))
-    if kind != st.CAMERA_PERSPECTIVE:
-        raise NotImplementedError(f"camera kind {kind} not yet ported")
     parts = {}
     for g, cls in _GROUPS.items():
         if g in _OPTIONAL and all(arrays.get(f"{g}.{f.name}") is None
@@ -58,14 +58,32 @@ def scene_from_arrays(arrays: dict[str, np.ndarray]) -> st.Scene:
         kw = {}
         for f in dataclasses.fields(cls):
             if g == "camera" and f.name == "kind":
+                kw["kind"] = kind
                 continue
             key = f"{g}.{f.name}"
-            if _optional(cls, f.name) and arrays.get(key) is None:
+            if _static(cls, f.name):
+                if key in arrays:
+                    kw[f.name] = _python(arrays[key])
+            elif _optional(cls, f.name) and arrays.get(key) is None:
                 kw[f.name] = None
             else:
                 kw[f.name] = st._t(arrays[key])
         parts[g] = cls(**kw)
-    return st.Scene(**parts)
+    vc = arrays.get("vcolors")
+    return st.Scene(**parts, vcolors=None if vc is None else st._t(vc))
+
+
+def _static(cls, name) -> bool:
+    """A host-side field (a tuple, bool or int default), not a leaf."""
+    f = {x.name: x for x in dataclasses.fields(cls)}[name]
+    return isinstance(f.default, (tuple, bool, int))
+
+
+def _python(v):
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    a = np.asarray(v)
+    return bool(a) if a.dtype == bool else int(a)
 
 
 def replace_leaves(scene: st.Scene, leaves: dict) -> st.Scene:

@@ -1,11 +1,16 @@
 """Flat SoA scene representation (counterpart of
 drmlt_mitsuba_tpu/scene/types.py), as dataclasses of torch tensors.
 
-The port carries the reference megakernels' scene subset: a triangle soup,
-analytic spheres, a material table without modifier wrappers (its albedo
-constant or from a bitmap page of the texture atlas), area emitters plus a
-constant or lat-long image environment, and a perspective camera (pinhole
-or thin lens).  Field names
+The port carries the reference's surface scene scope: a triangle soup,
+analytic spheres (emissive ones included), a material table with the
+modifier wrappers mask, mixture, coating and normal map (its albedo
+constant, from a page of the texture atlas or from per-vertex colors),
+area, point, spot, directional and collimated emitters plus a constant or
+lat-long image environment, and a perspective camera (pinhole or thin
+lens).  The trace kernels cover a subset of it (ops/megatrace.py:
+mega_eligible); the rest renders through the path wavefront
+(integrators/path.py:trace_paths_wavefront).  Media, subsurface and
+woven cloth are not carried.  Field names
 and enum values are the reference's, so `scene/convert.py` can carry a
 reference scene across leaf for leaf.  Above BVH_MIN_TRIS triangles
 `prepare_scene` attaches a BVH (scene/bvh.py), which every kernel walks
@@ -36,10 +41,23 @@ BSDF_DIFFTRANS = 13
 BSDF_HK = 14
 BSDF_IRAWAN = 15
 
+DELTA_BSDFS = (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_MIRROR, BSDF_NULL,
+               BSDF_THIN_DIELECTRIC)
+
 EMITTER_AREA = 0
+EMITTER_POINT = 1        # position delta, intensity I (W/sr)
+EMITTER_DIRECTIONAL = 2  # direction delta, irradiance E
+EMITTER_SPOT = 3         # point with a cone falloff
 EMITTER_ENV = 4          # lat-long image environment
+EMITTER_COLLIMATED = 5   # position and direction delta beam (power W)
 
 CAMERA_PERSPECTIVE = 0
+CAMERA_ORTHOGRAPHIC = 1
+CAMERA_SPHERICAL = 2
+CAMERA_RADIANCEMETER = 3    # one ray, repeated
+CAMERA_TELECENTRIC = 4      # orthographic with a lens (depth of field)
+CAMERA_FLUENCEMETER = 5     # the uniform sphere at a point
+CAMERA_IRRADIANCEMETER = 6  # the cosine hemisphere at a point
 
 # Above this many triangles the kernels walk a BVH instead of sweeping every
 # triangle (the reference's megakernels switch to their clustered traversal
@@ -88,8 +106,26 @@ class MaterialTable:
     roughness: torch.Tensor   # (M,)
     spec_refl: torch.Tensor   # (M, 3)
     spec_trans: torch.Tensor  # (M, 3)
-    tex_id: torch.Tensor      # (M,) int32, -1 = constant albedo
+    tex_id: torch.Tensor      # (M,) int32, -1 = constant albedo, -2 =
+    #                           the mesh's per-vertex colors (Scene.vcolors)
     two_sided: torch.Tensor   # (M,) bool
+    # modifier wrappers (the reference's types.py:73-111), applied around
+    # the core lobes as mask -> coating -> mixture chain -> core kind;
+    # None where no row has the modifier
+    opacity: torch.Tensor | None = None       # (M, 3) mask opacity
+    mix_other: torch.Tensor | None = None     # (M,) int32, -1 = no mixture
+    mix_weight: torch.Tensor | None = None    # (M,) weight of mix_other
+    coat_eta: torch.Tensor | None = None      # (M,), 0 = uncoated
+    coat_sigma_a: torch.Tensor | None = None  # (M, 3) absorption x thickness
+    normal_tex_id: torch.Tensor | None = None  # (M,) int32 normal page, -1
+    # static: the kinds present, the modifier flags and the longest
+    # mix_other chain (as the reference's host-side fields)
+    kinds_present: tuple = ()
+    has_mask: bool = False
+    has_normalmap: bool = False
+    has_mixture: bool = False
+    has_coating: bool = False
+    mix_depth: int = 0
 
 
 @dataclasses.dataclass
@@ -127,6 +163,10 @@ class Camera:
     aperture_radius: torch.Tensor  # scalar
     focus_distance: torch.Tensor   # scalar
     kind: int = CAMERA_PERSPECTIVE
+    # radial distortion (perspective_rdist): film coordinates are the
+    # distorted plane's, p_d = p_u (1 + kc0 r^2 + kc1 r^4); None without
+    kc: torch.Tensor | None = None     # (2,)
+    rdist: bool = False
 
 
 @dataclasses.dataclass
@@ -171,6 +211,21 @@ class Scene:
     bvh: BVH | None = None
     textures: TextureAtlas | None = None
     motion: TriangleMotion | None = None     # None: a static scene
+    # (T, 3 corners, 3) per-vertex colors of the vertexcolors texture
+    # (materials with tex_id == -2); None without one
+    vcolors: torch.Tensor | None = None
+
+
+def to_device(x, device):
+    """A tensor, or a scene dataclass with every tensor leaf, on
+    `device`; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), device)
+            for f in dataclasses.fields(x)})
+    return x
 
 
 def prepare_scene(scene: Scene) -> Scene:
@@ -188,14 +243,15 @@ def prepare_scene(scene: Scene) -> Scene:
 
 
 def make_material_table(mats: list[dict]) -> MaterialTable:
-    """MaterialTable from a list of parameter dicts (host-side)."""
-    unsupported = {"opacity", "mix_other", "mix_weight", "coat_eta",
-                   "coat_sigma_a", "interior_medium", "normal_tex"}
+    """MaterialTable from a list of parameter dicts (host-side), with the
+    reference's modifier columns (types.py:make_material_table): a column
+    exists only when some row uses its modifier.  A per-shape interior
+    medium raises NotImplementedError: media are not ported."""
     for d in mats:
-        bad = unsupported & set(d)
-        if bad:
+        if d.get("interior_medium", -1) >= 0:
             raise NotImplementedError(
-                f"material modifiers not yet ported: {sorted(bad)}")
+                "material modifiers not yet ported: ['interior_medium'] "
+                "(participating media)")
     m = len(mats)
 
     def field(name, default, shape):
@@ -205,8 +261,21 @@ def make_material_table(mats: list[dict]) -> MaterialTable:
                                                 np.float32), shape)
         return _t(out)
 
+    kind = np.array([d["kind"] for d in mats], dtype=np.int32)
+    has_mask = any("opacity" in d for d in mats)
+    has_mixture = any(d.get("mix_other", -1) >= 0 for d in mats)
+    has_coating = any(d.get("coat_eta", 0.0) > 0 for d in mats)
+    has_normalmap = any(d.get("normal_tex", -1) >= 0 for d in mats)
+    mix_other = np.array([d.get("mix_other", -1) for d in mats], np.int32)
+    depth = np.zeros(m, np.int64)
+    for _ in range(m):   # a fixed point: chains are acyclic and short
+        nxt = np.where(mix_other >= 0,
+                       depth[np.clip(mix_other, 0, m - 1)] + 1, 0)
+        if np.array_equal(nxt, depth):
+            break
+        depth = nxt
     return MaterialTable(
-        kind=_t([d["kind"] for d in mats], np.int32),
+        kind=_t(kind),
         albedo=field("albedo", 0.5, (3,)),
         eta=field("eta", 1.5, (3,)),
         k=field("k", 0.0, (3,)),
@@ -215,6 +284,18 @@ def make_material_table(mats: list[dict]) -> MaterialTable:
         spec_trans=field("spec_trans", 1.0, (3,)),
         tex_id=_t([d.get("tex_id", -1) for d in mats], np.int32),
         two_sided=_t([bool(d.get("two_sided", True)) for d in mats], bool),
+        opacity=field("opacity", 1.0, (3,)) if has_mask else None,
+        mix_other=_t(mix_other) if has_mixture else None,
+        mix_weight=field("mix_weight", 0.0, ()) if has_mixture else None,
+        coat_eta=field("coat_eta", 0.0, ()) if has_coating else None,
+        coat_sigma_a=(field("coat_sigma_a", 0.0, (3,)) if has_coating
+                      else None),
+        normal_tex_id=(_t([d.get("normal_tex", -1) for d in mats], np.int32)
+                       if has_normalmap else None),
+        kinds_present=tuple(sorted(set(int(k) for k in kind))),
+        has_mask=has_mask, has_normalmap=has_normalmap,
+        has_mixture=has_mixture, has_coating=has_coating,
+        mix_depth=int(depth.max()),
     )
 
 
@@ -261,35 +342,74 @@ _LUM_W = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
 
 def build_emitters(tris: TriangleSoA, radiance_by_emitter,
-                   env_radiance=(0.0, 0.0, 0.0), env_image=None,
-                   scene_radius: float = 1000.0) -> EmitterTable:
-    """One power-weighted area row per emissive triangle (pick ∝ power,
-    then uniform barycentric), and for a lat-long `env_image` (He, We, 3)
-    one environment row with its sampling tables (pixel pmf ∝ luminance x
-    sin theta), as in the reference's build_emitters (types.py:480)."""
-    kinds, tri_rows, rads, areas, power = [], [], [], [], []
+                   env_radiance=(0.0, 0.0, 0.0), point_pos=None,
+                   point_intensity=None, directional=None, spots=None,
+                   env_image=None, scene_radius: float = 1000.0,
+                   collimated=None) -> EmitterTable:
+    """All emitters in one power-weighted sampling table, with the rows in
+    the reference's order (types.py:480): one area row per emissive
+    triangle (pick ∝ power, then uniform barycentric), point rows
+    (point_pos (P, 3), point_intensity (P, 3)), directional rows (a list
+    of (direction toward the scene, irradiance)), one environment row for
+    a lat-long `env_image` (He, We, 3) with its sampling tables (pixel pmf
+    ∝ luminance x sin theta), spot rows ((pos, intensity, axis, cutoff in
+    degrees)) and collimated rows ((pos, direction, power)).  A
+    collimated beam's direct sampling fails by definition (the
+    reference's collimated.cpp), so it lights nothing a path tracer
+    sees."""
+    kinds, tri_rows, rads, areas, poss, auxs, power = ([], [], [], [], [],
+                                                       [], [])
+    z3, z4 = np.zeros(3, np.float32), np.zeros(4, np.float32)
+
+    def row(kind, rad, pw, tri=0, area=0.0, pos=z3, aux=z4):
+        kinds.append(kind)
+        tri_rows.append(tri)
+        rads.append(np.asarray(rad, np.float32))
+        areas.append(area)
+        poss.append(np.asarray(pos, np.float32))
+        auxs.append(np.asarray(aux, np.float32))
+        power.append(max(pw, 1e-12))
+
     eid = tris.emitter_id.numpy()
     e1s, e2s = tris.e1.numpy(), tris.e2.numpy()
     rad_tab = np.asarray(radiance_by_emitter, np.float32)
     for i in np.nonzero(eid >= 0)[0]:
         area = 0.5 * float(np.linalg.norm(np.cross(e1s[i], e2s[i])))
         rad = rad_tab[eid[i]]
-        kinds.append(EMITTER_AREA)
-        tri_rows.append(int(i))
-        rads.append(rad)
-        areas.append(area)
-        power.append(max(float(rad @ _LUM_W) * area * np.pi, 1e-12))
+        row(EMITTER_AREA, rad, float(rad @ _LUM_W) * area * np.pi,
+            tri=int(i), area=area)
+    if point_pos is not None:
+        for p, inten in zip(np.asarray(point_pos, np.float32),
+                            np.asarray(point_intensity, np.float32)):
+            row(EMITTER_POINT, inten, float(inten @ _LUM_W) * 4.0 * np.pi,
+                pos=p)
+    for d, irr in (directional or []):
+        d = np.asarray(d, np.float32)
+        d = d / np.linalg.norm(d)
+        irr = np.asarray(irr, np.float32)
+        row(EMITTER_DIRECTIONAL, irr,
+            float(irr @ _LUM_W) * np.pi * scene_radius ** 2, pos=d)
     if env_image is not None:
         img = np.asarray(env_image, np.float32)
-        kinds.append(EMITTER_ENV)
-        tri_rows.append(0)
-        rads.append(img.mean(axis=(0, 1)))
-        areas.append(0.0)
         mean_lum = float((img @ _LUM_W).mean())
-        power.append(max(mean_lum * np.pi * scene_radius ** 2, 1e-12))
+        row(EMITTER_ENV, img.mean(axis=(0, 1)),
+            mean_lum * np.pi * scene_radius ** 2)
+    for p, inten, axis, cutoff_deg in (spots or []):
+        axis = np.asarray(axis, np.float32)
+        axis = axis / np.linalg.norm(axis)
+        inten = np.asarray(inten, np.float32)
+        cosc = float(np.cos(np.deg2rad(cutoff_deg)))
+        row(EMITTER_SPOT, inten,
+            float(inten @ _LUM_W) * 2.0 * np.pi * (1 - cosc), pos=p,
+            aux=[*axis, cosc])
+    for p, d, pw in (collimated or []):
+        d = np.asarray(d, np.float32)
+        d = d / np.linalg.norm(d)
+        pw = np.asarray(pw, np.float32)
+        row(EMITTER_COLLIMATED, pw, float(pw @ _LUM_W), pos=p,
+            aux=[*d, 0.0])
     if not kinds:   # keep shapes static: one dummy zero-power area row
-        kinds, tri_rows, areas, power = [EMITTER_AREA], [0], [0.0], [1.0]
-        rads = [np.zeros(3, np.float32)]
+        row(EMITTER_AREA, z3, 1.0)
     E = len(kinds)
     power = np.asarray(power, np.float32)
     pmf = power / power.sum()
@@ -312,22 +432,25 @@ def build_emitters(tris: TriangleSoA, radiance_by_emitter,
     return EmitterTable(
         kind=_t(kinds, np.int32), tri_idx=_t(tri_rows, np.int32),
         radiance=_t(np.stack(rads)), area=_t(areas, np.float32),
-        pos=torch.zeros((E, 3), dtype=torch.float32),
-        aux=torch.zeros((E, 4), dtype=torch.float32),
+        pos=_t(np.stack(poss).reshape(E, 3)),
+        aux=_t(np.stack(auxs).reshape(E, 4)),
         pmf=_t(pmf), cdf=_t(cdf),
         env_radiance=_t(env_radiance, np.float32), **env,
     )
 
 
-def make_spheres(centers, radii, mat_ids) -> SphereSoA:
-    """Valid, non-emissive analytic spheres (emissive spheres are
-    tessellated into triangles, as in the reference's loader)."""
+def make_spheres(centers, radii, mat_ids, emitter_ids=None) -> SphereSoA:
+    """Valid analytic spheres; `emitter_ids` (default none, -1) are
+    emitter-table rows of emissive ones.  The XML loaders tessellate an
+    emissive sphere into triangles instead, since light sampling draws
+    triangle rows only."""
     n = len(radii)
+    eids = (torch.full((n,), -1, dtype=torch.int32) if emitter_ids is None
+            else _t(emitter_ids, np.int32))
     return SphereSoA(
         center=_t(np.asarray(centers, np.float32).reshape(n, 3)),
         radius=_t(radii, np.float32), mat_id=_t(mat_ids, np.int32),
-        emitter_id=torch.full((n,), -1, dtype=torch.int32),
-        valid=torch.ones((n,), dtype=torch.bool))
+        emitter_id=eids, valid=torch.ones((n,), dtype=torch.bool))
 
 
 def set_emitter_rows(tris: TriangleSoA, emitters: EmitterTable):
@@ -344,9 +467,14 @@ def set_emitter_rows(tris: TriangleSoA, emitters: EmitterTable):
 
 def make_camera(to_world, fov_x_deg: float, aspect: float,
                 aperture_radius: float = 0.0,
-                focus_distance: float = 1.0) -> Camera:
-    """Perspective camera from a (4, 4) camera-to-world transform."""
-    tan_x = float(np.tan(np.deg2rad(fov_x_deg) / 2.0))
+                focus_distance: float = 1.0, kind: int = CAMERA_PERSPECTIVE,
+                kc=None) -> Camera:
+    """A camera from a (4, 4) camera-to-world transform: perspective with
+    a horizontal field of view, or of another kind, whose film half-extents
+    are fov_x_deg and fov_x_deg / aspect (the reference's make_camera)."""
+    tan_x = (float(np.tan(np.deg2rad(fov_x_deg) / 2.0))
+             if kind == CAMERA_PERSPECTIVE else float(fov_x_deg))
+    rdist = kc is not None and float(np.abs(np.asarray(kc)).sum()) > 0
     f32 = torch.float32
     return Camera(
         to_world=torch.as_tensor(to_world, dtype=f32),
@@ -354,7 +482,8 @@ def make_camera(to_world, fov_x_deg: float, aspect: float,
         tan_half_fov_y=torch.tensor(tan_x / aspect, dtype=f32),
         aperture_radius=torch.tensor(aperture_radius, dtype=f32),
         focus_distance=torch.tensor(focus_distance, dtype=f32),
-    )
+        kind=kind, kc=torch.as_tensor(kc, dtype=f32) if rdist else None,
+        rdist=rdist)
 
 
 def build_motion(tris0: TriangleSoA, tris1: TriangleSoA) -> TriangleMotion:

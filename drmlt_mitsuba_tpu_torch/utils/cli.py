@@ -48,6 +48,17 @@ the keys the reference reads:
     blocks and `-r` writes <out>_<part>.exr and <out>_time.csv there; the
     clock starts before the render, bootstrap included.
 
+The path-technique routes (path, volpath, volpath_simple, direct, and
+drmlt / pssmlt with technique=path) take the path kernel and the chain
+kernel on a scene the trace kernels cover, and the path wavefront
+(integrators/path.py:trace_paths_wavefront) on any other surface scene:
+the surface BSDFs beyond the kernels' seven, the mask, mixture, coating
+and normal-map wrappers, per-vertex colors, point, spot, directional,
+collimated and daylight emitters (make_path_trace's route; the drmlt
+render is then the generic one, the reference's cli.py:77-86, 123-150).
+The bidirectional routes (bdpt, mmlt) keep the kernels' scene scope and
+raise naming what they lack.
+
 A scene with a thin lens renders MMLT through the bidirectional wavefront
 (integrators/bidir.py:trace_mmlt_wavefront), grouped and pooled: the MMLT
 kernel excludes the lens, as the reference's does.

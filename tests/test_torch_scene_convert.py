@@ -19,7 +19,7 @@ from drmlt_mitsuba_tpu.integrators.layout import PathConfig as JPathConfig
 from drmlt_mitsuba_tpu.scene.builders import cornell_box as jax_cornell
 from drmlt_mitsuba_tpu_torch.integrators.layout import PathConfig
 from drmlt_mitsuba_tpu_torch.ops.megatrace import (
-    mega_eligible, pack_mega_tables_torch,
+    mega_eligible, pack_mega_tables_torch, require_mega_scope,
 )
 from drmlt_mitsuba_tpu_torch.scene.builders import cornell_box
 from drmlt_mitsuba_tpu_torch.scene.convert import scene_from_arrays
@@ -46,8 +46,9 @@ def test_scene_from_arrays_equals_builder():
 
 def test_scene_from_arrays_names_unported_fields():
     arrays = _subset(jax_leaves(jax_cornell(16, 16)))
-    arrays["materials.opacity"] = np.ones((5, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="materials.opacity"):
+    arrays["materials.interior_medium"] = np.zeros(5, np.int32)
+    with pytest.raises(NotImplementedError,
+                       match="materials.interior_medium"):
         scene_from_arrays(arrays)
 
 
@@ -57,14 +58,16 @@ def test_mega_eligible_names_missing_kind():
     thin-lens config is in scope, a lens camera without its dims not."""
     ref = jax_cornell(16, 16, tall_box_material="plastic")
     scene = scene_from_arrays(_subset(jax_leaves(ref)))
+    assert not mega_eligible(scene, PathConfig(max_depth=3))
     with pytest.raises(NotImplementedError, match=r"BSDF kinds \[4\]"):
-        mega_eligible(scene, PathConfig(max_depth=3))
+        require_mega_scope(scene, PathConfig(max_depth=3))
     assert mega_eligible(cornell_box(16, 16), PathConfig(max_depth=3))
     assert mega_eligible(cornell_box(16, 16), PathConfig(thinlens=True))
     lens = cornell_box(16, 16)
     lens.camera.aperture_radius = torch.tensor(10.0)
+    assert not mega_eligible(lens, PathConfig(max_depth=3))
     with pytest.raises(NotImplementedError, match="thinlens=True"):
-        mega_eligible(lens, PathConfig(max_depth=3))
+        require_mega_scope(lens, PathConfig(max_depth=3))
     assert JPathConfig(max_depth=8).n_dims == PathConfig(max_depth=8).n_dims
 
 

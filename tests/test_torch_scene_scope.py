@@ -158,12 +158,14 @@ def test_unported_features_raise_naming_themselves():
     a thin lens, emissive analytic spheres, point emitters."""
     scene = port_scene(jax_scene("kinds"))
     assert MT.mega_eligible(scene, PathConfig(max_depth=3))
+    assert not MT.mega_eligible(scene, PathConfig(max_depth=3, motion=True))
     with pytest.raises(NotImplementedError, match="motion"):
-        MT.mega_eligible(scene, PathConfig(max_depth=3, motion=True))
+        MT.require_mega_scope(scene, PathConfig(max_depth=3, motion=True))
     lens = port_scene(jax_scene("thinlens"))
     assert MT.mega_eligible(lens, PathConfig(thinlens=True))
+    assert not MT.mega_eligible(lens, PathConfig())
     with pytest.raises(NotImplementedError, match="thinlens=True"):
-        MT.mega_eligible(lens, PathConfig())
+        MT.require_mega_scope(lens, PathConfig())
     with pytest.raises(NotImplementedError, match="thin-lens"):
         MM.mega_mmlt_eligible(lens, BDPTConfig(max_depth=3))
     # the bidirectional config takes the lens; the MMLT kernel does not

@@ -133,9 +133,10 @@ def test_cli_cornell_writes_exr(tmp_path, capsys):
     assert np.all(np.isfinite(img)) and img.mean() > 0
     assert "b = " in capsys.readouterr().out
     # a scene XML outside the ported subset raises, naming the element
-    xml = tmp_path / "disk.xml"
-    xml.write_text('<scene version="0.6.0"><shape type="disk"/></scene>')
-    with pytest.raises(NotImplementedError, match="disk"):
+    xml = tmp_path / "heightfield.xml"
+    xml.write_text('<scene version="0.6.0"><shape type="heightfield"/>'
+                   '</scene>')
+    with pytest.raises(NotImplementedError, match="heightfield"):
         cli.main([str(xml), "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli.main(["cornell", "-D", "nope=1", "--device", "cpu"])

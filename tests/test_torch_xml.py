@@ -67,8 +67,8 @@ def test_load_obj_equals_reference():
             else:
                 assert a.dtype == b.dtype
                 np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="PLY"):
-        load_mesh_ex("mesh.ply")
+    with pytest.raises(ValueError, match="unsupported mesh format"):
+        load_mesh_ex("mesh.stl")
 
 
 def test_large_scene_equals_reference(large):
@@ -166,10 +166,10 @@ def test_synthetic_xml_equals_reference(tmp_path):
 
 
 @pytest.mark.parametrize("element, name", [
-    ('<bsdf type="plastic" id="m"/>', "plastic"),
-    ('<shape type="disk"><float name="radius" value="1"/></shape>',
-     "disk"),
-    ('<emitter type="point"/>', "point"),
+    ('<bsdf type="irawan" id="m"/>', "irawan"),
+    ('<shape type="heightfield"><float name="scale" value="1"/></shape>',
+     "heightfield"),
+    ('<medium type="homogeneous"/>', "medium"),
     ('<shape type="rectangle"><bsdf type="diffuse"><texture '
      'type="bitmap"><string name="filename" value="a.png"/></texture>'
      '</bsdf></shape>', "bitmap"),
